@@ -15,6 +15,8 @@ the maths appears in the source paper:
 
 from __future__ import annotations
 
+import numbers
+
 from .ir import (Access, BinOp, BinOpKind, Cmp, CmpKind, CoeffRef, Const,
                  Expr, FieldDecl, FieldRole, Program, ScalarRef, Select,
                  StencilOp, UnOp, UnOpKind)
@@ -29,7 +31,7 @@ __all__ = [
 def _wrap(x) -> Expr:
     if isinstance(x, ExprHandle):
         return x.expr
-    if isinstance(x, (int, float)):
+    if isinstance(x, numbers.Real):
         return Const(float(x))
     if isinstance(x, Expr):
         return x
@@ -44,6 +46,12 @@ class ExprHandle:
 
     def __init__(self, expr: Expr):
         self.expr = expr
+
+    def __bool__(self):
+        # a traced value has no truth value: branching on it would bake one
+        # arm into the expression
+        raise TypeError("a stencil expression has no truth value; use "
+                        "where(...) instead of a Python branch")
 
     # -- arithmetic ----------------------------------------------------
     def _bin(self, other, kind, swap=False):

@@ -3,8 +3,10 @@ port of ``repro.core.lower_pallas``).
 
 Runs the plan's fuse groups in order, each as its generated CUDA kernel
 (:mod:`repro_torch.kernels.stencil3d`; the kernel's plain PyTorch version
-on CPU tensors).  Fields crossing a group boundary are materialised in
-device memory and re-padded for the consuming group's windows.  All groups
+on CPU tensors).  The stream schedule (``core.lower_stream``) drives its
+sweep kernels through the same orchestrators.  Fields crossing a group
+boundary are materialised in device memory and re-padded for the
+consuming group's windows.  All groups
 of one compiled program share one translation unit, built by one ``nvcc``
 call on first launch.
 """
@@ -133,10 +135,27 @@ def lower_time_loop(p: Program, plan: DataflowPlan, grid_shape,
 
 
 def time_loop_from_calls(p: Program, dtype, grid_shape, spec: TimeLoopSpec,
-                         update, calls, device):
-    """Fused-loop orchestrator over prebuilt kernel calls."""
+                         update, calls, device, chain: int = 1,
+                         epilogue=None):
+    """Fused-loop orchestrator over prebuilt kernel calls (shared with the
+    stream schedule, whose carries have no alignment slab).
+
+    ``chain`` is how many time steps one pass over ``calls`` advances: 1
+    for plain kernels (stencil outputs, then one update here), T for a
+    temporally blocked stream chain, which applies all T updates in-kernel
+    and *returns the new fields* (``call.returns_fields``), so the loop
+    only writes them back into the carry.  The loop runs
+    ``spec.steps // chain`` times; ``epilogue``, a second call list
+    advancing ``spec.steps % chain`` steps, runs once after it and reads
+    its (shallower) windows out of the same carry through ``input_pad``.
+    """
     update = adapt_update(update)
     ndim = p.ndim
+    chain = max(1, int(chain))
+    if int(spec.steps) % chain and epilogue is None:
+        raise ValueError(
+            f"steps={spec.steps} is not a multiple of the chain depth "
+            f"{chain} and no remainder epilogue was provided")
     fpad = spec.field_pad
     bnd = p.boundaries()
     align = spec.align_hi or (0,) * ndim
@@ -159,25 +178,42 @@ def time_loop_from_calls(p: Program, dtype, grid_shape, spec: TimeLoopSpec,
         coeffs = coeffs or {}
         svec = _scalar_vec(p, scalars)
         pc_per_call = _pad_coeffs(p, calls, coeffs, dtype, device)
+        pc_epilogue = (_pad_coeffs(p, epilogue, coeffs, dtype, device)
+                       if epilogue else None)
         carry = {f: refill(f, torch.as_tensor(fields[f], dtype=dtype,
                                               device=device))
                  for f in spec.persistent}
 
-        def resolve(call, f, env):
-            if f in carry:              # persistent: window from carry
-                return carry[f], fpad[f]
-            return bc.pad_field(env[f], call.halo_lo, call.halo_hi,
-                                bnd[f], align_hi=call.align_hi
-                                ).contiguous(), None
-
-        for _ in range(int(spec.steps)):
-            outputs = _run_groups(p, calls, svec, pc_per_call, resolve)
+        def advance(carry, calls_, pc_):
             cur = {f: carry[f][interior[f]] for f in spec.persistent}
-            new = dict(cur)
-            new.update(update(cur, outputs, scalars))
-            carry = write_back(carry, cur, new, interior, spec.carry_write,
-                               bnd, refill)
+            if getattr(calls_[0], "returns_fields", False):
+                # a chained sweep: one call advances every field by its
+                # chain depth, updates included
+                call = calls_[0]
+                new = dict(cur)
+                new.update(call({f: carry[f] for f in call.group_inputs},
+                                svec, pc_[0],
+                                input_pad={f: fpad[f]
+                                           for f in call.group_inputs}))
+            else:
+                def resolve(call, f, env):
+                    if f in carry:          # persistent: window from carry
+                        return carry[f], fpad[f]
+                    return bc.pad_field(env[f], call.halo_lo, call.halo_hi,
+                                        bnd[f], align_hi=call.align_hi
+                                        ).contiguous(), None
+
+                outputs = _run_groups(p, calls_, svec, pc_, resolve)
+                new = dict(cur)
+                new.update(update(cur, outputs, scalars))
+            return write_back(carry, cur, new, interior, spec.carry_write,
+                              bnd, refill)
+
+        for _ in range(int(spec.steps) // chain):
+            carry = advance(carry, calls, pc_per_call)
+        if int(spec.steps) % chain:
+            carry = advance(carry, epilogue, pc_epilogue)
         return {f: carry[f][interior[f]] for f in spec.persistent}
 
-    run.calls = calls
+    run.calls = list(calls) + list(epilogue or [])
     return run

@@ -6,7 +6,10 @@
     out = ex(fields, scalars, coeffs)                    # dict of tensors
 
 Backends:
-    "cuda"         generated CUDA C++ fuse-group kernels (the default)
+    "cuda"         generated CUDA C++ kernels (the default): fuse-group
+                   kernels under ``schedule="block"``, shift-register sweep
+                   kernels under ``schedule="stream"`` (with ``time_tile``
+                   and ``plane_tile``)
     "torch_fused"  full-tensor evaluation with one shared memo
     "torch_naive"  op-at-a-time full-tensor evaluation
 
@@ -19,25 +22,22 @@ compile raises; it never falls back to the CPU.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Mapping
 
 import torch
 
-from ..obs.events import PlanChosen
+from ..obs.events import ChainDemoted, PlanChosen
 from ..obs.metrics import global_metrics
 from ..obs.trace import resolve_tracer
-from . import lower_kernel, lower_torch
+from . import dataflow, lower_kernel, lower_stream, lower_torch
 from .ir import Program
-from .schedule import (STREAM_ITEM, DataflowPlan, TimeLoopSpec, auto_plan,
-                       plan_time_loop)
+from .schedule import DataflowPlan, TimeLoopSpec, auto_plan, plan_time_loop
 
 _BACKENDS = ("cuda", "torch_fused", "torch_naive")
 
 #: ROADMAP items that port what this compile path still refuses
 _LATER = {
-    "schedule": STREAM_ITEM,
-    "time_tile": STREAM_ITEM,
-    "plane_tile": STREAM_ITEM,
     "mesh": "ROADMAP A7 (distribution)",
     "tuned": "ROADMAP A6 (roofline and tuner)",
 }
@@ -45,8 +45,8 @@ _LATER = {
 
 class TileDemotionWarning(UserWarning):
     """An explicitly requested ``time_tile``/``plane_tile`` was demoted by
-    stream legalisation (kept for the reference's API; the port's stream
-    schedule is a later slice, so nothing emits it yet)."""
+    stream legalisation, or by an update rule the chain cannot run
+    in-kernel."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,9 +61,8 @@ class CompileOptions:
     orchestration on the CPU (the ``"cuda"`` backend then uses each
     kernel's plain PyTorch version).
 
-    ``schedule="stream"``, ``time_tile > 1``, ``plane_tile > 1``, ``mesh=``
-    and ``strategy="tuned"`` raise ``NotImplementedError`` naming the
-    ROADMAP item that ports them.
+    ``mesh=`` and ``strategy="tuned"`` raise ``NotImplementedError``
+    naming the ROADMAP item that ports them.
     """
 
     backend: str = "cuda"
@@ -132,14 +131,16 @@ def resolve_device(device) -> torch.device:
 
 def _check_schedule(backend: str, schedule: str | None) -> None:
     """THE capability gate for schedule x backend combinations: the block
-    schedule runs on every backend; the stream schedule is not ported."""
+    schedule runs on every backend, the stream schedule on ``"cuda"``."""
     if schedule not in (None, "block", "stream"):
         raise ValueError(f"unknown schedule {schedule!r}; valid: 'block', "
                          "'stream'")
-    if schedule == "stream":
-        raise NotImplementedError(
-            f"schedule='stream' (backend {backend!r}) is not ported yet: "
-            f"{STREAM_ITEM}")
+    if schedule == "stream" and backend != "cuda":
+        raise ValueError(
+            "schedule='stream' is a CUDA dataflow schedule; backend "
+            f"{backend!r} has no streaming lowering. Valid combinations: "
+            "schedule='block' with any backend, or schedule='stream' with "
+            "backend='cuda' (time_tile >= 1, plane_tile >= 1)")
 
 
 @dataclasses.dataclass
@@ -173,6 +174,14 @@ def compile_program(p: Program, grid, *,
 
     ``boundary=`` overrides the program's per-field boundary declarations
     (``"zero"`` / ``"periodic"`` or a ``{field: kind}`` mapping).
+
+    ``schedule="stream"`` sweeps each legalised region along axis 0 with a
+    shift-register kernel.  ``time_tile=T`` (needs ``steps``/``update``)
+    chains T steps through every sweep: the loop runs ``steps // T``
+    chained sweeps plus one remainder sweep.  ``plane_tile=P`` advances P
+    planes per step of the sweep.  Legalisation may demote either to an
+    *effective* 1 (``plan.stream.time_tile``/``plane_tile``); an explicit
+    request that was demoted warns ``TileDemotionWarning``.
     """
     o = _resolve_options(options, kwargs)
     tracer = resolve_tracer(o.trace)
@@ -197,13 +206,15 @@ def _compile(p: Program, grid, o: CompileOptions, tracer,
         raise ValueError(f"unknown backend {backend!r}; valid: "
                          + ", ".join(repr(b) for b in _BACKENDS))
     _check_schedule(backend, o.schedule)
-    for knob in ("time_tile", "plane_tile"):
-        v = getattr(o, knob)
+    time_tile, plane_tile = o.time_tile, o.plane_tile
+    for knob, v in (("time_tile", time_tile), ("plane_tile", plane_tile)):
         if v is not None and int(v) < 1:
             raise ValueError(f"{knob} must be >= 1, got {v}")
-        if v is not None and int(v) > 1:
-            raise NotImplementedError(
-                f"{knob}={v} is not ported yet: {_LATER[knob]}")
+    if time_tile is not None and int(time_tile) > 1 and steps is None:
+        raise ValueError(
+            "time_tile > 1 pipelines T time steps through one stream "
+            "sweep, which applies the update rule in-kernel — it needs "
+            "the fused loop: pass steps=N and update=")
     if o.mesh is not None or o.mesh_axes is not None:
         raise NotImplementedError(f"mesh= is not ported yet: {_LATER['mesh']}")
     if o.strategy == "tuned":
@@ -215,12 +226,38 @@ def _compile(p: Program, grid, o: CompileOptions, tracer,
 
     if plan is None:
         plan = auto_plan(p, grid, backend=backend, dtype=dtype,
-                         strategy=o.strategy, steps=steps)
-    _check_schedule(backend, plan.schedule)
+                         strategy=o.strategy, steps=steps,
+                         schedule=o.schedule or "block",
+                         time_tile=int(time_tile or 1),
+                         plane_tile=int(plane_tile or 1))
     # the executable always gets its own copy, retargeted to the backend
+    # and to any explicitly requested schedule or tile
+    overrides = {"backend": backend}
+    if time_tile is not None:
+        overrides["time_tile"] = int(time_tile)
+    if plane_tile is not None:
+        overrides["plane_tile"] = int(plane_tile)
+    if o.schedule is not None and plan.schedule != o.schedule:
+        # a stream plan's block is a one-plane placeholder: retargeting it
+        # to the block schedule re-derives a real tile
+        overrides.update(schedule=o.schedule, stream=None)
+        if o.schedule == "block":
+            overrides.setdefault("time_tile", 1)
+            overrides.setdefault("plane_tile", 1)
+            overrides["block"] = auto_plan(p, grid, backend=backend,
+                                           dtype=plan.dtype).block
     plan = dataclasses.replace(plan, groups=[list(g) for g in plan.groups],
-                               backend=backend)
+                               **overrides)
+    _check_schedule(backend, plan.schedule)
     carry_write = carry_write or "repad"
+
+    graph = None
+    group_halos = None
+    if plan.schedule == "stream":
+        metrics.counter("compile.stream_lowerings").inc()
+        graph, plan = _legalise_stream(p, plan, grid, steps, update,
+                                       time_tile, plane_tile, tracer)
+        group_halos = graph.group_halos()
 
     time_spec = None
     if steps is not None:
@@ -228,8 +265,12 @@ def _compile(p: Program, grid, o: CompileOptions, tracer,
             raise ValueError("steps=N requires an update(fields, outputs) "
                              "rule to close the time loop")
         time_spec = plan_time_loop(p, plan, grid, steps,
-                                   carry_write=carry_write)
-        if backend == "cuda":
+                                   carry_write=carry_write,
+                                   group_halos=group_halos)
+        if graph is not None:
+            fn = lower_stream.lower_time_loop(p, plan, grid, time_spec,
+                                              update, device, graph=graph)
+        elif backend == "cuda":
             fn = lower_kernel.lower_time_loop(p, plan, grid, time_spec,
                                               update, device)
         else:
@@ -237,20 +278,73 @@ def _compile(p: Program, grid, o: CompileOptions, tracer,
                 p, backend.removeprefix("torch_"), time_spec, update),
                 p, plan.dtype, device)
         metrics.counter("compile.fused_loops").inc()
+    elif graph is not None:
+        fn = lower_stream.lower(p, plan, grid, device, graph=graph)
     elif backend == "cuda":
         fn = lower_kernel.lower(p, plan, grid, device)
     else:
         fn = _on_device(lower_torch.lower(p, backend.removeprefix("torch_")),
                         p, plan.dtype, device)
     if tracer.enabled:
-        sp.set(schedule=plan.schedule, steps=steps, device=str(device))
+        eff = plan.stream if plan.stream is not None else plan
+        sp.set(schedule=plan.schedule, time_tile=int(eff.time_tile),
+               plane_tile=int(eff.plane_tile), steps=steps,
+               device=str(device))
         if o.plan is None:
             tracer.emit(PlanChosen(
                 program=p.name, backend=backend, schedule=plan.schedule,
-                strategy=o.strategy, label="auto_plan"))
+                strategy=o.strategy, label="auto_plan",
+                time_tile=int(eff.time_tile),
+                plane_tile=int(eff.plane_tile)))
     return CompiledStencil(program=p, plan=plan, grid=grid, _fn=fn,
                            device=device, time_spec=time_spec,
                            kernels=list(getattr(fn, "calls", [])))
+
+
+def _legalise_stream(p: Program, plan: DataflowPlan, grid: tuple, steps,
+                     update, time_tile, plane_tile, tracer):
+    """Legalise a stream plan once: regions, window depths and rings, and
+    the effective tiles, which the carry sizing, the plan's ``stream``
+    record and the kernels all share.  A chain whose update rule cannot
+    run in-kernel (not plane-local, or not traceable) demotes to
+    ``time_tile=1`` with the same event as a legality demotion; an
+    explicitly requested tile that was demoted warns."""
+    update_demote = None
+    if plan.time_tile > 1 and steps is not None:
+        if not getattr(update, "_plane_local", True):
+            update_demote = ("update rule is not plane-local (it reads "
+                             "beyond the resident planes), so chained "
+                             "stages cannot apply it in-kernel")
+        else:
+            probe = dataflow.lower_to_dataflow(p, plan, grid)
+            if probe.time_tile > 1:
+                r = probe.regions[0]
+                outs = [p.ops[i].out for i in r.ops
+                        if p.ops[i].out in set(r.halo.group_outputs)]
+                _, update_demote = lower_stream.trace_update(
+                    p, update, r.halo.group_inputs, outs)
+        if update_demote is not None:
+            if tracer.enabled:
+                tracer.emit(ChainDemoted(program=p.name,
+                                         requested=int(plan.time_tile),
+                                         effective=1, reason=update_demote))
+            plan = dataclasses.replace(plan, time_tile=1)
+    graph = dataflow.lower_to_dataflow(p, plan, grid)
+    plan = dataclasses.replace(plan, stream=graph.spec())
+    if (time_tile is not None and int(time_tile) > 1
+            and graph.time_tile < int(time_tile)):
+        reason = update_demote or dataflow.chain_split_reason(
+            p, [list(r.ops) for r in graph.regions])
+        warnings.warn(f"time_tile={time_tile} demoted to effective "
+                      f"{graph.time_tile} for {p.name!r}: {reason}",
+                      TileDemotionWarning, stacklevel=4)
+    if (plane_tile is not None and int(plane_tile) > 1
+            and graph.plane_tile < int(plane_tile)):
+        reason = dataflow.plane_split_reason(p, int(plane_tile), grid)
+        warnings.warn(f"plane_tile={plane_tile} demoted to effective "
+                      f"{graph.plane_tile} for {p.name!r}: {reason}",
+                      TileDemotionWarning, stacklevel=4)
+    return graph, plan
 
 
 def _on_device(fn, p: Program, dtype: str, device):

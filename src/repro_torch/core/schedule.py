@@ -1,17 +1,22 @@
 """DataflowPlan — the HLS-dialect analogue, planned on Hopper terms (the
-port of ``repro.core.schedule``, block schedule).
+port of ``repro.core.schedule``).
 
-A plan is pure data: fuse groups (which ops share one kernel) and the
-output tile ``block`` one CTA computes.  :func:`plan_to_dict` /
+A plan is pure data: fuse groups (which ops share one kernel), the output
+tile ``block`` one CTA computes (block schedule), and for the stream
+schedule the legalised shift-register geometry (``StreamSpec``) with the
+requested ``time_tile``/``plane_tile``.  :func:`plan_to_dict` /
 :func:`plan_from_dict` use the reference's serialised layout, so a plan
-written by the JAX package reads back here unchanged (``StreamSpec`` is
-carried as data only; the stream schedule is not lowered yet).
+written by the JAX package reads back here unchanged.
 
 Where the reference prices a tile against a TPU VMEM budget with a
 128-lane quantum, :func:`smem_cost` prices it against the shared memory one
 CTA may use on an H100 (227 KB), and the contiguous axis is tiled in
 multiples of a 32-thread warp for coalescing.  Fuse groups are exactly
-``passes.stage_split``'s; only the tile differs from the reference.
+``passes.stage_split``'s; only the tile differs from the reference.  The
+reference's stream plans keep whole planes resident; the port's sweep
+kernel tiles the non-stream axes instead (:func:`plan_stream_cta`), so a
+stream plan's ``block`` stays the reference's one-plane placeholder and
+the CTA tile is derived when the kernel is built.
 """
 
 from __future__ import annotations
@@ -39,15 +44,12 @@ LANE_TILES = (32, 64, 128)
 MAX_TX = 128
 MAX_THREADS = 512
 
-#: ROADMAP items that port what this slice refuses
-STREAM_ITEM = "ROADMAP A5 / B2 (stream schedule)"
-
-
 @dataclasses.dataclass
 class StreamSpec:
-    """Shift-register geometry of a ``schedule="stream"`` plan, as written
-    by the reference planner.  Carried as data only, so that reference plan
-    dicts round-trip; the port does not lower the stream schedule yet."""
+    """Shift-register geometry of a ``schedule="stream"`` plan: the
+    legalised regions (op indices), per-region window depths, temp ring
+    depths and stream leads, and the *effective* ``time_tile`` and
+    ``plane_tile`` (``dataflow.StreamGraph.spec``)."""
 
     axis: int = 0
     regions: tuple = ()
@@ -112,7 +114,7 @@ class DataflowPlan:
     halo_every: int = 1
     # iteration schedule: "block" tiles the output, one CTA per tile
     schedule: str = "block"
-    # stream geometry of a reference stream plan (data only)
+    # legalised stream geometry (stream schedule only)
     stream: StreamSpec | None = None
     # temporal blocking depth (stream schedule only)
     time_tile: int = 1
@@ -308,8 +310,11 @@ def plan_time_loop(p: Program, plan: DataflowPlan, grid: Sequence[int],
     For the kernel backend a field's carry padding is the elementwise max of
     the window halos of every fuse group consuming it, plus the tile
     alignment padding on the hi side (so any group can read its window
-    straight out of the carry through a base offset).  The torch backends
-    share the same spec minus alignment, widened to every op's raw reach.
+    straight out of the carry through a base offset); stream plans carry no
+    alignment slab (the sweep kernel masks its ragged tiles itself) and
+    take their halos from the dataflow regions (:func:`plan_group_halos`).
+    The torch backends share the same spec minus alignment, widened to
+    every op's raw reach.
     """
     grid = tuple(int(g) for g in grid)
     ndim = p.ndim
@@ -319,7 +324,7 @@ def plan_time_loop(p: Program, plan: DataflowPlan, grid: Sequence[int],
     persistent = p.input_fields()
 
     align_hi = np.zeros(ndim, dtype=np.int64)
-    if plan.backend == "cuda":
+    if plan.backend == "cuda" and plan.schedule != "stream":
         # mirror build_group_call's tile geometry exactly
         block = clamp_block(plan.block[:ndim], grid)
         tiles = tuple(-(-grid[a] // block[a]) for a in range(ndim))
@@ -328,7 +333,7 @@ def plan_time_loop(p: Program, plan: DataflowPlan, grid: Sequence[int],
 
     field_pad = {f: _zeros(ndim) for f in persistent}
     if group_halos is None:
-        group_halos = [infer_halo(p, grp) for grp in plan.groups]
+        group_halos = plan_group_halos(p, plan)
     for gh in group_halos:
         for f in gh.group_inputs:
             if f in field_pad:
@@ -381,19 +386,246 @@ def window_bytes(p: Program, gh, block: Sequence[int], dtype: str) -> int:
 def smem_cost(p: Program, plan: DataflowPlan, grid: Sequence[int]) -> int:
     """Bytes of shared memory one CTA of the *largest* group claims.
 
-    The generated kernel stages every group input's window (tile + input
-    halo) in shared memory and keeps in-group temps in registers (each
-    thread evaluates the temps it needs at every offset it needs them), so
-    the claim is the windows alone.  Fused-loop carries do not enlarge it:
-    the kernel reads its own window out of an oversized carry through a
-    base offset.  Blocks are clipped to the grid as the kernel clips them.
+    Block schedule: the generated kernel stages every group input's window
+    (tile + input halo) in shared memory and keeps in-group temps in
+    registers (each thread evaluates the temps it needs at every offset it
+    needs them), so the claim is the windows alone.  Fused-loop carries do
+    not enlarge it: the kernel reads its own window out of an oversized
+    carry through a base offset.  Blocks are clipped to the grid as the
+    kernel clips them.
+
+    Stream schedule: the largest sweep-kernel CTA over the legalised
+    regions at the effective ``time_tile``/``plane_tile``
+    (:func:`plan_stream_cta`), which replaces the reference's VMEM price
+    of whole resident planes.
     """
+    grid = tuple(int(g) for g in grid)
     if plan.schedule == "stream":
-        raise NotImplementedError(
-            f"shared-memory cost of stream plans: {STREAM_ITEM}")
+        from .dataflow import lower_to_dataflow
+        graph = lower_to_dataflow(p, plan, grid)
+        return max(plan_stream_cta(p, r, grid, graph.time_tile,
+                                   graph.plane_tile, plan.dtype).smem_bytes
+                   for r in graph.regions)
     blk = clamp_block(plan.block[:p.ndim], grid)
     return max(window_bytes(p, infer_halo(p, grp), blk, plan.dtype)
                for grp in plan.groups)
+
+
+def plan_group_halos(p: Program, plan: DataflowPlan) -> list:
+    """One :class:`~repro_torch.core.passes.GroupHalo` per executed kernel
+    of ``plan``: block-schedule fuse groups via :func:`infer_halo`, stream
+    regions (post-legalisation, with shift-register stream-axis halos,
+    chain-accumulated when ``time_tile > 1``) via the dataflow layer.
+    Carry sizing goes through here, so the padding always matches what the
+    lowered kernels read."""
+    if plan.schedule == "stream":
+        from .dataflow import lower_to_dataflow
+        return lower_to_dataflow(p, plan).group_halos()
+    return [infer_halo(p, grp) for grp in plan.groups]
+
+
+# --------------------------------------------------------------------------
+# The stream sweep kernel's CTA (2.5-D blocking)
+# --------------------------------------------------------------------------
+
+#: tiles of the stream kernel's CTA over the non-stream axes: outer axes in
+#: powers of two, the contiguous axis in one, two or four warps
+STREAM_OUTER_TILES = (1, 2, 4, 8, 16, 32)
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamBuffer:
+    """One shared-memory buffer of a sweep-kernel CTA: ``slots`` planes of
+    ``extent`` (per non-stream axis), rotated by plane index.
+
+    ``key`` is ``("win", field)`` for an input's window (storage dtype),
+    ``("field", stage, field)`` for a chain stage's ring of updated fields,
+    or ``("op", stage, out)`` for an op's result plane or temp ring (both
+    float32)."""
+
+    key: tuple
+    slots: int
+    extent: tuple
+    itemsize: int
+
+    @property
+    def nbytes(self) -> int:
+        raw = self.slots * int(np.prod(self.extent)) * self.itemsize
+        return -(-raw // 16) * 16
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamCTA:
+    """Geometry of one CTA of a region's sweep kernel: its tile of the
+    non-stream axes, threads, shared-memory buffers, and the chunk of the
+    stream axis it owns (``warmup`` planes before the chunk are computed
+    again so every window, ring and chain stage is exact at its start)."""
+
+    tile: tuple
+    threads: tuple
+    buffers: tuple
+    chunk: int
+    n_chunks: int
+    warmup: int
+    tiles: tuple
+
+    @property
+    def smem_bytes(self) -> int:
+        return sum(b.nbytes for b in self.buffers)
+
+    @property
+    def ctas(self) -> int:
+        return int(np.prod(self.tiles)) * self.n_chunks
+
+
+def stream_stage_add(region) -> np.ndarray:
+    """(ndim, 2) halo step each remaining chain stage adds on the
+    non-stream axes (the region's per-step input halo; 0 on axis 0)."""
+    add = np.array(region.halo.input_halo, dtype=np.int64)
+    add[0] = 0
+    return add
+
+
+def stream_plane_ops(p: Program, region, updates: bool) -> list:
+    """Ops of ``region`` whose results a CTA keeps in shared memory: those
+    read by another op of the region (same plane or ring), and, when the
+    kernel applies the update rule (``updates``: a chain, or its
+    remainder), the region's outputs, which the rule reads."""
+    produced = {p.ops[i].out for i in region.ops}
+    keep = {a.field for i in region.ops for a in p.ops[i].accesses()
+            if a.field in produced}
+    if updates:
+        keep |= produced & set(region.halo.group_outputs)
+    return [p.ops[i].out for i in region.ops if p.ops[i].out in keep]
+
+
+def stream_buffers(p: Program, region, time_tile: int, plane_tile: int,
+                   tile: Sequence[int], dtype: str,
+                   updates: bool | None = None) -> list:
+    """The shared-memory buffers of one CTA computing ``tile`` (one extent
+    per non-stream axis), in layout order: every input's window of
+    ``depth + plane_tile - 1`` planes widened by the chain's T-fold halo;
+    per chain stage after the first, a ring of ``depth`` updated planes of
+    each field; per stage, a plane (or a ring) of each op in
+    :func:`stream_plane_ops` at the stage's margin.  ``updates`` defaults
+    to ``time_tile > 1``."""
+    T, P = max(1, int(time_tile)), max(1, int(plane_tile))
+    if updates is None:
+        updates = T > 1
+    gh = region.halo
+    ndim = p.ndim
+    add = stream_stage_add(region)
+    span = add[1:, 0] + add[1:, 1]
+    tile = np.asarray(tile, dtype=np.int64)
+    bufs = [StreamBuffer(("win", f), int(region.depths[f]) + P - 1,
+                         tuple(int(x) for x in tile + T * span),
+                         hw.DTYPE_BYTES[dtype])
+            for f in gh.group_inputs]
+    for s in range(1, T):
+        bufs += [StreamBuffer(("field", s, f), int(region.depths[f]),
+                              tuple(int(x) for x in tile + (T - s) * span), 4)
+                 for f in gh.group_inputs]
+    keep = stream_plane_ops(p, region, updates)
+    margins = {p.ops[i].out: gh.margins[i] for i in region.ops}
+    for s in range(T):
+        for out in keep:
+            m = margins[out][1:ndim] + (T - 1 - s) * add[1:]
+            bufs.append(StreamBuffer(
+                ("op", s, out), int(region.rings.get(out, 1)),
+                tuple(int(x) for x in tile + m[:, 0] + m[:, 1]), 4))
+    return bufs
+
+
+def stream_warmup(p: Program, region, time_tile: int) -> int:
+    """Planes a CTA computes before the first plane of its chunk so that
+    everything it stores is exact: the longest chain of temp-ring
+    back-references, plus, per chain stage after the first, the deepest
+    reach below the output plane of the region's inputs (the reference's
+    sharded-sweep lo halo, ``dataflow.stream_halo(stream_sharded=True)``).
+    """
+    ops = list(region.ops)
+    producer = {p.ops[i].out: i for i in ops}
+    back = {i: 0 for i in ops}
+    for i in reversed(ops):
+        for a in p.ops[i].accesses():
+            if a.field in producer:
+                j = producer[a.field]
+                back[j] = max(back[j], back[i] - int(a.offset[0]))
+    reach = max([back[i] - int(a.offset[0]) for i in ops
+                 for a in p.ops[i].accesses() if a.field not in producer]
+                + [0])
+    return max(back.values()) + (max(1, int(time_tile)) - 1) * reach
+
+
+def plan_stream_cta(p: Program, region, grid: Sequence[int], time_tile: int,
+                    plane_tile: int, dtype: str,
+                    smem_budget: int = hw.H100.smem_per_block,
+                    tile: Sequence[int] | None = None,
+                    chunk: int | None = None,
+                    updates: bool | None = None) -> StreamCTA:
+    """The CTA of a region's sweep kernel on the H100 (2.5-D blocking).
+
+    Tile: among :data:`STREAM_OUTER_TILES` x :data:`LANE_TILES` (clipped to
+    the grid) whose buffers fit ``smem_budget``, the one keeping the most
+    threads resident per SM, then the fewest buffer bytes per output point,
+    then the largest.  Chunks: the stream axis is cut into the number of
+    chunks that minimises the modelled time, waves of CTAs (132 SMs times
+    the CTAs one SM holds) times the planes each CTA sweeps, warm-up
+    included, then the fewest chunks; no chunk is shorter than four times
+    the planes it recomputes to warm up (nor 16 planes).  ``tile`` and
+    ``chunk`` override the choice (tests);
+    ``updates`` is :func:`stream_buffers`'."""
+    grid = tuple(int(g) for g in grid)
+    T, P = max(1, int(time_tile)), max(1, int(plane_tile))
+    spec = hw.H100
+
+    def block3(t):
+        return (1,) * (3 - len(t)) + tuple(t)
+
+    if tile is None:
+        axes = [sorted({min(t, g) for t in STREAM_OUTER_TILES})
+                for g in grid[1:-1]]
+        axes.append(sorted({min(t, grid[-1]) for t in LANE_TILES}))
+        best, best_key = None, None
+        for t in itertools.product(*axes):
+            smem = sum(b.nbytes for b in stream_buffers(p, region, T, P, t,
+                                                        dtype, updates))
+            if smem > smem_budget:
+                continue
+            key = (resident_threads(block3(t), smem),
+                   -smem / int(np.prod(t)), int(np.prod(t)))
+            if best_key is None or key > best_key:
+                best, best_key = t, key
+        if best is None:
+            raise ValueError(
+                f"no sweep-kernel tile of {p.name!r} region {region.ops} "
+                f"fits {smem_budget} B of shared memory at time_tile={T}, "
+                f"plane_tile={P}")
+        tile = best
+    tile = tuple(min(int(t), g) for t, g in zip(tile, grid[1:]))
+    bufs = tuple(stream_buffers(p, region, T, P, tile, dtype, updates))
+    smem = sum(b.nbytes for b in bufs)
+    threads = cta_threads(block3(tile))
+    tiles = tuple(-(-g // t) for g, t in zip(grid[1:], tile))
+    warm = stream_warmup(p, region, T)
+    n0 = grid[0]
+    if chunk is None:
+        per_sm = max(1, resident_threads(block3(tile), smem)
+                     // (threads[0] * threads[1]))
+        slots = spec.sms * per_sm
+        extra = warm + (T - 1) * int(region.lead)
+        shortest = max(16, 4 * extra)
+
+        def modelled(n):
+            # waves of CTAs times the planes each CTA sweeps
+            waves = -(-int(np.prod(tiles)) * n // slots)
+            return waves * (-(-n0 // n) + extra), n
+
+        n = min(range(1, max(1, n0 // shortest) + 1), key=modelled)
+        chunk = -(-n0 // n)
+    chunk = max(1, min(int(chunk), n0))
+    return StreamCTA(tile=tile, threads=threads, buffers=bufs, chunk=chunk,
+                     n_chunks=-(-n0 // chunk), warmup=warm, tiles=tiles)
 
 
 def cta_threads(block: Sequence[int]) -> tuple:
@@ -458,17 +690,73 @@ def auto_plan(p: Program, grid: Sequence[int], *, backend: str = "cuda",
     tile is :func:`pick_block`'s: the most threads resident per SM, then the
     fewest staged window bytes per point.  ``steps`` is accepted for the
     reference's signature: a fused loop does not change the kernel's
-    shared-memory claim.
+    shared-memory claim.  ``schedule="stream"`` plans the sweep instead
+    (:func:`_auto_plan_stream`).
     """
     grid = tuple(int(g) for g in grid)
     ndim = p.ndim
-    if schedule == "stream":
-        raise NotImplementedError(f"schedule='stream': {STREAM_ITEM}")
-    if time_tile > 1 or plane_tile > 1:
-        raise NotImplementedError(
-            f"time_tile/plane_tile > 1 belong to the stream schedule: "
-            f"{STREAM_ITEM}")
     groups = stage_split(p, strategy)
+    if schedule == "stream":
+        return _auto_plan_stream(p, grid, groups, backend=backend,
+                                 dtype=dtype, smem_budget=smem_budget,
+                                 time_tile=time_tile, plane_tile=plane_tile)
+    if time_tile > 1:
+        raise ValueError("time_tile > 1 requires schedule='stream' "
+                         "(temporal blocking chains the stream sweep)")
+    if plane_tile > 1:
+        raise ValueError("plane_tile > 1 requires schedule='stream' "
+                         "(spatial unrolling widens the stream sweep)")
     blk = pick_block(p, groups, grid, dtype, smem_budget)
     return DataflowPlan(groups=groups, block=blk, dtype=dtype,
                         backend=backend, mesh_axes=(None,) * ndim)
+
+
+def _auto_plan_stream(p: Program, grid: tuple, groups: list, *,
+                      backend: str, dtype: str, smem_budget: int,
+                      time_tile: int = 1,
+                      plane_tile: int = 1) -> DataflowPlan:
+    """Stream-scheduled plan: one shift-register sweep over the outer axis
+    per legalised region.  ``block`` records the reference's degenerate
+    one-plane tile; the CTA's tile over the non-stream axes is derived when
+    the kernel is built (:func:`plan_stream_cta`), and it shrinks before
+    anything else does.  Only when no tile fits ``smem_budget`` do the
+    reference's levers apply, in its order: a narrower plane unroll, then a
+    shallower chain, then a finer region split."""
+    if backend != "cuda":
+        raise ValueError(
+            f"schedule='stream' is a CUDA dataflow schedule; backend "
+            f"{backend!r} has no streaming lowering")
+    from .dataflow import lower_to_dataflow
+    ndim = p.ndim
+    block = (1,) + grid[1:]
+
+    def build(groups, tile, ptile):
+        plan = DataflowPlan(groups=groups, block=block, dtype=dtype,
+                            backend=backend, mesh_axes=(None,) * ndim,
+                            schedule="stream", time_tile=tile,
+                            plane_tile=ptile)
+        graph = lower_to_dataflow(p, plan, grid)
+        plan.stream = graph.spec()
+        return plan, graph
+
+    def fits(graph):
+        try:
+            for r in graph.regions:
+                plan_stream_cta(p, r, grid, graph.time_tile,
+                                graph.plane_tile, dtype, smem_budget)
+        except ValueError:          # no tile of some region fits
+            return False
+        return True
+
+    tile = max(1, int(time_tile))
+    ptile = max(1, int(plane_tile))
+    plan, graph = build(groups, tile, ptile)
+    while not fits(graph) and ptile > 1:
+        ptile //= 2
+        plan, graph = build(groups, tile, ptile)
+    while not fits(graph) and tile > 1:
+        tile //= 2
+        plan, graph = build(groups, tile, ptile)
+    if not fits(graph) and any(len(g) > 1 for g in groups):
+        plan, _ = build(stage_split(p, "per_field"), tile, ptile)
+    return plan

@@ -89,6 +89,10 @@ __device__ __forceinline__ float rmax(float a, float b) {
 __device__ __forceinline__ float rsign(float a) {
   return (a != a) ? a : (float)((a > 0.0f) - (a < 0.0f));
 }
+__device__ __forceinline__ int pmod(int a, int m) {
+  const int r = a % m;
+  return r < 0 ? r + m : r;
+}
 """
 
 _BIN_C = {
@@ -318,6 +322,9 @@ class GroupCall:
                 + [ctypes.c_float] * self.n_scalars
                 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
+    def kernel_params(self) -> list:
+        return kernel_params(self)
+
     def source(self, name: str | None = None) -> str:
         """CUDA C++ of this group's kernel and its C launch entry."""
         return _emit(self, name or self.entry)
@@ -477,22 +484,9 @@ class _Emitter:
         if isinstance(e, ScalarRef):
             return (f"s{self.scalars[e.name]}", "f")
         if isinstance(e, CoeffRef):
-            ax = self.call.coeff_axis[e.coeff] + self.lift
-            o = off[ax] + int(e.offset)
-            k = self.coeffs[e.coeff]
-            return self._var(("coeff", k, o),
-                             f"ld(&cf{k}[g{ax} + {self.call.halo3[ax] + o}])",
-                             "f")
+            return self.coeff(e, off)
         if isinstance(e, Access):
-            o = tuple(off[a] + v for a, v in
-                      enumerate((0,) * self.lift + tuple(int(x) for x in
-                                                         e.offset)))
-            if e.field in self.ops:
-                return self.temp(e.field, o)
-            k = self.inputs[e.field]
-            w = self.call.window3
-            lin = (o[0] * w[1] + o[1]) * w[2] + o[2]
-            return self._var(("in", k, o), f"ld(&win{k}[l + ({lin})])", "f")
+            return self.access(e, off)
         if isinstance(e, BinOp):
             a, b = self.ev(e.lhs, off), self.ev(e.rhs, off)
             key = ("bin", e.kind, a, b)
@@ -522,6 +516,24 @@ class _Emitter:
             return self._var(key, f"({self._b(c)} ? {self._f(t)} : "
                                   f"{self._f(f)})", "f")
         raise TypeError(type(e))
+
+    def coeff(self, e: CoeffRef, off: tuple):
+        ax = self.call.coeff_axis[e.coeff] + self.lift
+        o = off[ax] + int(e.offset)
+        k = self.coeffs[e.coeff]
+        return self._var(("coeff", k, o),
+                         f"ld(&cf{k}[g{ax} + {self.call.halo3[ax] + o}])", "f")
+
+    def access(self, e: Access, off: tuple):
+        o = tuple(off[a] + v for a, v in
+                  enumerate((0,) * self.lift + tuple(int(x) for x in
+                                                     e.offset)))
+        if e.field in self.ops:
+            return self.temp(e.field, o)
+        k = self.inputs[e.field]
+        w = self.call.window3
+        lin = (o[0] * w[1] + o[1]) * w[2] + o[2]
+        return self._var(("in", k, o), f"ld(&win{k}[l + ({lin})])", "f")
 
     def temp(self, field: str, off: tuple):
         """The value of the group's op producing ``field`` at ``off``."""

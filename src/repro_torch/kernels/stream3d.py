@@ -1,0 +1,943 @@
+"""Shift-register sweep kernel for Hopper, generated from the IR as CUDA C++.
+
+Replaces the TPU kernel ``repro.core.lower_stream.build_stream_call`` (the
+Pallas call at ``src/repro/core/lower_stream.py:472``): one legalised
+stream region (``dataflow.StreamRegion``) swept along axis 0.  Every input
+plane enters a rolling window of ``depths[f]`` planes once; temps read at
+past planes keep rings of their recent planes (zeros for planes outside the
+domain); zero-boundary results are masked on the non-stream margins against
+the *global* domain through the runtime origin; axis-0 coefficients are
+read per plane at a clamped index, the others along their axis.  With
+``time_tile=T`` the kernel chains T time steps, each stage trailing the
+last by the region's lead, applies the fused loop's update rule between
+stages (traced into IR expressions by ``core.lower_stream``) and returns
+the updated fields; with ``plane_tile=P`` it advances P planes per step of
+its loop.
+
+Bound on the H100: bytes.  A sweep reads each region input's grid points
+once and writes each stored field once (per T steps for a chain):
+pw_advection at 512x256x256 moves 3 + 3 float32 fields, 0.2404 ms at
+3.35 TB/s.  Its arithmetic is far below the card's float32 rate.  The
+TPU kernel keeps whole planes in VMEM and relies on its grid running in
+order; CUDA CTAs run in no set order, and one CTA has 227 KB of shared
+memory.  The design (2.5-D blocking):
+
+* each CTA owns a tile of the non-stream axes (``schedule.plan_stream_cta``)
+  widened by the region's non-stream halo (T-fold for a chain), and loops
+  over axis 0 itself; its windows, per-op result planes, temp rings and
+  per-stage field rings live in shared memory and rotate by plane index,
+  so each input plane is loaded from device memory once per CTA (the halo
+  columns of neighbouring tiles come again, mostly from L2);
+* ops are evaluated level by level, one ``__syncthreads`` per level per
+  plane, with threads along the contiguous axis 2; a temp is evaluated once
+  per plane into shared memory and read by its consumers there (the block
+  kernel recomputes it per thread instead);
+* to fill the card the stream axis is cut into chunks, one per CTA; each
+  chunk first recomputes ``warmup`` planes below its first output plane
+  (the reference's sharded-sweep ghost planes, T-fold for a chain), so the
+  results do not depend on the chunking.
+
+The plane unroll is a compile-time unroll of the plane loop by P: P planes
+load at once into a window of ``depth + P - 1`` slots, then P planes are
+computed.  float32 and bfloat16 are compiled (bfloat16 rounds each op's
+result and each updated field); float64 raises ``NotImplementedError`` on
+the card.  The C entry returns ``cudaGetLastError()`` and the wrapper
+raises if it is not 0.
+
+:func:`stream_call_reference` is the plain PyTorch version with the same
+signature and geometry, a plane-by-plane sweep with the TPU kernel's window
+buffers, rings, chain stages and P-plane steps.  :class:`StreamCall` runs
+it for CPU tensors and launches the kernel for CUDA tensors; ``launches``
+counts the launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ..core.expr_eval import evaluate
+from ..core.ir import Access, CoeffRef, Program
+from ..core.schedule import (StreamCTA, plan_stream_cta, stream_plane_ops,
+                             stream_stage_add)
+from .stencil3d import _CTYPE, _DTYPE_NAMES, _Emitter, bind
+
+#: kernel launches made by :class:`StreamCall` (plain-version runs excluded)
+launches = 0
+
+#: the TPU kernel this module replaces
+REPLACES = "src/repro/core/lower_stream.py:472"
+
+
+class StreamCall:
+    """One region's sweep kernel: callable(padded_inputs, scalars_vec,
+    padded_coeffs, origin, input_pad) -> {stored field: tensor}.
+
+    ``padded_inputs`` must be padded by ``pad_lo``/``pad_hi``; with
+    ``input_pad[f]`` an input may be an oversized buffer carrying that
+    (ndim, 2) padding, from which the sweep reads its window in place.
+    With ``update`` (the normalised fused-loop rule) and ``update_exprs``
+    (the same rule traced to one IR expression per field) the call chains
+    ``time_tile`` steps and returns the updated fields
+    (``returns_fields``).  The geometry attributes are the TPU kernel's, so
+    the orchestrators in ``core.lower_kernel`` drive both kernels alike.
+    ``tile``/``chunk`` override the planner's CTA (tests).
+    """
+
+    def __init__(self, p: Program, region, grid_shape: Sequence[int],
+                 dtype=torch.float32,
+                 global_extent: Sequence[int] | None = None,
+                 time_tile: int = 1, update=None, update_exprs=None,
+                 plane_tile: int = 1, tile=None, chunk=None):
+        ndim = p.ndim
+        gh = region.halo
+        T = max(1, int(time_tile))
+        if T > 1 and (update is None or update_exprs is None):
+            raise ValueError("time_tile > 1 chains timestep stages in-kernel "
+                             "and needs the traced fused-loop update rule")
+        self.program = p
+        self.region = region
+        self.ndim = ndim
+        self.dtype = dtype
+        self.dtype_name = _DTYPE_NAMES[dtype]
+        self.itemsize = torch.empty((), dtype=dtype).element_size()
+        self.grid_shape = tuple(int(g) for g in grid_shape)
+        self.global_extent = tuple(int(g) for g in (
+            self.grid_shape if global_extent is None else global_extent))
+        n0 = self.grid_shape[0]
+        hl = tuple(int(gh.input_halo[a, 0]) for a in range(ndim))
+        hh = tuple(int(gh.input_halo[a, 1]) for a in range(ndim))
+        self.hl, self.hh = hl, hh
+        self.lead = lead = hh[0]
+        self.halo_lo = (hl[0],) + tuple(T * hl[a] for a in range(1, ndim))
+        self.halo_hi = (T * lead,) + tuple(T * hh[a] for a in range(1, ndim))
+        span = self.halo_lo[0] + self.halo_hi[0]
+        self.n_steps = n0 + span
+        P = max(1, int(plane_tile))
+        if P > n0:
+            raise ValueError(
+                f"plane_tile {P} exceeds the stream extent {n0}; "
+                "dataflow.plane_split_reason should have demoted it")
+        self.T, self.P = T, P
+        # the TPU kernel's P-plane grid (the plain version replays it)
+        self.n_out = -(-n0 // P)
+        self.K = -(-span // P)
+        self.stage_r = self.K * P - span
+        self.n_tiles = self.n_out + self.K
+        self.pad_round = self.n_tiles * P - self.n_steps
+        self.plane_ext = tuple(self.grid_shape[a] + self.halo_lo[a]
+                               + self.halo_hi[a] for a in range(1, ndim))
+        self.stage_add = stream_stage_add(region)
+
+        self.ops = [p.ops[i] for i in region.ops]
+        self.margins = {p.ops[i].out: gh.margins[i] for i in region.ops}
+        self.produced = {op.out for op in self.ops}
+        self.out_names = [op.out for op in self.ops
+                          if op.out in set(gh.group_outputs)]
+        self.update = update
+        self.update_exprs = update_exprs
+        self.group_inputs = list(gh.group_inputs)
+        self.group_outputs = (list(self.group_inputs) if update is not None
+                              else list(self.out_names))
+        self.returns_fields = update is not None
+        self.group_coeffs = list(gh.group_coeffs)
+        self.coeff_axis = {c: p.coeffs[c] for c in gh.group_coeffs}
+        self.depths = {f: int(region.depths[f]) for f in self.group_inputs}
+        self.rings = {t: int(r) for t, r in region.rings.items()}
+        self.n_scalars = len(p.scalars)
+        self.stage_margins = [{out: m + (T - 1 - s) * self.stage_add
+                               for out, m in self.margins.items()}
+                              for s in range(T)]
+        self.ring_plane_ext = [tuple(self.grid_shape[a] + (T - s)
+                                     * (hl[a] + hh[a])
+                                     for a in range(1, ndim))
+                               for s in range(T)]
+        # geometry for the shared orchestrators (the TPU kernel's)
+        self.block = (1,) + self.grid_shape[1:]
+        self.align_hi = (0,) * ndim
+        self.pad_lo = self.halo_lo
+        self.pad_hi = self.halo_hi
+        self.window = (span + 1,) + self.plane_ext
+        self.tiles = (self.n_tiles,)
+        self.stream_axis = 0
+        self.chain = T
+        self.plane_tile = P
+        self.expect = tuple(self.halo_lo[a] + self.grid_shape[a]
+                            + self.halo_hi[a] for a in range(ndim))
+        # the CTA of the CUDA kernel (2.5-D blocking)
+        self.cta: StreamCTA = plan_stream_cta(
+            p, region, self.grid_shape, T, P, self.dtype_name, tile=tile,
+            chunk=chunk, updates=update is not None)
+        self.smem_bytes = self.cta.smem_bytes
+        self.threads = self.cta.threads
+        self.module = None
+        self.entry = "g0"
+
+    # ------------------------------------------------------------ running
+    def __call__(self, padded_inputs: dict, scalars_vec=None,
+                 padded_coeffs: dict | None = None, origin=None,
+                 input_pad: dict | None = None) -> dict:
+        ref = next((padded_inputs[f] for f in self.group_inputs), None)
+        if ref is None:
+            ref = next(iter((padded_coeffs or {}).values()), None)
+        if ref is None:
+            raise ValueError("stream region reads no field or coefficient")
+        if ref.device.type == "cpu":
+            return stream_call_reference(self, padded_inputs, scalars_vec,
+                                         padded_coeffs, origin, input_pad)
+        if ref.device.type != "cuda":
+            raise ValueError(f"no kernel for device {ref.device}")
+        return self._launch(padded_inputs, scalars_vec, padded_coeffs or {},
+                            origin, input_pad or {})
+
+    def _launch(self, padded_inputs, scalars_vec, padded_coeffs, origin,
+                input_pad) -> dict:
+        global launches
+        if self.dtype_name not in _CTYPE:
+            raise NotImplementedError(
+                f"the CUDA sweep kernel takes float32 or bfloat16, not "
+                f"{self.dtype_name}")
+        if self.module is None:
+            bind([self])
+        fn = self.module.function(self.entry)
+        device = padded_inputs[self.group_inputs[0]].device
+        outs = {f: torch.empty(self.grid_shape, dtype=self.dtype,
+                               device=device) for f in self.group_outputs}
+        args = self.kernel_args(padded_inputs, scalars_vec, padded_coeffs,
+                                origin, input_pad, outs)
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"CUDA sweep kernel {self.entry} of "
+                               f"{self.program.name!r} failed to launch: "
+                               f"cudaError {rc}")
+        launches += 1
+        return outs
+
+    def kernel_args(self, padded_inputs, scalars_vec, padded_coeffs, origin,
+                    input_pad, outs) -> list:
+        """The kernel's arguments in :meth:`c_argtypes` order (without the
+        stream), after checking every tensor: a pointer to the window's
+        origin inside each input with the input's two outer strides (a 2-D
+        program's unit axis gets stride 0); coefficient and output
+        pointers; scalars; the origin, lifted to three axes."""
+        ndim = self.ndim
+        lift = 3 - ndim
+        device = next(iter(outs.values())).device
+        args = []
+        for f in self.group_inputs:
+            x = padded_inputs[f]
+            self._check(x, f, device)
+            ip = (input_pad or {}).get(f)
+            lo = [int(ip[a][0]) - self.halo_lo[a] if ip is not None else 0
+                  for a in range(ndim)]
+            for a in range(ndim):
+                if lo[a] < 0 or x.shape[a] < lo[a] + self.expect[a]:
+                    raise ValueError(
+                        f"input {f!r} of shape {tuple(x.shape)} does not "
+                        f"hold the window extent {self.expect} at offset "
+                        f"{tuple(lo)}")
+            if x.stride(-1) != 1:
+                raise ValueError(f"input {f!r} must be contiguous along "
+                                 "its last axis")
+            base = sum(lo[a] * x.stride(a) for a in range(ndim))
+            s1 = x.stride(1) if ndim == 3 else 0
+            args += [x.data_ptr() + base * self.itemsize, x.stride(0), s1]
+        for c in self.group_coeffs:
+            t = padded_coeffs[c]
+            self._check(t, c, device)
+            need = self.expect[self.coeff_axis[c]]
+            if t.ndim != 1 or not t.is_contiguous() or t.shape[0] < need:
+                raise ValueError(f"coefficient {c!r} must be a contiguous "
+                                 f"1-D tensor of at least {need} values")
+            args.append(t.data_ptr())
+        for f in self.group_outputs:
+            o = outs[f]
+            self._check(o, f, device)
+            if tuple(o.shape) != self.grid_shape or not o.is_contiguous():
+                raise ValueError(f"output {f!r} must be a contiguous "
+                                 f"{self.grid_shape} tensor")
+            args.append(o.data_ptr())
+        svec = list(scalars_vec or [])
+        if len(svec) < self.n_scalars:
+            raise ValueError(f"expected {self.n_scalars} scalars, got "
+                             f"{len(svec)}")
+        args += [float(s) for s in svec[:self.n_scalars]]
+        org = [0] * ndim if origin is None else [int(o) for o in origin]
+        return args + org[:1] + [0] * lift + org[1:]
+
+    def _check(self, t, name, device):
+        if t.device != device:
+            raise ValueError(f"{name!r} is on {t.device}, expected {device}")
+        if t.dtype != self.dtype:
+            raise ValueError(f"{name!r} has dtype {t.dtype}, expected "
+                             f"{self.dtype}")
+
+    # ----------------------------------------------------------- emitting
+    def kernel_params(self) -> list:
+        """Parameter declarations, in :meth:`c_argtypes` order (without
+        the launch entry's trailing stream)."""
+        ct = _CTYPE.get(self.dtype_name, "float")
+        params = []
+        for k in range(len(self.group_inputs)):
+            params += [f"const {ct}* __restrict__ in{k}",
+                       f"long long in{k}_s0", f"long long in{k}_s1"]
+        params += [f"const {ct}* __restrict__ cf{k}"
+                   for k in range(len(self.group_coeffs))]
+        params += [f"{ct}* __restrict__ out{k}"
+                   for k in range(len(self.group_outputs))]
+        params += [f"float s{k}" for k in range(self.n_scalars)]
+        return params + ["int org0", "int org1", "int org2"]
+
+    def c_argtypes(self) -> list:
+        n_in, n_c = len(self.group_inputs), len(self.group_coeffs)
+        return ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong] * n_in
+                + [ctypes.c_void_p] * n_c
+                + [ctypes.c_void_p] * len(self.group_outputs)
+                + [ctypes.c_float] * self.n_scalars
+                + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+    def source(self, name: str | None = None) -> str:
+        """CUDA C++ of this region's sweep kernel and its C launch entry."""
+        return _SweepEmitter(self, name or self.entry).emit()
+
+
+# --------------------------------------------------------------------------
+# The plain PyTorch version
+# --------------------------------------------------------------------------
+
+def stream_call_reference(call: StreamCall, padded_inputs: dict,
+                          scalars_vec=None, padded_coeffs: dict | None = None,
+                          origin=None, input_pad: dict | None = None) -> dict:
+    """The region's sweep in plain PyTorch, on any device, grid step by
+    grid step as the TPU kernel runs it: window buffers shifted by P planes
+    per step, temp rings that store zeros outside the domain, T chained
+    stages with the update rule applied plane-wise between them, and the
+    staging ring that realigns completed planes to P-plane output blocks.
+    Same arguments and geometry as the kernel, and the same rounding: a
+    bfloat16 call computes each op (and each update) in float32 and rounds
+    its result."""
+    p, ndim, dtype = call.program, call.ndim, call.dtype
+    cdt = torch.float32 if dtype == torch.bfloat16 else dtype
+    padded_coeffs = padded_coeffs or {}
+    grid, ge = call.grid_shape, call.global_extent
+    T, P, lead = call.T, call.P, call.lead
+    hl, hh, halo_lo = call.hl, call.hh, call.halo_lo
+    device = None
+    xs = {}
+    for f in call.group_inputs:
+        x = padded_inputs[f]
+        device = device or x.device
+        ip = (input_pad or {}).get(f)
+        if ip is not None:
+            x = x[tuple(slice(int(ip[a][0]) - halo_lo[a],
+                              int(ip[a][0]) - halo_lo[a] + call.expect[a])
+                        for a in range(ndim))]
+        x = x.to(cdt)
+        if call.pad_round:
+            x = torch.cat([x, x.new_zeros((call.pad_round,) + x.shape[1:])])
+        xs[f] = x
+    cvecs = {c: padded_coeffs[c].to(cdt) for c in call.group_coeffs}
+    for c in call.group_coeffs:
+        device = device or padded_coeffs[c].device
+    svec = list(scalars_vec or [])
+    sdict = {s: torch.tensor(float(svec[i]), dtype=torch.float32,
+                             device=device)
+             for i, s in enumerate(p.scalars[:len(svec)])}
+    org = [0] * ndim if origin is None else [int(o) for o in origin]
+    ops, produced, margins = call.ops, call.produced, call.margins
+    stage_margins = call.stage_margins
+    depths, ring_depth = call.depths, call.rings
+    ring_names = [op.out for op in ops if op.out in ring_depth]
+    store_names = call.group_outputs
+
+    def zeros(shape):
+        return torch.zeros(shape, dtype=cdt, device=device)
+
+    def ext_of(m):
+        return tuple(grid[a] + int(m[a, 0]) + int(m[a, 1])
+                     for a in range(1, ndim))
+
+    def plane_slices(src_lo, m, offset):
+        return tuple(slice(int(src_lo[a] - m[a, 0] + offset[a]),
+                           int(src_lo[a] - m[a, 0] + offset[a])
+                           + grid[a] + int(m[a, 0]) + int(m[a, 1]))
+                     for a in range(1, ndim))
+
+    def in_domain(ext, lo_off):
+        """Mask of the non-stream positions (offset by ``lo_off`` below
+        the shard's origin) inside the global domain, or None."""
+        mask = None
+        for a in range(1, ndim):
+            if lo_off[a] is None:
+                continue
+            coord = org[a] - lo_off[a] + torch.arange(ext[a - 1],
+                                                      device=device)
+            ok = (coord >= 0) & (coord < ge[a])
+            shape = [1] * (ndim - 1)
+            shape[a - 1] = ext[a - 1]
+            ok = ok.reshape(shape)
+            mask = ok if mask is None else (mask & ok)
+        return mask
+
+    bufs = {f: zeros((depths[f],) + call.plane_ext) for f in call.group_inputs}
+    field_vals = [None] + [{f: zeros((depths[f],) + call.ring_plane_ext[s])
+                            for f in call.group_inputs} for s in range(1, T)]
+    rings = [{t: zeros((ring_depth[t],) + ext_of(stage_margins[s][t]))
+              for t in ring_names} for s in range(T)]
+    staged = {f: zeros((call.stage_r,) + grid[1:]) for f in store_names}
+    outs = {f: torch.empty((call.n_out * P,) + grid[1:], dtype=dtype,
+                           device=device) for f in store_names}
+
+    for j in range(call.n_tiles):
+        cats = {f: torch.cat([bufs[f], xs[f][j * P:(j + 1) * P]])
+                for f in call.group_inputs}
+        completed = {f: [] for f in store_names}
+        for k_plane in range(P):
+            t_step = j * P + k_plane
+            for s in range(T):
+                acc = T - 1 - s
+                margins_s = stage_margins[s]
+                c_plane = t_step - halo_lo[0] - (s + 1) * lead
+                results: dict = {}
+                memo: dict = {}
+                for op in ops:
+                    m = margins_s[op.out]
+                    ext = ext_of(m)
+
+                    def coeff(cr: CoeffRef, m=m, s=s, t_step=t_step):
+                        ax = call.coeff_axis[cr.coeff]
+                        cvec = cvecs[cr.coeff]
+                        if ax == 0:
+                            idx = min(max(t_step - (s + 1) * lead
+                                          + cr.offset, 0), cvec.shape[0] - 1)
+                            return cvec[idx].reshape((1,) * (ndim - 1))
+                        start = int(halo_lo[ax] - m[ax, 0] + cr.offset)
+                        size = grid[ax] + int(m[ax, 0]) + int(m[ax, 1])
+                        shape = [1] * (ndim - 1)
+                        shape[ax - 1] = size
+                        return cvec[start:start + size].reshape(shape)
+
+                    def access(a: Access, m=m, s=s, k_plane=k_plane,
+                               margins_s=margins_s, results=results):
+                        o0 = int(a.offset[0])
+                        if a.field in produced:
+                            pm = margins_s[a.field]
+                            if a.field in ring_depth:
+                                plane = rings[s][a.field][
+                                    ring_depth[a.field] - 1 + o0]
+                            else:
+                                plane = results[a.field]
+                            return plane[plane_slices(pm[:, 0], m, a.offset)]
+                        idx = depths[a.field] - 1 - lead + o0
+                        if s == 0:
+                            plane = cats[a.field][k_plane + 1 + idx]
+                            src_lo = halo_lo
+                        else:
+                            plane = field_vals[s][a.field][idx]
+                            src_lo = tuple((T - s) * hl[ax]
+                                           for ax in range(ndim))
+                        return plane[plane_slices(src_lo, m, a.offset)]
+
+                    mkey = tuple(int(v) for v in m.flatten())
+                    res = evaluate(op.expr, access, sdict.__getitem__,
+                                   memo.setdefault(mkey, {}), coeff=coeff)
+                    if not isinstance(res, torch.Tensor):
+                        res = torch.tensor(res, device=device)
+                    res = res.to(dtype).to(cdt).expand(ext)
+                    if m[1:].any() \
+                            and p.fields[op.out].boundary != "periodic":
+                        mask = in_domain(ext, [None] + [
+                            int(m[a, 0]) if m[a].any() else None
+                            for a in range(1, ndim)])
+                        res = torch.where(mask, res, zeros(()))
+                    results[op.out] = res
+                    if op.out in ring_depth:
+                        cg = org[0] + c_plane
+                        ok = 0 <= cg < ge[0]
+                        stored = res if ok else torch.zeros_like(res)
+                        rings[s][op.out] = torch.cat(
+                            [rings[s][op.out][1:], stored[None]])
+                    if call.update is None and op.out in outs:
+                        completed[op.out].append(res[tuple(
+                            slice(int(m[a, 0]), int(m[a, 0]) + grid[a])
+                            for a in range(1, ndim))])
+                if call.update is None:
+                    break
+                ext_s = tuple(grid[a] + acc * (hl[a] + hh[a])
+                              for a in range(1, ndim))
+                cur = {}
+                for f in call.group_inputs:
+                    idx = depths[f] - 1 - lead
+                    plane = (cats[f][k_plane + 1 + idx] if s == 0
+                             else field_vals[s][f][idx])
+                    cur[f] = plane[tuple(slice(hl[a], hl[a] + ext_s[a - 1])
+                                         for a in range(1, ndim))]
+                upd_outs = {}
+                for f in call.out_names:
+                    m = margins[f]
+                    upd_outs[f] = results[f][tuple(
+                        slice(int(m[a, 0]), int(m[a, 0]) + ext_s[a - 1])
+                        for a in range(1, ndim))]
+                merged = dict(cur)
+                merged.update(call.update(cur, upd_outs, sdict))
+                new = {f: torch.as_tensor(merged[f], device=device)
+                       .to(dtype).to(cdt).expand(ext_s)
+                       for f in call.group_inputs}
+                if s == T - 1:
+                    for f in call.group_inputs:
+                        completed[f].append(new[f])
+                    break
+                cg = org[0] + c_plane
+                if 0 <= cg < ge[0]:
+                    mask = in_domain(ext_s, [None] + [
+                        acc * hl[a] if (acc * (hl[a] + hh[a])
+                                        or grid[a] != ge[a]) else None
+                        for a in range(1, ndim)])
+                else:
+                    mask = torch.zeros((), dtype=torch.bool, device=device)
+                for f in call.group_inputs:
+                    v = new[f] if mask is None else torch.where(
+                        mask, new[f], zeros(()))
+                    field_vals[s + 1][f] = torch.cat(
+                        [field_vals[s + 1][f][1:], v.expand(ext_s)[None]])
+        for f in call.group_inputs:
+            bufs[f] = cats[f][P:]
+        # the P-plane output block, realigned through the staging ring
+        # (block b is final at grid step b + K; warm-up writes of block 0
+        # are overwritten, as the TPU kernel's clamped index map does)
+        b = min(max(j - call.K, 0), call.n_out - 1)
+        for f in store_names:
+            planes = [q[None] for q in completed[f]]
+            if call.stage_r > 0:
+                keep = P - call.stage_r
+                block = torch.cat([staged[f]] + planes[:keep])
+                staged[f] = torch.cat(planes[keep:])
+            else:
+                block = torch.cat(planes)
+            outs[f][b * P:(b + 1) * P] = block.to(dtype)
+    return {f: outs[f][:grid[0]] for f in store_names}
+
+
+# --------------------------------------------------------------------------
+# The emitter: region -> CUDA C++
+# --------------------------------------------------------------------------
+
+class _ExprEmitter(_Emitter):
+    """Value-numbered SSA for one loop body of the sweep kernel: the block
+    emitter's operators, with accesses and coefficients resolved by the
+    sweep (``resolve``), not by the block kernel's window."""
+
+    def __init__(self, scalars: dict, bf16: bool, resolve):
+        self.scalars = scalars
+        self.lines: list = []
+        self.vn: dict = {}
+        self.flops = 0
+        self.bf16 = bf16
+        self._resolve = resolve
+
+    def access(self, e: Access, off: tuple):
+        code = self._resolve(e)
+        return self._var(("acc", e.field, tuple(e.offset)), code, "f")
+
+    def coeff(self, e: CoeffRef, off: tuple):
+        code = self._resolve(e)
+        return self._var(("coeff", e.coeff, int(e.offset)), code, "f")
+
+
+class _SweepEmitter:
+    """CUDA C++ of one :class:`StreamCall` (see the module docstring).
+
+    Non-stream axes are lifted to two, ``A`` (axis 1) and ``B`` (axis 2,
+    contiguous); a 2-D program gets a unit ``A`` axis."""
+
+    def __init__(self, call: StreamCall, name: str):
+        if call.dtype_name not in _CTYPE:
+            raise NotImplementedError(
+                f"the CUDA sweep kernel takes float32 or bfloat16, not "
+                f"{call.dtype_name}")
+        self.call = call
+        self.name = name
+        self.p = call.program
+        self.ct = _CTYPE[call.dtype_name]
+        self.bf16 = call.dtype_name == "bfloat16"
+        cta = call.cta
+        lift = 3 - call.ndim
+
+        def two(v, fill):
+            return (fill,) * lift + tuple(v)
+
+        self.two = two
+        self.tile = two(cta.tile, 1)
+        self.N = two(call.grid_shape[1:], 1)
+        self.NG = two(call.global_extent[1:], 1)
+        self.hl2 = two(call.hl[1:], 0)
+        self.hh2 = two(call.hh[1:], 0)
+        self.span2 = tuple(a + b for a, b in zip(self.hl2, self.hh2))
+        self.scalars = {s: k for k, s in enumerate(self.p.scalars)}
+        self.inputs = {f: k for k, f in enumerate(call.group_inputs)}
+        self.coeffs = {c: k for k, c in enumerate(call.group_coeffs)}
+        self.outputs = {f: k for k, f in enumerate(call.group_outputs)}
+        self.keep = set(stream_plane_ops(self.p, call.region,
+                                         call.update is not None))
+        # shared-memory layout, the planner's buffer order
+        self.op_index = {op.out: j for j, op in enumerate(call.ops)}
+        self.buf = {}
+        off = 0
+        self.ring_off = None
+        for b in cta.buffers:
+            if b.key[0] != "win" and self.ring_off is None:
+                self.ring_off = off
+            self.buf[b.key] = (off, b)
+            off += b.nbytes
+        self.smem = off
+        if self.ring_off is None:
+            self.ring_off = off
+        self.levels = self._levels()
+
+    # -------------------------------------------------------- structure
+    def _levels(self) -> list:
+        """Ops by level: an op sits one level above every op whose value
+        at the *same* plane it reads (ring reads of past planes do not
+        count).  Within a level, ops with equal margins share a loop."""
+        lvl = {}
+        for op in self.call.ops:
+            lv = 0
+            for a in op.accesses():
+                if a.field in lvl and int(a.offset[0]) == 0:
+                    lv = max(lv, lvl[a.field] + 1)
+            lvl[op.out] = lv
+        out = []
+        for lv in range(max(lvl.values()) + 1 if lvl else 0):
+            out.append([op for op in self.call.ops if lvl[op.out] == lv])
+        return out
+
+    def margin2(self, s: int, out: str):
+        """Stage-``s`` margin of op ``out`` on the lifted axes: ((loA,
+        hiA), (loB, hiB))."""
+        m = self.call.stage_margins[s][out]
+        return self.two([tuple(int(x) for x in m[a])
+                         for a in range(1, self.call.ndim)], (0, 0))
+
+    def buffer(self, key):
+        off, b = self.buf[key]
+        ext = self.two(b.extent, 1)
+        return off, b.slots, ext
+
+    # ------------------------------------------------------------- code
+    def emit(self) -> str:
+        c, ct, name = self.call, self.ct, self.name
+        tx, ty = c.threads
+        nt = tx * ty
+        cta = c.cta
+        TA, TB = self.tile
+        NA, NB = self.N
+        tiles = self.two(cta.tiles, 1)
+        front = c.halo_lo[0] + c.lead
+        params = c.kernel_params()
+        args = [q.split()[-1] for q in params]
+        L = [f"// sweep kernel of region {c.region.ops} of "
+             f"{self.p.name}: inputs [{', '.join(c.group_inputs)}], "
+             f"stores [{', '.join(c.group_outputs)}]",
+             f"// time_tile {c.T}, plane_tile {c.P}, CTA tile ({TA},{TB}), "
+             f"chunk {cta.chunk} planes (+{cta.warmup} warm-up), "
+             f"{cta.ctas} CTAs, {self.smem} B shared memory",
+             f"__global__ void __launch_bounds__({nt})",
+             f"{name}_kernel({', '.join(params)}) {{",
+             "  extern __shared__ __align__(16) unsigned char smem_raw[];"]
+        for key, (off, b) in self.buf.items():
+            ty_ = ct if key[0] == "win" else "float"
+            L.append(f"  {ty_}* {self.bname(key)} = reinterpret_cast<{ty_}*>"
+                     f"(smem_raw + {off});")
+        L += [
+            "  const int bid = blockIdx.x;",
+            f"  const int bB = (bid % {tiles[1]}) * {TB};",
+            f"  const int bA = ((bid / {tiles[1]}) % {tiles[0]}) * {TA};",
+            f"  const int c0 = (bid / {tiles[0] * tiles[1]}) * {cta.chunk};",
+            f"  const int c1 = min({c.grid_shape[0]}, c0 + {cta.chunk});",
+            f"  const int vA = min({TA}, {NA} - bA), "
+            f"vB = min({TB}, {NB} - bB);",
+            f"  const int cs = max(0, c0 - {cta.warmup});",
+            f"  const int ce = c1 - 1 + {(c.T - 1) * c.lead};",
+            "  const int tid = threadIdx.y * blockDim.x + threadIdx.x;",
+            "  (void)vA; (void)vB; (void)tid;",
+        ]
+        nring = (self.smem - self.ring_off) // 4
+        if nring:
+            L += ["  // rings start as zeros: planes before the sweep are "
+                  "outside the domain",
+                  f"  {{ float* z = reinterpret_cast<float*>(smem_raw + "
+                  f"{self.ring_off});",
+                  f"    for (int i = tid; i < {nring}; i += {nt}) "
+                  "z[i] = 0.0f; }"]
+        # window loads
+        for f, k in self.inputs.items():
+            off, S, (WA, WB) = self.buffer(("win", f))
+            L += [f"  auto load{k} = [&](int q) {{",
+                  f"    {ct}* dst = win{k} + pmod(q, {S}) * {WA * WB};",
+                  f"    const {ct}* src = in{k} + (long long)q * in{k}_s0"
+                  f" + (long long)bA * in{k}_s1 + bB;",
+                  f"    for (int r = threadIdx.y; r < vA + "
+                  f"{c.T * self.span2[0]}; r += {ty})",
+                  f"      for (int x = threadIdx.x; x < vB + "
+                  f"{c.T * self.span2[1]}; x += {tx})",
+                  f"        dst[r * {WB} + x] = src[(long long)r * in{k}_s1"
+                  " + x];",
+                  "  };"]
+        for f, k in self.inputs.items():
+            d = c.depths[f]
+            L.append(f"  for (int q = cs + {front - d + 1}; q < cs + {front};"
+                     f" ++q) load{k}(q);")
+        L.append(f"  for (int c = cs; c <= ce; c += {c.P}) {{")
+        for kp in range(c.P):
+            guard = f"c + {kp} <= ce" if kp else "true"
+            L.append(f"    if ({guard}) {{")
+            for k in self.inputs.values():
+                L.append(f"      load{k}(c + {kp + front});")
+            L.append("    }")
+        L.append("    __syncthreads();")
+        for kp in range(c.P):
+            L.append(f"    if (c + {kp} <= ce) {{")
+            L.append(f"      const int cc = c + {kp};")
+            for s in range(c.T):
+                L += ["      " + x for x in self._stage(s)]
+            L.append("    }")
+        L += ["  }", "}", ""]
+        L += [
+            f'extern "C" int {name}_launch({", ".join(params)}, '
+            "void* stream) {",
+            "  static bool ready = false;",
+            f"  if (!ready && {self.smem} > 48 * 1024) {{",
+            f"    cudaError_t e = cudaFuncSetAttribute({name}_kernel,",
+            "        cudaFuncAttributeMaxDynamicSharedMemorySize,"
+            f" {self.smem});",
+            "    if (e != cudaSuccess) return (int)e;",
+            "  }",
+            "  ready = true;",
+            f"  {name}_kernel<<<{cta.ctas}, dim3({tx}, {ty}), {self.smem},"
+            f" (cudaStream_t)stream>>>({', '.join(args)});",
+            "  return (int)cudaGetLastError();",
+            "}",
+            "",
+        ]
+        return "\n".join(L)
+
+    def bname(self, key) -> str:
+        """C name of a shared-memory buffer (by input or op index)."""
+        if key[0] == "win":
+            return f"win{self.inputs[key[1]]}"
+        if key[0] == "field":
+            return f"fr{key[1]}_{self.inputs[key[2]]}"
+        return f"op{key[1]}_{self.op_index[key[2]]}"
+
+    def _loop(self, ext_lo_hi, body: list) -> list:
+        """Threads over the valid part of a plane extended by
+        ``((loA, hiA), (loB, hiB))`` around the tile: ``lA``/``lB`` local,
+        ``GA``/``GB`` global coordinates."""
+        (la, ha), (lb, hb) = ext_lo_hi
+        tx, ty = self.call.threads
+        return ([f"for (int lA = threadIdx.y; lA < vA + {la + ha}; "
+                 f"lA += {ty})",
+                 f"  for (int lB = threadIdx.x; lB < vB + {lb + hb}; "
+                 f"lB += {tx}) {{",
+                 f"    const int GA = org1 + bA - {la} + lA, "
+                 f"GB = org2 + bB - {lb} + lB;",
+                 "    (void)GA; (void)GB;"]
+                + ["    " + x for x in body] + ["  }"])
+
+    def _mask(self, axes_lo: dict) -> str:
+        """Condition that the position lies in the global domain on the
+        lifted axes in ``axes_lo`` (``{"A"|"B": ...}``)."""
+        ng = dict(zip("AB", self.NG))
+        return " && ".join(f"G{a} >= 0 && G{a} < {ng[a]}" for a in axes_lo)
+
+    def _stage(self, s: int) -> list:
+        """One chain stage at stage-0 plane ``cc``: the op levels, then (in
+        a chain) the update; stores zeros into the stage's rings when its
+        plane lies outside the domain."""
+        c = self.call
+        T = c.T
+        body = [f"{{ // stage {s}",
+                f"  const int qs = cc - {s * c.lead};",
+                f"  if (org0 + qs >= 0 && org0 + qs < "
+                f"{c.global_extent[0]}) {{"]
+        for lv, ops in enumerate(self.levels):
+            if lv:
+                body.append("    __syncthreads();")
+            groups: dict = {}
+            for op in ops:
+                groups.setdefault(self.margin2(s, op.out), []).append(op)
+            for m2, gops in groups.items():
+                body += ["    " + x for x in self._op_group(s, m2, gops)]
+        if c.update is not None:
+            body.append("    __syncthreads();")
+            body += ["    " + x for x in self._update(s)]
+        body.append("  } else {")
+        zero = []
+        for out in c.rings:
+            if out not in self.keep:
+                continue
+            off, R, (PA, PB) = self.buffer(("op", s, out))
+            zero += [f"for (int i = tid; i < {PA * PB}; i += "
+                     f"{c.threads[0] * c.threads[1]})",
+                     f"  {self.bname(('op', s, out))}[pmod(qs, {R}) * "
+                     f"{PA * PB} + i] = 0.0f;"]
+        if c.update is not None and s < T - 1:
+            for f in c.group_inputs:
+                off, D, (FA, FB) = self.buffer(("field", s + 1, f))
+                zero += [f"for (int i = tid; i < {FA * FB}; i += "
+                         f"{c.threads[0] * c.threads[1]})",
+                         f"  {self.bname(('field', s + 1, f))}[pmod(qs, "
+                         f"{D}) * {FA * FB} + i] = 0.0f;"]
+        body += ["    " + x for x in zero]
+        body += ["  }", "  __syncthreads();", "}"]
+        return body
+
+    def _resolver(self, s: int, m2):
+        """Access/coefficient resolution for stage ``s`` code evaluated on
+        a plane of margin ``m2`` (position ``lA``/``lB``)."""
+        c = self.call
+        T = c.T
+        (ma, _), (mb, _) = m2
+        lift = 3 - c.ndim
+
+        def off2(e):
+            o = tuple(int(x) for x in e.offset)
+            return (o[0],) + (0,) * lift + o[1:]
+
+        def resolve(e):
+            if isinstance(e, CoeffRef):
+                k = self.coeffs[e.coeff]
+                ax = c.coeff_axis[e.coeff]
+                if ax == 0:
+                    return (f"ld(&cf{k}[min(max(qs + "
+                            f"{c.halo_lo[0] + int(e.offset)}, 0), "
+                            f"{c.n_steps - 1})])")
+                la = ax - 1 + lift
+                base, lo, pos = (("bA", ma, "lA") if la == 0
+                                 else ("bB", mb, "lB"))
+                return (f"ld(&cf{k}[{base} + {pos} + "
+                        f"{c.halo_lo[ax] - lo + int(e.offset)}])")
+            o0, oa, ob = off2(e)
+            if e.field in c.produced:
+                key = ("op", s, e.field)
+                off, R, (PA, PB) = self.buffer(key)
+                (ta, _), (tb, _) = self.margin2(s, e.field)
+                slot = (f"pmod(qs + ({o0}), {R}) * {PA * PB}" if R > 1
+                        else "0")
+                return (f"{self.bname(key)}[{slot} + (lA + "
+                        f"({ta - ma + oa})) * {PB} + lB + ({tb - mb + ob})]")
+            k = self.inputs[e.field]
+            if s == 0:
+                off, S, (WA, WB) = self.buffer(("win", e.field))
+                ha, hb = T * self.hl2[0], T * self.hl2[1]
+                return (f"ld(&win{k}[pmod(qs + {c.halo_lo[0] + o0}, {S}) * "
+                        f"{WA * WB} + (lA + ({ha - ma + oa})) * {WB} + lB + "
+                        f"({hb - mb + ob})])")
+            key = ("field", s, e.field)
+            off, D, (FA, FB) = self.buffer(key)
+            ha, hb = (T - s) * self.hl2[0], (T - s) * self.hl2[1]
+            return (f"{self.bname(key)}[pmod(qs + ({o0}), {D}) * {FA * FB}"
+                    f" + (lA + ({ha - ma + oa})) * {FB} + lB + "
+                    f"({hb - mb + ob})]")
+
+        return resolve
+
+    def _op_group(self, s: int, m2, ops) -> list:
+        """One loop evaluating ``ops`` (one level, margin ``m2``) at stage
+        ``s``: masks, bfloat16 rounding, shared-memory planes, rings, and
+        (outside a chain) the stored output planes of the chunk."""
+        c = self.call
+        em = _ExprEmitter(self.scalars, self.bf16,
+                          self._resolver(s, m2))
+        (ma, _), (mb, _) = m2
+        stores = []
+        for op in ops:
+            code = em._f(em.ev(op.expr, (0, 0, 0)))
+            if self.bf16:
+                code = f"rnd_bf16({code})"
+            m = c.stage_margins[s][op.out]
+            if m[1:].any() and self.p.fields[op.out].boundary != "periodic":
+                axes = [ax for a, ax in zip(range(1, c.ndim),
+                                            "AB"[3 - c.ndim:]) if m[a].any()]
+                code = f"(({self._mask(axes)}) ? {code} : 0.0f)"
+            r = f"r{self.op_index[op.out]}"
+            stores.append(f"const float {r} = {code};")
+            if op.out in self.keep:
+                key = ("op", s, op.out)
+                off, R, (PA, PB) = self.buffer(key)
+                slot = f"pmod(qs, {R}) * {PA * PB}" if R > 1 else "0"
+                stores.append(f"{self.bname(key)}[{slot} + lA * {PB} + lB]"
+                              f" = {r};")
+            if c.update is None and op.out in self.outputs:
+                k = self.outputs[op.out]
+                NA, NB = self.N
+                stores += [
+                    f"if (qs >= c0 && lA >= {ma} && lA < {ma} + vA && "
+                    f"lB >= {mb} && lB < {mb} + vB)",
+                    f"  st(&out{k}[(long long)qs * {NA * NB} + (long long)"
+                    f"(bA + lA - {ma}) * {NB} + (bB + lB - {mb})], {r});"]
+        return self._loop(m2, em.lines + stores)
+
+    def _update(self, s: int) -> list:
+        """The fused loop's update at stage ``s`` on the stage's extent:
+        into the next stage's field rings (zero outside the global domain)
+        or, at the last stage, into the stored fields of the chunk."""
+        c = self.call
+        T = c.T
+        acc = T - 1 - s
+        hl2 = self.hl2
+        m2 = tuple((acc * hl2[i], acc * self.hh2[i]) for i in range(2))
+
+        def resolve(e):
+            if isinstance(e, Access) and e.field in self.inputs:
+                k = self.inputs[e.field]
+                if s == 0:
+                    off, S, (WA, WB) = self.buffer(("win", e.field))
+                    return (f"ld(&win{k}[pmod(qs + {c.halo_lo[0]}, {S}) * "
+                            f"{WA * WB} + (lA + {hl2[0]}) * {WB} + lB + "
+                            f"{hl2[1]}])")
+                key = ("field", s, e.field)
+                off, D, (FA, FB) = self.buffer(key)
+                return (f"{self.bname(key)}[pmod(qs, {D}) * {FA * FB} + "
+                        f"(lA + {hl2[0]}) * {FB} + lB + {hl2[1]}]")
+            if isinstance(e, Access) and e.field in c.out_names:
+                key = ("op", s, e.field)
+                off, R, (PA, PB) = self.buffer(key)
+                base = self.two([int(c.margins[e.field][a, 0])
+                                 for a in range(1, c.ndim)], 0)
+                slot = f"pmod(qs, {R}) * {PA * PB}" if R > 1 else "0"
+                return (f"{self.bname(key)}[{slot} + (lA + {base[0]}) * "
+                        f"{PB} + lB + {base[1]}]")
+            raise ValueError(f"update rule reads {e!r}, which is neither a "
+                             "persistent field nor a region output")
+
+        em = _ExprEmitter(self.scalars, self.bf16, resolve)
+        lines = []
+        for f in c.group_inputs:
+            code = em._f(em.ev(c.update_exprs[f], (0, 0, 0)))
+            if self.bf16:
+                code = f"rnd_bf16({code})"
+            lines.append(f"const float n{self.inputs[f]} = {code};")
+        if s == T - 1:
+            NA, NB = self.N
+            lines.append("if (qs >= c0) {")
+            for f in c.group_inputs:
+                k = self.outputs[f]
+                lines.append(f"  st(&out{k}[(long long)qs * {NA * NB} + "
+                             f"(long long)(bA + lA) * {NB} + (bB + lB)], "
+                             f"n{self.inputs[f]});")
+            lines.append("}")
+        else:
+            axes = [ax for i, ax in enumerate("AB")
+                    if acc * self.span2[i] or self.N[i] != self.NG[i]]
+            ok = self._mask(axes) if axes else "true"
+            for f in c.group_inputs:
+                key = ("field", s + 1, f)
+                off, D, (FA, FB) = self.buffer(key)
+                lines.append(f"{self.bname(key)}[pmod(qs, {D}) * {FA * FB}"
+                             f" + lA * {FB} + lB] = ({ok}) ? "
+                             f"n{self.inputs[f]} : 0.0f;")
+        return self._loop(m2, em.lines + lines)

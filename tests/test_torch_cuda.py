@@ -101,3 +101,80 @@ def test_float64_raises_on_the_card():
     ex = compile_program(p, grid, dtype="float64")
     with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
         ex(*_inputs(p, grid))
+
+
+def _stream_region_check(ex, p, grid, dtype, tol):
+    """Every sweep kernel of ``ex`` against its plain version on the card,
+    on seeded inputs padded to the kernel's geometry."""
+    from repro_torch.core import boundary as bc
+    from repro_torch.kernels.stream3d import stream_call_reference
+
+    tdt = getattr(torch, dtype)
+    rng = np.random.default_rng(3)
+    bnd = p.boundaries()
+    for call in ex.kernels:
+        padded = {f: bc.pad_field(torch.as_tensor(
+            rng.normal(size=grid).astype(np.float32) * 0.1, device="cuda"
+        ).to(tdt), call.pad_lo, call.pad_hi, bnd.get(f, "zero")).contiguous()
+            for f in call.group_inputs}
+        pc = {c: bc.pad_coeff(torch.as_tensor(
+            rng.normal(size=grid[call.coeff_axis[c]]).astype(np.float32),
+            device="cuda").to(tdt), call.pad_lo[call.coeff_axis[c]],
+            call.pad_hi[call.coeff_axis[c]], bc.coeff_mode(p)).contiguous()
+            for c in call.group_coeffs}
+        svec = [0.1] * len(p.scalars)
+        got = call(padded, svec, pc)
+        want = stream_call_reference(call, padded, svec, pc)
+        for k in want:
+            assert _rel_err(got[k], want[k]) <= tol, (call.region.ops, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("app,boundary,dtype,kw,tol", [
+    (pw_advection, "zero", "float32", {}, 1e-5),
+    (pw_advection, "periodic", "float32", {}, 1e-5),
+    (pw_advection, "zero", "float32", dict(plane_tile=2), 1e-5),
+    (pw_advection, "zero", "bfloat16", {}, 2e-2),
+    (pw_advection, "zero", "float32", dict(steps=5, time_tile=2), 1e-4),
+    (pw_advection, "zero", "float32", dict(steps=6, time_tile=4), 1e-4),
+    (tracer_advection, "zero", "float32", {}, 1e-5),
+    (tracer_advection, "periodic", "float32", {}, 1e-5),
+    (tracer_advection, "zero", "float32", dict(steps=3), 1e-4),
+], ids=["pw-zero", "pw-periodic", "pw-P2", "pw-bf16", "pw-T2-rem",
+        "pw-T4-rem", "tracer-zero", "tracer-periodic", "tracer-fused"])
+def test_stream_kernels_on_the_card(app, boundary, dtype, kw, tol):
+    """The sweep kernels on the card: the stream path against the plain
+    backend and against the block path, and each region's kernel (a
+    chain's remainder epilogue included) against its plain version, on a
+    grid that is not a tile multiple."""
+    from repro_torch.kernels import stream3d
+
+    _needs_card()
+    p = app(boundary)
+    grid = (20, 18, 100)
+    if "steps" in kw:
+        kw = dict(kw, update=(pw_advection_update(0.1) if app is pw_advection
+                              else tracer_advection_update()))
+    f, s, c = _inputs(p, grid)
+    ex = compile_program(p, grid, dtype=dtype, schedule="stream", **kw)
+    before = stream3d.launches
+    got = ex(f, s, c)
+    torch.cuda.synchronize()
+    assert stream3d.launches > before
+    base = {k: v for k, v in kw.items() if k in ("steps", "update")}
+    for backend in ("torch_fused", "cuda"):
+        want = compile_program(p, grid, dtype=dtype, backend=backend,
+                               **base)(f, s, c)
+        for k in want:
+            assert _rel_err(got[k], want[k]) <= tol, (backend, k)
+    _stream_region_check(ex, p, grid, dtype, tol)
+
+
+@pytest.mark.cuda
+def test_stream_float64_raises_on_the_card():
+    _needs_card()
+    p = pw_advection()
+    grid = (8, 8, 32)
+    ex = compile_program(p, grid, dtype="float64", schedule="stream")
+    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
+        ex(*_inputs(p, grid))

@@ -1,13 +1,15 @@
-"""The generated CUDA fuse-group kernel, run on the CPU through the host C++
+"""The generated CUDA kernels, run on the CPU through the host C++
 compiler.
 
-The kernel source from ``repro_torch.kernels.stencil3d`` is compiled by
+The kernel sources from ``repro_torch.kernels.stencil3d`` (fuse groups)
+and ``repro_torch.kernels.stream3d`` (stream sweeps) are compiled by
 ``g++`` against a small shim that stands in for the CUDA runtime: every
 CTA runs its threads as host threads, ``__syncthreads`` is a barrier, and
-shared memory is a per-CTA buffer.  This runs the emitter's own code —
-staging, window indexing, masks, coefficient reads, bfloat16 rounding,
-carry base offsets — and holds it against the plain PyTorch version, on
-tiny grids.  It skips where no host C++ compiler is installed.
+shared memory is a per-CTA buffer.  This runs the emitters' own code —
+staging, window indexing, rings, chain stages, masks, coefficient reads,
+bfloat16 rounding, carry base offsets, chunked sweeps — and holds it
+against the plain PyTorch versions, on tiny grids.  It skips where no host
+C++ compiler is installed.
 """
 
 import ctypes
@@ -20,10 +22,15 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.apps import pw_advection, tracer_advection
+from repro_torch.apps import (pw_advection, pw_advection_update,
+                              tracer_advection)
 from repro_torch.core import boundary as bc
-from repro_torch.core.schedule import auto_plan
+from repro_torch.core.dataflow import lower_to_dataflow
+from repro_torch.core.frontend import ProgramBuilder
+from repro_torch.core.lower_stream import trace_update
+from repro_torch.core.schedule import adapt_update, auto_plan
 from repro_torch.kernels import stencil3d
+from repro_torch.kernels.stream3d import StreamCall, stream_call_reference
 
 SHIM = r"""
 #include <barrier>
@@ -32,10 +39,11 @@ SHIM = r"""
 #include <cstring>
 #include <thread>
 #include <vector>
-using std::fabs; using std::fmin; using std::fmax;
+using std::fabs; using std::fmin; using std::fmax; using std::min;
+using std::max;
 struct dim3 { unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
-thread_local dim3 threadIdx, blockIdx;
+thread_local dim3 threadIdx, blockIdx, blockDim;
 thread_local std::barrier<>* emu_bar;
 thread_local unsigned char* emu_smem;
 #define __global__
@@ -65,7 +73,7 @@ def _emulated(call):
     src = src.split('extern "C"')[0]
     src = src.replace("extern __shared__ __align__(16) unsigned char "
                       "smem_raw[];", "unsigned char* smem_raw = emu_smem;")
-    params = stencil3d.kernel_params(call)
+    params = call.kernel_params()
     names = ", ".join(q.split()[-1] for q in params)
     src += f"""
 extern "C" int emu_launch({', '.join(params)}, int nblocks, int tx, int ty,
@@ -77,7 +85,7 @@ extern "C" int emu_launch({', '.join(params)}, int nblocks, int tx, int ty,
     for (int y = 0; y < ty; ++y)
       for (int x = 0; x < tx; ++x)
         ts.emplace_back([&, x, y, b] {{
-          threadIdx = dim3(x, y); blockIdx = dim3(b);
+          threadIdx = dim3(x, y); blockIdx = dim3(b); blockDim = dim3(tx, ty);
           emu_bar = &bar; emu_smem = sm.data();
           g0_kernel({names});
         }});
@@ -227,8 +235,6 @@ def test_generated_kernel_masks_against_the_global_domain():
 def test_generated_kernel_lifts_1d_and_2d_programs(grid, block):
     """1-D and 2-D programs run as 3-D kernels with unit outer axes; a
     temp read at offsets exercises masks and margins on every axis."""
-    from repro_torch.core.frontend import ProgramBuilder
-
     nd = len(grid)
     b = ProgramBuilder("lifted", ndim=nd)
     x = b.input("x")
@@ -249,3 +255,160 @@ def test_generated_kernel_lifts_1d_and_2d_programs(grid, block):
     want = stencil3d.group_call_reference(call, padded, [], {})
     got = run_emulated(call, padded, [], {})
     torch.testing.assert_close(got["o"], want["o"], atol=1e-6, rtol=1e-6)
+
+
+# --------------------------------------------------------------------------
+# The stream sweep kernel
+# --------------------------------------------------------------------------
+
+def run_stream_emulated(call, padded, svec, pcoeffs, origin=None,
+                        input_pad=None):
+    """The sweep kernel launched as ``StreamCall._launch`` launches it, on
+    CPU tensors, through the emulated entry."""
+    fn = _emulated(call)
+    outs = {f: torch.full(call.grid_shape, float("nan"), dtype=call.dtype)
+            for f in call.group_outputs}
+    args = call.kernel_args(padded, svec, pcoeffs, origin, input_pad, outs)
+    tx, ty = call.threads
+    fn(*args, call.cta.ctas, tx, ty, call.smem_bytes)
+    return outs
+
+
+def _stream_calls(app, boundary, grid, dtype=torch.float32, time_tile=1,
+                  plane_tile=1, tile=None, chunk=None):
+    """One StreamCall per region of the app's stream plan (a chain for
+    ``time_tile > 1``)."""
+    p = app(boundary)
+    plan = auto_plan(p, grid, schedule="stream", time_tile=time_tile,
+                     plane_tile=plane_tile)
+    graph = lower_to_dataflow(p, plan, grid)
+    calls = []
+    for r in graph.regions:
+        kw = {}
+        if time_tile > 1:
+            upd = adapt_update(pw_advection_update(0.1))
+            outs = [p.ops[i].out for i in r.ops]
+            exprs, why = trace_update(p, upd, r.halo.group_inputs, outs)
+            assert why is None, why
+            kw = dict(time_tile=time_tile, update=upd, update_exprs=exprs)
+        calls.append(StreamCall(p, r, grid, dtype=dtype,
+                                plane_tile=graph.plane_tile, tile=tile,
+                                chunk=chunk, **kw))
+    return p, calls
+
+
+def _stream_inputs(p, call, grid, dtype, seed=0, scale=1.0):
+    rng = np.random.default_rng(seed)
+    bnd = p.boundaries()
+    padded = {}
+    for k in call.group_inputs:
+        x = torch.as_tensor(rng.normal(size=grid).astype(np.float32)) * scale
+        if k == "e3t":
+            x = x.abs() + 1.0
+        if k == "msk":
+            x = (x > 0).float()
+        padded[k] = bc.pad_field(x.to(dtype), call.pad_lo, call.pad_hi,
+                                 bnd.get(k, "zero")).contiguous()
+    pc = {k: bc.pad_coeff(torch.as_tensor(rng.normal(
+        size=(grid[call.coeff_axis[k]],)).astype(np.float32)).to(dtype),
+        call.pad_lo[call.coeff_axis[k]], call.pad_hi[call.coeff_axis[k]],
+        bc.coeff_mode(p)).contiguous() for k in call.group_coeffs}
+    svec = [0.1, 1e-6][:len(p.scalars)]
+    return padded, svec, pc
+
+
+STREAM_CASES = [
+    # app, boundary, dtype, time_tile, plane_tile, tile, chunk
+    (pw_advection, "zero", torch.float32, 1, 1, None, None),
+    (pw_advection, "periodic", torch.float32, 1, 1, None, None),
+    (pw_advection, "zero", torch.bfloat16, 1, 1, None, None),
+    (pw_advection, "zero", torch.float32, 2, 1, None, None),
+    (pw_advection, "zero", torch.float32, 1, 2, None, None),
+    # a tile smaller than the plane, and the sweep cut into chunks
+    (pw_advection, "zero", torch.float32, 1, 1, (2, 32), 3),
+    (pw_advection, "zero", torch.float32, 2, 2, (4, 32), 4),
+    (tracer_advection, "zero", torch.float32, 1, 1, None, None),
+    (tracer_advection, "zero", torch.float32, 1, 1, (2, 32), 3),
+]
+
+
+@pytest.mark.parametrize("app,boundary,dtype,time_tile,plane_tile,tile,chunk",
+                         STREAM_CASES)
+def test_generated_sweep_kernel_matches_plain_version(
+        app, boundary, dtype, time_tile, plane_tile, tile, chunk):
+    """Sweep kernel vs plain version, every region of the plan, on a grid
+    whose plane is not a multiple of the CTA tile.  Tolerances relative to
+    each field's max abs: float32 and bfloat16 exact for pw_advection (the
+    host build does not contract into FMAs and both round each op), 1e-6
+    for tracer_advection (value numbering may share a subtree in another
+    association)."""
+    grid = (7, 6, 40)
+    p, calls = _stream_calls(app, boundary, grid, dtype, time_tile,
+                             plane_tile, tile, chunk)
+    tol = 0.0 if p.name == "pw_advection" else 1e-6
+    for k, call in enumerate(calls):
+        padded, svec, pc = _stream_inputs(p, call, grid, dtype, seed=k,
+                                          scale=0.1 if time_tile > 1 else 1)
+        want = stream_call_reference(call, padded, svec, pc)
+        got = run_stream_emulated(call, padded, svec, pc)
+        for f in want:
+            w, g = want[f].float(), got[f].float()
+            assert torch.isfinite(g).all(), (k, f)
+            scale = float(w.abs().max())
+            assert float((g - w).abs().max()) <= tol * scale, (k, f)
+
+
+def _coeff_program(ndim):
+    """A ring temp read one plane back and a coefficient along the stream
+    axis read at offsets -1, 0, +1 (3-D: also one along axis 1)."""
+    b = ProgramBuilder(f"zcoef{ndim}", ndim=ndim)
+    x = b.input("x")
+    cz = b.coeff("cz", axis=0)
+    t = b.temp("t")
+    o = b.output("o")
+    z = (0,) * ndim
+    back = (-1,) + (0,) * (ndim - 1)
+    fwd = (1,) + (0,) * (ndim - 1)
+    side = (0,) * (ndim - 1) + (-1,)
+    up = (0, 1) + (0,) * (ndim - 2)
+    extra = x[side] if ndim == 2 else x[side] * b.coeff("cy", axis=1)[0]
+    b.define(t, x[z] * cz[0] + x[back] - extra)
+    b.define(o, t[back] * cz[1] + t[up] - x[fwd] * cz[-1])
+    return b.build()
+
+
+@pytest.mark.parametrize("ndim,grid,tile,chunk", [
+    (3, (7, 6, 40), (2, 32), 3),
+    (2, (9, 45), (32,), 4),
+])
+def test_generated_sweep_kernel_coefficients_and_2d_lift(ndim, grid, tile,
+                                                         chunk):
+    """Axis-0 coefficients at the clamped per-plane index, a temp ring
+    across chunks, and a 2-D program run with a unit lifted axis."""
+    p = _coeff_program(ndim)
+    plan = auto_plan(p, grid, schedule="stream")
+    (region,) = lower_to_dataflow(p, plan, grid).regions
+    call = StreamCall(p, region, grid, tile=tile, chunk=chunk)
+    padded, svec, pc = _stream_inputs(p, call, grid, torch.float32, seed=9)
+    want = stream_call_reference(call, padded, svec, pc)
+    got = run_stream_emulated(call, padded, svec, pc)
+    torch.testing.assert_close(got["o"], want["o"], atol=1e-6, rtol=1e-6)
+
+
+def test_generated_sweep_kernel_reads_windows_inside_an_oversized_carry():
+    """``input_pad`` with a chain: the windows are read through a base
+    offset and the carry's strides, and a shard origin moves the masks."""
+    p, (call,) = _stream_calls(pw_advection, "zero", (7, 6, 40),
+                               time_tile=2, tile=(4, 32), chunk=3)
+    padded, svec, pc = _stream_inputs(p, call, (7, 6, 40), torch.float32,
+                                      seed=4, scale=0.1)
+    extra = np.array([[1, 2], [3, 1], [2, 2]])
+    fpad = {k: np.stack([np.array(call.pad_lo), np.array(call.pad_hi)], 1)
+            + extra for k in call.group_inputs}
+    carry = {k: torch.nn.functional.pad(
+        padded[k], (2, 2, 3, 1, 1, 2)).contiguous()
+        for k in call.group_inputs}
+    want = stream_call_reference(call, padded, svec, pc)
+    got = run_stream_emulated(call, carry, svec, pc, input_pad=fpad)
+    for f in want:
+        torch.testing.assert_close(got[f], want[f], atol=0, rtol=0)

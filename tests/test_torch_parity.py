@@ -91,7 +91,7 @@ def assert_close(got, want, tol, what):
                                    err_msg=f"{what} field {k}")
 
 
-GRIDS = [(8, 8, 32), (12, 10, 130)]
+GRIDS = [(8, 8, 32), (12, 10, 130), (16, 16, 256)]
 
 
 @pytest.mark.parametrize("grid", GRIDS)

@@ -200,9 +200,6 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(schedule="stream"), "A5"),
-    (dict(time_tile=2, steps=2, update=lambda f, o: f), "A5"),
-    (dict(plane_tile=2), "A5"),
     (dict(mesh=object()), "A7"),
     (dict(strategy="tuned"), "A6"),
 ])

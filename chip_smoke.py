@@ -25,19 +25,38 @@ Stream schedule (``schedule="stream"``, generated CUDA sweep kernels):
    zero fused ``steps=4``, periodic single step (eight regions);
 6. ``pw_advection`` in bfloat16 at 256x256x128, a zero single step.
 
-Every path is compared with the same compile on ``backend="torch_fused"``
-on the card, and each stream path with the block path of the same program,
-boundary, grid and steps where there is one.  Each block path's first group
-kernel, and every sweep kernel of a stream path (a chain's remainder
-included) on the inputs the path gives it, is held against its plain
-PyTorch version; small grids are compared with the CPU oracle.  Every
-tolerance is relative to each output field's own max abs: 1e-5 for a
-float32 single step, 1e-4 for fused loops, and 2e-2 (a few bfloat16 ulps)
-for bfloat16.  Launch counts are zeroed just before each path and read just
-after.  Kernel and end-to-end times come from CUDA events (warm-up, then
-the median of 5); a stream path's kernel, plain-version and bound times
-are per time step (a chained sweep's divided by its depth), and its plain
-version is timed in the one run that checks it.
+LM serving (the hand-written CUDA sliding-window attention kernel):
+
+7. H2O-Danube-1.8B at full width and depth (24 layers, d 2560, 32 heads
+   over 8 KV heads, head dim 80, window 4096, bfloat16), random weights
+   from ``--seed``: ``ServeEngine.generate`` on two prompts of 8192 tokens,
+   16 greedy new tokens.  The prefill launches the kernel once a layer
+   (24), the decode steps never.  Layer 0's q, k and v are captured and
+   the kernel held against ``swa_plain`` on them (bf16 at 2e-2, and at
+   float32 on the same values cast up at 2e-5); at a depth of 4 layers the
+   last-position logits of an 8192-token prefill (the kernel) are held
+   against a 7168-token prefill and 1024 teacher-forced decode steps (the
+   ring cache, no kernel) at 2e-2; the kernel is also held against
+   ``swa_plain`` at head dims 64/80/128/256 with GQA and a window >= S in
+   both dtypes.  ``torch.nn.functional.scaled_dot_product_attention`` with
+   the band mask is timed on the same inputs as the library yardstick.
+
+Every stencil path is compared with the same compile on
+``backend="torch_fused"`` on the card, and each stream path with the block
+path of the same program, boundary, grid and steps where there is one.
+Each block path's first group kernel, and every sweep kernel of a stream
+path (a chain's remainder included) on the inputs the path gives it, is
+held against its plain PyTorch version; small grids are compared with the
+CPU oracle.  Every tolerance is relative to each output's own max abs:
+1e-5 for a float32 single step, 1e-4 for fused loops, and 2e-2 (a few
+bfloat16 ulps) for bfloat16.  Every launch count is zeroed just before each
+path and read just after.  Kernel and end-to-end times come from CUDA
+events (warm-up, then the median of 5; the LM prefill and decode the
+median of 3); a stream path's kernel, plain-version and bound times are
+per time step (a chained sweep's divided by its depth), and its plain
+version is timed in the one run that checks it.  One prefill and one
+decode step also run under ``torch.profiler`` for their device time, idle
+share and kernel launches.
 
 Usage, from the root of a checkout (the kernels build with nvcc into
 ``build/repro_torch_kernels/`` on first use):
@@ -68,6 +87,16 @@ TRACER_GRID = (256, 256, 128)
 BF16_GRID = (256, 256, 128)
 SMALL_GRID = (20, 18, 100)
 PW_STEPS, TRACER_STEPS = 10, 4
+
+LM_ARCH = "h2o_danube_1_8b"
+LM_BATCH, LM_PROMPT, LM_NEW = 2, 8192, 16
+LM_E2E_DEPTH, LM_E2E_SPLIT = 4, 7168     # prefill 7168, decode 1024
+SWA_HEAD_DIMS = (64, 80, 128, 256)
+# (B, S, H, KV, D, window): the head dims, GQA, a window >= S, a last query
+# tile that is not full
+SWA_SHAPES = [(2, 256, 4, 4, 64, 64), (1, 256, 32, 8, 80, 96),
+              (2, 512, 8, 2, 128, 256), (1, 128, 4, 4, 256, 512),
+              (2, 200, 4, 1, 80, 4096)]
 
 
 def log(*a):
@@ -215,7 +244,7 @@ def main() -> int:
                                   tracer_advection, tracer_advection_update)
     from repro_torch.core import TileDemotionWarning
     from repro_torch.interop import inputs_from_numpy
-    from repro_torch.kernels import build, stencil3d, stream3d
+    from repro_torch.kernels import build, stencil3d, stream3d, swa
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -263,11 +292,14 @@ def main() -> int:
                                             dtype=ph["dtype"],
                                             backend="torch_fused", **kw)
     sources = [ph["ex"].kernels[0].module.source for ph in paths]
-    build.build_many(sources)
-    log(f"built {len(set(sources))} kernel libraries in "
+    swa_sources = [swa.kernel_source(getattr(torch, dt), d)
+                   for dt in ("float32", "bfloat16") for d in SWA_HEAD_DIMS]
+    tags = ["stencil"] * len(sources) + ["swa"] * len(swa_sources)
+    build.build_many(sources + swa_sources, tag=tags)
+    log(f"built {len(set(sources + swa_sources))} kernel libraries in "
         f"{time.perf_counter() - t0:.1f} s")
-    for src in dict.fromkeys(sources):
-        regs = [ln.strip() for ln in build.ptxas_report(src).splitlines()
+    for src, tag in dict.fromkeys(zip(sources + swa_sources, tags)):
+        regs = [ln.strip() for ln in build.ptxas_report(src, tag).splitlines()
                 if "registers" in ln or "spill" in ln]
         log("ptxas:", " | ".join(regs))
 
@@ -280,7 +312,7 @@ def main() -> int:
             inputs[ikey] = inputs_from_numpy(f, s, c, "cuda", ph["dtype"])
         ph["inputs"] = inputs[ikey]
     for ph in paths:
-        stencil3d.launches = stream3d.launches = 0
+        stencil3d.launches = stream3d.launches = swa.launches = 0
         out = ph["ex"](*ph["inputs"])
         torch.cuda.synchronize()
         ph["launches"] = (stream3d.launches if ph["schedule"] == "stream"
@@ -354,14 +386,20 @@ def main() -> int:
             f"{row['plain_ms']:.3f} ms, end-to-end {row['step_ms']:.4f} "
             f"ms/step, torch_fused {row['plain_backend_step_ms']:.4f} "
             f"ms/step, launches/step {row['launches_per_step']:g}")
+    path_rows = [{k: ph.get(k) for k in (
+        "name", "schedule", "grid", "dtype", "boundary", "steps", "time_tile",
+        "plane_tile", "eff", "launches", "e2e_err", "block_err")}
+        for ph in paths]
+    del paths, inputs, plain_ex, ph
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------- LM serving path
+    lm_row, lm = lm_phase(args.seed, torch, swa)
+    rows.append(lm_row)
 
     result = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "seed": args.seed,
-              "kernels": rows,
-              "paths": [{k: ph.get(k) for k in (
-                  "name", "schedule", "grid", "dtype", "boundary", "steps",
-                  "time_tile", "plane_tile", "eff", "launches", "e2e_err",
-                  "block_err")} for ph in paths]}
+              "kernels": rows, "paths": path_rows, "lm": lm}
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=1))
@@ -570,6 +608,272 @@ def stream_row(ph, torch, stream3d) -> dict:
         "min_bytes_per_step": in_bytes + out_bytes,
         "calls": calls,
     }
+
+
+def device_profile(fn, torch) -> dict:
+    """One run of ``fn`` under ``torch.profiler``: host ms (to the final
+    synchronise), device ms (the kernels' time summed: one stream, so
+    busy time), the idle share, kernel launches, and device ms by kernel
+    class (the SWA kernel, matrix products, the rest)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    by = {"swa": 0.0, "matmul": 0.0, "other": 0.0}
+    launches = 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        name = e.key.lower()
+        cls = ("swa" if "swa_kernel" in name else "matmul"
+               if any(t in name for t in ("gemm", "nvjet", "cutlass", "sm90"))
+               else "other")
+        by[cls] += us / 1e3
+        launches += e.count
+    dev = sum(by.values())
+    return {"host_ms": host_ms, "device_ms": dev,
+            "idle_share": max(0.0, 1.0 - dev / host_ms),
+            "kernel_launches": launches, "device_ms_by": by}
+
+
+def swa_bound(B, S, H, KV, D, w, itemsize):
+    """(bound ms, what bounds it): q, k, v and o moved once over 3.35 TB/s,
+    against 4·D operations for each (query, key) pair of the band,
+    ``sum_i min(i+1, w)`` a row, over the tensor cores' dense bf16 peak
+    (989 TFLOP/s; data sheet, 700 W)."""
+    from repro_torch import hw
+
+    pairs = sum(min(i + 1, w) for i in range(S))
+    t_bytes = B * S * (2 * H + 2 * KV) * D * itemsize / hw.H100.hbm_bandwidth
+    t_ops = 4 * D * pairs * B * H / hw.H100.peak_bf16_flops
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def lm_phase(seed, torch, swa):
+    """H2O-Danube-1.8B served at full width and depth through
+    ``ServeEngine.generate``; the SWA kernel against its plain version on
+    the inputs layer 0 gives it and at the test shapes; prefill against
+    decode at depth 4; times.  Returns (the kernel's row, the LM record)."""
+    import dataclasses
+
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import stencil3d, stream3d
+    from repro_torch.models import (ServeEngine, cast_params, decode_step,
+                                    init_lm, lm_serve, prefill)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(LM_ARCH)
+    B, S, new = LM_BATCH, LM_PROMPT, LM_NEW
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    params = init_lm(cfg, gen)
+    eng = ServeEngine(cfg, params, batch=B, max_len=S + new)
+    del params
+    prompts = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                            device="cuda")
+    torch.cuda.synchronize()
+    log(f"{cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.num_params() / 1e9:.3f} B params, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # the main path: counts zeroed just before, read just after; the
+    # prefill's and the decode steps' launches apart, and layer 0's
+    # kernel inputs captured
+    counts = {"prefill": [], "decode": []}
+    captured = []
+    launch = swa.swa_cuda
+
+    def capture(q, k, v, *, window):
+        if not captured:
+            captured.append((q.clone(), k.clone(), v.clone(), window))
+        return launch(q, k, v, window=window)
+
+    def counted(name, fn):
+        def run(*a, **kw):
+            before = swa.launches
+            out = fn(*a, **kw)
+            counts[name].append(swa.launches - before)
+            return out
+        return run
+
+    patched = [(swa, "swa_cuda", capture),
+               (lm_serve, "prefill", counted("prefill", lm_serve.prefill)),
+               (lm_serve, "decode_step",
+                counted("decode", lm_serve.decode_step))]
+    saved = [(m, n, getattr(m, n)) for m, n, _ in patched]
+    for m, n, f in patched:
+        setattr(m, n, f)
+    try:
+        stencil3d.launches = stream3d.launches = swa.launches = 0
+        t0 = time.perf_counter()
+        ids = eng.generate(prompts.cpu().numpy(), new)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        launches = swa.launches
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+    log(f"generate: ids {ids.shape}, {gen_s:.3f} s; SWA launches {launches}"
+        f" (prefill {counts['prefill']}, decode steps "
+        f"{sum(counts['decode'])} over {len(counts['decode'])})")
+    if ids.shape != (B, new) or not ((ids >= 0) & (ids < cfg.vocab)).all():
+        raise SystemExit(f"generate returned bad ids {ids.shape}")
+    if counts["prefill"] != [cfg.n_layers] or any(counts["decode"]) \
+            or launches != cfg.n_layers:
+        raise SystemExit("the SWA kernel did not run once a layer in the "
+                         "prefill and never in decode")
+    if eng.stats.prefill_tokens != B * S:
+        raise SystemExit(f"stats {eng.stats}")
+
+    # the kernel against its plain version on layer 0's inputs
+    q, k, v, w = captured[0]
+    H, KV, D = q.shape[2], k.shape[2], q.shape[3]
+    got = swa.swa_cuda(q, k, v, window=w)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    want = swa.swa_plain(q, k, v, window=w)
+    e1.record()
+    e1.synchronize()
+    plain_ms = e0.elapsed_time(e1)
+    err = float((got.float() - want.float()).abs().max())
+    rel = rel_err(got, want)
+    got32 = swa.swa_cuda(q.float(), k.float(), v.float(), window=w)
+    rel32 = rel_err(got32, swa.swa_plain(q.float(), k.float(), v.float(),
+                                         window=w))
+    log(f"swa layer 0 {tuple(q.shape)} KV {KV} w {w}: kernel vs plain max "
+        f"abs err {err:.3e}, max rel err {rel:.3e} (bf16, tol 2e-2); "
+        f"float32 {rel32:.3e} (tol 2e-5)")
+    if rel > 2e-2 or rel32 > 2e-5 or not bool(torch.isfinite(got).all()):
+        raise SystemExit("the SWA kernel disagrees with its plain version")
+    del got, want, got32
+    ms = time_ms(lambda: swa.swa_cuda(q, k, v, window=w))
+    # the library yardstick, timed only: SDPA with the band mask on the
+    # same inputs (KV heads repeated, (B, H, S, D) views)
+    G = H // KV
+    qt = q.transpose(1, 2)
+    kt = k.repeat_interleave(G, 2).transpose(1, 2)
+    vt = v.repeat_interleave(G, 2).transpose(1, 2)
+    i = torch.arange(S, device="cuda")
+    band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=band))
+    del qt, kt, vt, band
+    bound_ms, bound_by = swa_bound(B, S, H, KV, D, w, q.element_size())
+    log(f"swa kernel: {ms:.4f} ms a call (bound {bound_ms:.4f} ms by "
+        f"{bound_by}), plain {plain_ms:.3f} ms, SDPA with the band mask "
+        f"{library_ms:.4f} ms; {cfg.n_layers} launches a prefill")
+
+    # end-to-end times of the serving path
+    toks = prompts
+    prefill_ms = time_ms(lambda: prefill(cfg, eng.params, toks, S + new),
+                         reps=3, warmup=1)
+    _, cache = prefill(cfg, eng.params, toks, S + new)
+    tok = toks[:, -1]
+    step = {"pos": S}
+
+    def one_step():
+        decode_step(cfg, eng.params, cache, tok, step["pos"])
+        step["pos"] += 1
+
+    decode_ms = time_ms(one_step, inner=4, reps=3, warmup=1)
+    prof = {"prefill": device_profile(
+        lambda: prefill(cfg, eng.params, toks, S + new), torch),
+        "decode_step": device_profile(one_step, torch)}
+    del cache
+    log(f"prefill {B}x{S}: {prefill_ms:.2f} ms ({B * S / prefill_ms * 1e3:.0f}"
+        f" tokens/s); decode {decode_ms:.3f} ms a step "
+        f"({B / decode_ms * 1e3:.1f} tokens/s); generate {new} tokens "
+        f"{gen_s * 1e3:.1f} ms")
+    for k, pr in prof.items():
+        log(f"profile {k}: host {pr['host_ms']:.2f} ms, device "
+            f"{pr['device_ms']:.2f} ms (idle {pr['idle_share']:.1%}), "
+            f"{pr['kernel_launches']} kernel launches; device ms: "
+            + ", ".join(f"{c} {v:.2f}" for c, v in pr["device_ms_by"].items()))
+
+    # prefill (the kernel) against prefill + teacher-forced decode (the
+    # ring cache) at a depth of LM_E2E_DEPTH, full width
+    cfg4 = dataclasses.replace(cfg, n_layers=LM_E2E_DEPTH)
+    p4 = cast_params(init_lm(cfg4, gen), torch.bfloat16)
+    full, _ = prefill(cfg4, p4, toks, S)
+    swa.launches = 0
+    part, cache = prefill(cfg4, p4, toks[:, :LM_E2E_SPLIT], S)
+    pre_launches = swa.launches
+    for t in range(LM_E2E_SPLIT, S):
+        part, cache = decode_step(cfg4, p4, cache, toks[:, t], t)
+    torch.cuda.synchronize()
+    dec_launches = swa.launches - pre_launches
+    e2e = rel_err(part, full)
+    log(f"depth {LM_E2E_DEPTH}: prefill {S} vs prefill {LM_E2E_SPLIT} + "
+        f"{S - LM_E2E_SPLIT} decode steps, last-position logits max rel err "
+        f"{e2e:.3e} (tol 2e-2); kernel launches {pre_launches} + "
+        f"{dec_launches}")
+    if e2e > 2e-2 or pre_launches != LM_E2E_DEPTH or dec_launches \
+            or not bool(torch.isfinite(full).all()):
+        raise SystemExit("prefill and decode disagree at depth "
+                         f"{LM_E2E_DEPTH}")
+    del p4, cache
+
+    # the kernel at the test shapes
+    shapes = []
+    rng = torch.Generator(device="cuda").manual_seed(seed + 1)
+    for dt, tol in (("float32", 2e-5), ("bfloat16", 2e-2)):
+        for (b, s, h, kv, d, ww) in SWA_SHAPES:
+            qq, kk, vv = (torch.randn((b, s, hh, d), generator=rng,
+                                      device="cuda").to(getattr(torch, dt))
+                          for hh in (h, kv, kv))
+            r = rel_err(swa.swa_cuda(qq, kk, vv, window=ww),
+                        swa.swa_plain(qq, kk, vv, window=ww,
+                                      q_block=128 if s % 128 == 0 else s))
+            shapes.append({"shape": [b, s, h, kv, d], "window": ww,
+                           "dtype": dt, "max_rel_err": r})
+            if r > tol:
+                raise SystemExit(f"swa kernel {dt} {(b, s, h, kv, d, ww)}: "
+                                 f"max rel err {r:.3e} > {tol}")
+    log(f"swa kernel at {len(shapes)} test shapes: worst max rel err "
+        f"{max(x['max_rel_err'] for x in shapes):.3e}")
+
+    row = {
+        "name": f"swa.swa_cuda[{cfg.name} prefill B{B} S{S} H{H} KV{KV} "
+                f"D{D} w{w} bf16]",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/swa.cu",
+        "replaces": swa.REPLACES,
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+        "max_rel_err": rel,
+        "max_rel_err_f32": rel32,
+        "smem_bytes": swa.smem_bytes(D),
+    }
+    record = {"arch": LM_ARCH, "batch": B, "prompt": S, "new_tokens": new,
+              "generate_s": gen_s, "prefill_ms": prefill_ms,
+              "decode_ms_per_step": decode_ms,
+              "prefill_tokens_per_s": B * S / prefill_ms * 1e3,
+              "decode_tokens_per_s": B / decode_ms * 1e3,
+              "launches_prefill": counts["prefill"],
+              "launches_decode": sum(counts["decode"]),
+              "profile": prof,
+              "e2e_depth": LM_E2E_DEPTH, "e2e_max_rel_err": e2e,
+              "swa_shapes": shapes}
+    return row, record
 
 
 if __name__ == "__main__":

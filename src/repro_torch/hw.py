@@ -6,7 +6,7 @@ the CUDA C++ programming guide's compute-capability 9.0 table (132 SMs,
 228 KB of shared memory an SM holds, 227 KB of it a CTA can opt into, 1 KB
 of it reserved per resident CTA, 2048 threads and 32 CTAs resident per SM,
 50 MB L2, 80 GB of HBM3 at 3.35 TB/s, 67 TFLOP/s float32 outside the
-tensor cores).
+tensor cores, 989 TFLOP/s dense bfloat16 on the tensor cores, at 700 W).
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ class ChipSpec:
     sms: int                    # streaming multiprocessors
     l2_bytes: int
     peak_f32_flops: float       # FLOP/s, CUDA cores
+    peak_bf16_flops: float      # FLOP/s, dense bf16 on the tensor cores
 
 
 H100 = ChipSpec(
@@ -41,6 +42,7 @@ H100 = ChipSpec(
     sms=132,
     l2_bytes=50 * 1024**2,
     peak_f32_flops=67e12,
+    peak_bf16_flops=989e12,
 )
 
 # field storage dtypes the planner and cost models understand

@@ -4,6 +4,8 @@ A stencil has no weights: what a run is made of is its plan and its input
 data.  :func:`plan_from_reference` reads a plan the JAX package wrote
 (``repro.core.schedule.plan_to_dict``) and :func:`inputs_from_numpy` turns
 numpy inputs — the form both packages accept — into tensors on a device.
+:func:`lm_params_from_reference` turns the reference LM's parameter tree
+into the port's modules, so both packages compute the same model.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from . import hw
 from .core.ir import Program
 from .core.lower_kernel import DTYPES
 from .core.schedule import DataflowPlan, pick_block, plan_from_dict
+from .models.transformer import LM
 
 #: the reference's backend names and their counterparts here
 BACKENDS = {"pallas": "cuda", "jnp_fused": "torch_fused",
@@ -58,3 +61,31 @@ def inputs_from_numpy(fields: Mapping, scalars: Mapping | None = None,
     c = {k: torch.as_tensor(np.asarray(v), device=dev).to(tdt)
          for k, v in (coeffs or {}).items()}
     return f, s, c
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = np.array(v, dtype=np.float32)
+    return out
+
+
+def lm_params_from_reference(cfg, params: Mapping, device="cuda") -> LM:
+    """The port's :class:`~repro_torch.models.transformer.LM` holding the
+    reference ``init_lm`` tree ``params`` (numpy arrays; ``"blocks"``
+    stacked on a leading layer axis), on ``device``, in
+    ``cfg.param_dtype``."""
+    state = {}
+    for name, a in _flatten(params).items():
+        if name.startswith("blocks."):
+            rest = name[len("blocks."):]
+            for i in range(a.shape[0]):
+                state[f"blocks.{i}.{rest}"] = torch.as_tensor(a[i])
+        else:
+            state[name] = torch.as_tensor(a)
+    lm = LM(cfg, device=torch.device(device))
+    lm.load_state_dict(state, strict=True)
+    return lm

@@ -1,12 +1,14 @@
-"""Build step of the generated CUDA kernels: ``nvcc`` into a shared library
-with a plain C interface, loaded with ``ctypes``.
+"""Build step of the CUDA kernels: ``nvcc`` into a shared library with a
+plain C interface, loaded with ``ctypes``.
 
-Sources come only from the repository's own emitter
-(:mod:`repro_torch.kernels.stencil3d`).  Each library is cached by the hash
-of its source and flags under ``build/repro_torch_kernels/`` at the root of
-the checkout (``REPRO_TORCH_BUILD`` overrides the directory), so a second
-compile of the same program loads without calling ``nvcc``.  Several
-sources build in parallel through :func:`build_many`.
+Sources come only from the repository: the emitters of
+:mod:`repro_torch.kernels.stencil3d` and :mod:`~repro_torch.kernels.stream3d`,
+and ``swa.cu`` specialised by :mod:`repro_torch.kernels.swa`.  Each library
+is cached by the hash of its source and flags under
+``build/repro_torch_kernels/`` at the root of the checkout
+(``REPRO_TORCH_BUILD`` overrides the directory), so a second compile of the
+same program loads without calling ``nvcc``.  Several sources build in
+parallel through :func:`build_many`.
 """
 
 from __future__ import annotations
@@ -71,11 +73,15 @@ def _finish(job) -> None:
     os.replace(tmp, so)
 
 
-def build_many(sources, tag: str = "stencil") -> list:
+def build_many(sources, tag="stencil") -> list:
     """Compile every source not yet cached, all ``nvcc`` processes running
-    at once; returns the library paths in order."""
+    at once; returns the library paths in order.  ``tag`` names the
+    libraries: one tag for all, or one per source."""
     sources = list(sources)
-    jobs = [_start(s, tag) for s in dict.fromkeys(sources)]
+    tags = [tag] * len(sources) if isinstance(tag, str) else list(tag)
+    if len(tags) != len(sources):
+        raise ValueError(f"{len(tags)} tags for {len(sources)} sources")
+    jobs = [_start(s, t) for s, t in dict.fromkeys(zip(sources, tags))]
     errors = []
     for job in jobs:
         if job is None:
@@ -86,7 +92,7 @@ def build_many(sources, tag: str = "stencil") -> list:
             errors.append(str(e))
     if errors:
         raise RuntimeError("\n".join(errors))
-    return [library_path(s, tag) for s in sources]
+    return [library_path(s, t) for s, t in zip(sources, tags)]
 
 
 def load(source: str, tag: str = "stencil") -> ctypes.CDLL:

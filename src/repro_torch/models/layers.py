@@ -1,0 +1,379 @@
+"""Transformer building blocks of the decoder path: norms, RoPE, the
+attention family and the MLP, in PyTorch.
+
+The port of ``repro.models.layers``.  Parameters live in ``nn.Module``s
+whose attribute names are the reference's pytree keys (``Attention.wq``,
+``Norm.scale``, ...), so a reference tree carries across by name
+(:func:`repro_torch.interop.lm_params_from_reference`).  The ``*_apply``
+functions take such a module and tensors, batch-first ``(B, S, ...)``, and
+compute in the tensors' dtype with the reference's float32 islands
+(norms, RoPE, softmax).
+
+Attention paths, as in the reference:
+
+* dense masked attention for short sequences;
+* blockwise flash (a loop over KV chunks, running max and denominator) for
+  prefill longer than ``spec.chunk``;
+* sliding-window attention for local layers longer than the window: on the
+  card the CUDA kernel (:func:`repro_torch.kernels.ops.
+  sliding_window_attention`), which computes no logit softcap, so a layer
+  with a softcap, and every CPU run, takes the torch slab path
+  :func:`swa_attention`;
+* decode attention over a (possibly ring-buffer) KV cache.
+
+MoE (``init_moe``/``moe_apply``) is not ported yet (ROADMAP A11).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels import ops
+
+
+# --------------------------------------------------------------------------
+# initialisers and parameter modules
+# --------------------------------------------------------------------------
+
+def _dense_init(generator, shape, in_axis_size, dtype, device) -> nn.Parameter:
+    """Normal / sqrt(fan-in) from ``generator``; uninitialised (for a copy
+    to fill) when ``generator`` is None."""
+    if generator is None:
+        t = torch.empty(shape, dtype=dtype, device=device)
+    else:
+        scale = 1.0 / math.sqrt(max(in_axis_size, 1))
+        t = (torch.randn(shape, generator=generator, device=device)
+             * scale).to(dtype)
+    return nn.Parameter(t, requires_grad=False)
+
+
+class Norm(nn.Module):
+    """``scale`` (ones), and ``bias`` (zeros) for a layernorm."""
+
+    def __init__(self, d: int, kind: str = "rmsnorm",
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(d, dtype=dtype, device=device),
+                                  requires_grad=False)
+        if kind == "layernorm":
+            self.bias = nn.Parameter(torch.zeros(d, dtype=dtype,
+                                                 device=device),
+                                     requires_grad=False)
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnSpec:
+    n_heads: int
+    n_kv_heads: int
+    d_head: int
+    causal: bool = True
+    window: int = 0            # 0 = global
+    softcap: float = 0.0
+    chunk: int = 1024          # blockwise path threshold/size
+    qk_norm: bool = False
+
+
+class Attention(nn.Module):
+    """``wq`` (d, H, Dh), ``wk``/``wv`` (d, KV, Dh), ``wo`` (H, Dh, d), and
+    ``q_norm``/``k_norm`` with ``spec.qk_norm``."""
+
+    def __init__(self, d_model: int, spec: AttnSpec, generator=None,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        h, kv, dh = spec.n_heads, spec.n_kv_heads, spec.d_head
+        init = dict(dtype=dtype, device=device)
+        self.wq = _dense_init(generator, (d_model, h, dh), d_model, **init)
+        self.wk = _dense_init(generator, (d_model, kv, dh), d_model, **init)
+        self.wv = _dense_init(generator, (d_model, kv, dh), d_model, **init)
+        self.wo = _dense_init(generator, (h, dh, d_model), h * dh, **init)
+        if spec.qk_norm:
+            self.q_norm = Norm(dh, **init)
+            self.k_norm = Norm(dh, **init)
+
+
+class MLP(nn.Module):
+    """``w_in`` (d, F), ``w_out`` (F, d), and ``w_gate`` (d, F) when gated."""
+
+    def __init__(self, d_model: int, d_ff: int, glu: bool = True,
+                 generator=None, dtype=torch.float32, device=None):
+        super().__init__()
+        init = dict(dtype=dtype, device=device)
+        self.w_in = _dense_init(generator, (d_model, d_ff), d_model, **init)
+        self.w_out = _dense_init(generator, (d_ff, d_model), d_ff, **init)
+        if glu:
+            self.w_gate = _dense_init(generator, (d_model, d_ff), d_model,
+                                      **init)
+
+
+# --------------------------------------------------------------------------
+# norms
+# --------------------------------------------------------------------------
+
+def norm_apply(p: Norm, x: torch.Tensor, kind: str = "rmsnorm",
+               eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    if kind == "rmsnorm":
+        nrm = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+        return (nrm * p.scale.float()).to(x.dtype)
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * p.scale + p.bias).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# RoPE
+# --------------------------------------------------------------------------
+
+def rope_frequencies(d_head: int, theta: float, device=None) -> torch.Tensor:
+    return theta ** (-torch.arange(0, d_head, 2, dtype=torch.float32,
+                                   device=device) / d_head)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: (B, S, H, Dh); positions: (B, S) or (S,) absolute positions.
+    Rotates interleaved channel pairs ``(x[..., 0::2], x[..., 1::2])``."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, x.device)             # (d/2,)
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].float() * freqs               # (B,S,d/2)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    xf1, xf2 = x[..., 0::2].float(), x[..., 1::2].float()
+    o1 = xf1 * cos - xf2 * sin
+    o2 = xf2 * cos + xf1 * sin
+    out = torch.stack([o1, o2], dim=-1).reshape(x.shape)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# attention
+# --------------------------------------------------------------------------
+
+def _repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    kvh = k.shape[-2]
+    if kvh == n_heads:
+        return k
+    return k.repeat_interleave(n_heads // kvh, dim=-2)
+
+
+def _softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
+    if cap and cap > 0:
+        return cap * torch.tanh(logits / cap)
+    return logits
+
+
+def _scores(q, k, scale):
+    """(B,Sq,H,D) x (B,Sk,H,D) -> f32 logits (B,H,Sq,Sk): the reference's
+    ``preferred_element_type=float32`` product (exact products, f32 sums)."""
+    return torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+
+
+def _dense_scores(q, k, spec: AttnSpec, qpos, kpos):
+    """(B,Sq,H,D)x(B,Sk,H,D) -> masked f32 logits (B,H,Sq,Sk)."""
+    logits = _softcap(_scores(q, k, 1.0 / math.sqrt(spec.d_head)),
+                      spec.softcap)
+    dq, dk = qpos[:, None], kpos[None, :]
+    ok = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
+                    device=q.device)
+    if spec.causal:
+        ok &= dk <= dq
+    if spec.window:
+        ok &= dk > dq - spec.window
+    return torch.where(ok, logits, -1e30)
+
+
+def dense_attention(q, k, v, spec: AttnSpec, qpos=None, kpos=None):
+    Sq, Sk = q.shape[1], k.shape[1]
+    if qpos is None:
+        qpos = torch.arange(Sq, device=q.device)
+    if kpos is None:
+        kpos = torch.arange(Sk, device=q.device)
+    k = _repeat_kv(k, spec.n_heads)
+    v = _repeat_kv(v, spec.n_heads)
+    w = torch.softmax(_dense_scores(q, k, spec, qpos, kpos), -1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v)
+
+
+def flash_attention(q, k, v, spec: AttnSpec):
+    """Blockwise attention, O(S·chunk) memory: a loop over KV chunks with a
+    running max and denominator."""
+    B, S, H, D = q.shape
+    C = min(spec.chunk, S)
+    if S % C:
+        raise ValueError(f"seq {S} not divisible by chunk {C}")
+    k = _repeat_kv(k, spec.n_heads)
+    v = _repeat_kv(v, spec.n_heads)
+    scale = 1.0 / math.sqrt(D)
+    qpos = torch.arange(S, device=q.device)
+    m = torch.full((B, H, S), -math.inf, device=q.device)
+    l = torch.zeros((B, H, S), device=q.device)
+    acc = torch.zeros((B, H, S, D), device=q.device)
+    for blk in range(S // C):
+        kb, vb = k[:, blk * C:(blk + 1) * C], v[:, blk * C:(blk + 1) * C]
+        kpos = blk * C + torch.arange(C, device=q.device)
+        logits = _softcap(_scores(q, kb, scale), spec.softcap)
+        ok = torch.ones((S, C), dtype=torch.bool, device=q.device)
+        if spec.causal:
+            ok &= kpos[None, :] <= qpos[:, None]
+        if spec.window:
+            ok &= kpos[None, :] > qpos[:, None] - spec.window
+        logits = torch.where(ok, logits, -1e30)
+        m_new = torch.maximum(m, logits.amax(-1))
+        p = torch.exp(logits - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p,
+                                                   vb.float())
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.transpose(1, 2).to(q.dtype)                   # (B,S,H,D)
+
+
+def swa_attention(q, k, v, spec: AttnSpec):
+    """Sliding-window attention via per-q-block KV slabs (stencil pattern).
+
+    Query tile i attends to KV positions [i·Bq − w, (i+1)·Bq): an overlapping
+    window slab.  O(S·(w + Bq)) compute and memory.  As in the reference,
+    the softmax weights are cast to q's dtype before the PV product.
+    """
+    B, S, H, D = q.shape
+    w = spec.window
+    Bq = min(max(spec.chunk // 2, 128), S)
+    if S % Bq:
+        raise ValueError(f"seq {S} not divisible by q-block {Bq}")
+    k = _repeat_kv(k, spec.n_heads)
+    v = _repeat_kv(v, spec.n_heads)
+    slab = w + Bq
+    # pad KV on the left by w so every slab is in range
+    kp = F.pad(k, (0, 0, 0, 0, w, 0))
+    vp = F.pad(v, (0, 0, 0, 0, w, 0))
+    scale = 1.0 / math.sqrt(D)
+    rows = torch.arange(Bq, device=q.device)[:, None]
+    cols = torch.arange(slab, device=q.device)[None, :]
+    out = []
+    for i in range(S // Bq):
+        q_blk = q[:, i * Bq:(i + 1) * Bq]
+        k_blk, v_blk = kp[:, i * Bq:i * Bq + slab], vp[:, i * Bq:i * Bq + slab]
+        qpos, kpos = i * Bq + rows, i * Bq - w + cols
+        logits = _softcap(_scores(q_blk, k_blk, scale), spec.softcap)
+        ok = (kpos <= qpos) & (kpos > qpos - w) & (kpos >= 0)
+        logits = torch.where(ok, logits, -1e30)
+        wgt = torch.softmax(logits, -1).to(q.dtype)
+        out.append(torch.einsum("bhqk,bkhd->bqhd", wgt, v_blk))
+    return torch.cat(out, dim=1)
+
+
+def project_qkv(p: Attention, x, spec: AttnSpec, positions=None,
+                rope_theta=10000.0, use_rope=True, norm_kind="rmsnorm"):
+    """q (B,S,H,Dh) and k, v (B,S,KV,Dh) of a self-attention block, after
+    qk-norm and RoPE: what :func:`attention_apply` attends over, and what
+    prefill writes to the cache."""
+    q = torch.einsum("bsd,dhk->bshk", x, p.wq)
+    k = torch.einsum("bsd,dhk->bshk", x, p.wk)
+    v = torch.einsum("bsd,dhk->bshk", x, p.wv)
+    if spec.qk_norm:
+        q = norm_apply(p.q_norm, q, norm_kind)
+        k = norm_apply(p.k_norm, k, norm_kind)
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+    if use_rope:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+    return q, k, v
+
+
+def attend(q, k, v, spec: AttnSpec):
+    """Causal self-attention of projected q, k, v, by sequence length: SWA
+    beyond the window (the CUDA kernel on the card when the layer has no
+    softcap), flash beyond ``spec.chunk``, else dense."""
+    S = q.shape[1]
+    if spec.window and S > spec.window:
+        if q.device.type == "cuda" and not spec.softcap:
+            return ops.sliding_window_attention(q, k, v, window=spec.window)
+        return swa_attention(q, k, v, spec)
+    if S > spec.chunk:
+        return flash_attention(q, k, v, spec)
+    return dense_attention(q, k, v, spec)
+
+
+def attention_apply(p: Attention, x, spec: AttnSpec, positions=None,
+                    rope_theta=10000.0, use_rope=True, norm_kind="rmsnorm"):
+    """Full self-attention block: proj -> rope -> attend -> out-proj.  (The
+    reference's ``kv_override`` cross-attention is whisper's, not ported.)
+    """
+    q, k, v = project_qkv(p, x, spec, positions, rope_theta, use_rope,
+                          norm_kind)
+    return torch.einsum("bshk,hkd->bsd", attend(q, k, v, spec), p.wo)
+
+
+# -------------------------------------------------------------------- decode
+
+def decode_attention(p: Attention, x, cache_k, cache_v, pos: int,
+                     spec: AttnSpec, rope_theta=10000.0, use_rope=True,
+                     ring=False, norm_kind="rmsnorm"):
+    """One-token attention against a KV cache.
+
+    ``ring=True`` (SWA layers): the cache is a ring buffer of length
+    ``window``; new KV overwrite slot ``pos % window``.  The new k and v are
+    written into ``cache_k``/``cache_v`` in place (the reference returns
+    updated copies); returns (attn_out, cache_k, cache_v).
+    """
+    B = x.shape[0]
+    q = torch.einsum("bd,dhk->bhk", x, p.wq)[:, None]       # (B,1,H,D)
+    k = torch.einsum("bd,dhk->bhk", x, p.wk)[:, None]
+    v = torch.einsum("bd,dhk->bhk", x, p.wv)[:, None]
+    if spec.qk_norm:
+        q = norm_apply(p.q_norm, q, norm_kind)
+        k = norm_apply(p.k_norm, k, norm_kind)
+    if use_rope:
+        posv = torch.full((B, 1), pos, device=x.device)
+        q = apply_rope(q, posv, rope_theta)
+        k = apply_rope(k, posv, rope_theta)
+    L = cache_k.shape[1]
+    slot = (pos % L) if ring else min(pos, L - 1)
+    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+    # grouped-query form: the KV heads are not repeated
+    KV = cache_k.shape[2]
+    G = spec.n_heads // KV
+    qg = q[:, 0].reshape(B, KV, G, spec.d_head)                # (B,KV,G,D)
+    scale = 1.0 / math.sqrt(spec.d_head)
+    logits = torch.einsum("bkgd,blkd->bkgl", qg.float(),
+                          cache_k.float()) * scale
+    logits = _softcap(logits, spec.softcap)
+    if not (ring and pos >= L):      # a full ring holds only valid slots
+        valid = torch.arange(L, device=x.device) <= pos
+        logits = torch.where(valid, logits, -1e30)
+    w = torch.softmax(logits, -1)
+    out = torch.einsum("bkgl,blkd->bkgd", w, cache_v.float())  # (B,KV,G,D)
+    out = out.reshape(B, spec.n_heads, spec.d_head).to(q.dtype)
+    return torch.einsum("bhk,hkd->bd", out, p.wo), cache_k, cache_v
+
+
+# --------------------------------------------------------------------------
+# MLP
+# --------------------------------------------------------------------------
+
+_ACTS = {
+    "silu": F.silu,
+    "gelu": lambda x: F.gelu(x, approximate="none"),
+    "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
+    "relu2": lambda x: torch.square(F.relu(x)),
+}
+
+
+def mlp_apply(p: MLP, x, act="silu"):
+    h = torch.einsum("...d,df->...f", x, p.w_in)
+    if hasattr(p, "w_gate"):
+        g = torch.einsum("...d,df->...f", x, p.w_gate)
+        h = _ACTS[act](g) * h
+    else:
+        h = _ACTS[act](h)
+    return torch.einsum("...f,fd->...d", h, p.w_out)

@@ -1,0 +1,252 @@
+"""The decoder LM's serving path in PyTorch: parameters, prefill and decode.
+
+The port of ``repro.models.transformer`` for ``family == "decoder"`` with
+dense MLPs: (GQA | MQA) x (global | SWA | alternating local:global), with
+the softcaps, qk-norm, sandwich norms and activations of the configs.  Local
+(SWA) layers keep *ring-buffer* KV caches of length ``window``; global
+layers keep full caches.
+
+Parameters are an :class:`LM` module whose ``blocks`` are per-layer
+:class:`Block` modules: the reference's serving layout
+(``unstack_params``), so no stacked copy exists here.  Master weights are
+``cfg.param_dtype``; :func:`cast_params` gives the ``cfg.dtype`` compute
+copy.
+
+Not ported yet: the MoE MLP (ROADMAP A11), the hybrid attention+Mamba
+family (A12), xLSTM (A13), the whisper encoder-decoder (A14), and the
+training forward ``lm_forward``/``lm_loss`` (A15).  The reference's
+activation-sharding hook ``shard_activation`` is a no-op on one device and
+has no counterpart here (distribution, A7).
+"""
+
+from __future__ import annotations
+
+import copy
+import math
+
+import torch
+from torch import nn
+
+from ..configs.base import ModelConfig
+from ..core.pipeline import resolve_device
+from .layers import (MLP, Attention, AttnSpec, Norm, attend, decode_attention,
+                     mlp_apply, norm_apply, project_qkv)
+
+_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+_NOT_PORTED = {"hybrid": "ROADMAP A12 (hybrid attention + Mamba)",
+               "xlstm": "ROADMAP A13 (xLSTM)",
+               "encdec": "ROADMAP A14 (whisper encoder-decoder)"}
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP item for what the
+    port does not run yet."""
+    if cfg.family in _NOT_PORTED:
+        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not "
+                                  f"ported yet, {_NOT_PORTED[cfg.family]}")
+    if cfg.family != "decoder":
+        raise ValueError(f"unknown family {cfg.family!r}")
+    if cfg.n_experts:
+        raise NotImplementedError(f"{cfg.name}: the MoE MLP is not ported "
+                                  "yet, ROADMAP A11")
+    if cfg.pos not in ("rope", "none"):
+        raise NotImplementedError(f"{cfg.name}: pos={cfg.pos!r} is not "
+                                  "ported (only whisper uses it), ROADMAP "
+                                  "A14")
+
+
+def _attn_spec(cfg: ModelConfig, kind: str) -> AttnSpec:
+    return AttnSpec(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                    d_head=cfg.d_head, causal=True,
+                    window=cfg.window if kind == "local" else 0,
+                    softcap=cfg.attn_softcap, qk_norm=cfg.qk_norm,
+                    chunk=2048)
+
+
+def _is_ring(cfg: ModelConfig, kind: str) -> bool:
+    return kind == "local" and cfg.window > 0
+
+
+# --------------------------------------------------------------------------
+# parameters
+# --------------------------------------------------------------------------
+
+class Block(nn.Module):
+    """One decoder layer: ``ln1``, ``attn``, ``ln2``, ``mlp`` (when
+    ``d_ff``), and ``ln1_post``/``ln2_post`` with ``post_norm``."""
+
+    def __init__(self, cfg: ModelConfig, generator=None, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        init = dict(dtype=dtype, device=device)
+        self.ln1 = Norm(cfg.d_model, cfg.norm, **init)
+        self.attn = Attention(cfg.d_model, _attn_spec(cfg, "global"),
+                              generator, **init)
+        self.ln2 = Norm(cfg.d_model, cfg.norm, **init)
+        if cfg.post_norm:
+            self.ln1_post = Norm(cfg.d_model, cfg.norm, **init)
+            self.ln2_post = Norm(cfg.d_model, cfg.norm, **init)
+        if cfg.d_ff:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.glu, generator, **init)
+
+
+class LM(nn.Module):
+    """``embed`` (vocab_padded, d), ``ln_f``, ``lm_head`` (d, vocab_padded)
+    unless the embeddings are tied, and ``blocks``."""
+
+    def __init__(self, cfg: ModelConfig, generator=None, device=None):
+        super().__init__()
+        check_supported(cfg)
+        dtype = _DT[cfg.param_dtype]
+        scale = 1.0 / math.sqrt(cfg.d_model)
+
+        def table(shape):
+            if generator is None:
+                t = torch.empty(shape, dtype=dtype, device=device)
+            else:
+                t = (torch.randn(shape, generator=generator, device=device)
+                     * scale).to(dtype)
+            return nn.Parameter(t, requires_grad=False)
+
+        self.embed = table((cfg.vocab_padded, cfg.d_model))
+        self.ln_f = Norm(cfg.d_model, cfg.norm, dtype, device)
+        if not cfg.tie_embeddings:
+            self.lm_head = table((cfg.d_model, cfg.vocab_padded))
+        self.blocks = nn.ModuleList(
+            Block(cfg, generator, dtype, device) for _ in range(cfg.n_layers))
+
+
+def init_lm(cfg: ModelConfig, generator: torch.Generator,
+            device=None) -> LM:
+    """Random parameters from ``generator`` (on ``device``, the card by
+    default).  The reference's shapes and names, not its values."""
+    dev = resolve_device(device)
+    if torch.device(generator.device).type != dev.type:
+        raise ValueError(f"generator is on {generator.device}, parameters "
+                         f"go to {dev}")
+    return LM(cfg, generator, dev)
+
+
+def cast_params(p: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Mixed precision: ``p`` with its floating parameters in ``dtype`` (a
+    copy; ``p`` itself when they already are).  Master params stay."""
+    params = [t for t in p.parameters() if t.is_floating_point()]
+    if all(t.dtype == dtype for t in params):
+        return p
+    memo = {id(t): nn.Parameter(t.detach().to(dtype), requires_grad=False)
+            for t in params}
+    return copy.deepcopy(p, memo)
+
+
+# --------------------------------------------------------------------------
+# embedding and logits
+# --------------------------------------------------------------------------
+
+def embed_tokens(cfg: ModelConfig, params: LM, tokens: torch.Tensor):
+    """tokens (B, S) -> (B, S, d) in ``cfg.dtype``.  The scaling runs in
+    float32, as the reference's does on float32 master weights."""
+    x = params.embed[tokens].float()
+    if cfg.emb_scale:
+        x = x * math.sqrt(cfg.d_model)
+    return x.to(_DT[cfg.dtype])
+
+
+def unembed(cfg: ModelConfig, params: LM, x: torch.Tensor):
+    """(B, S, d) -> float32 logits (B, S, vocab_padded): the product in
+    ``x``'s dtype, the final softcap, padded vocab rows at -1e30."""
+    x = norm_apply(cast_params(params.ln_f, _DT[cfg.dtype]), x, cfg.norm)
+    table = params.embed.T if cfg.tie_embeddings else params.lm_head
+    logits = torch.einsum("bsd,dv->bsv", x, table.to(x.dtype)).float()
+    if cfg.final_softcap:
+        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    if cfg.vocab_padded != cfg.vocab:
+        logits[..., cfg.vocab:] = -1e30
+    return logits
+
+
+# --------------------------------------------------------------------------
+# KV caches, prefill and decode
+# --------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
+    """Per-layer ``{"k", "v"}`` caches in ``cfg.dtype``.  Local (SWA)
+    layers get ring buffers of length ``window``."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    adt = _DT[cfg.dtype]
+    cache = []
+    for i in range(cfg.n_layers):
+        L = (min(cfg.window, max_len) if _is_ring(cfg, cfg.layer_kind(i))
+             else max_len)
+        shape = (batch, L, cfg.n_kv_heads, cfg.d_head)
+        cache.append({"k": torch.zeros(shape, dtype=adt, device=dev),
+                      "v": torch.zeros(shape, dtype=adt, device=dev)})
+    return cache
+
+
+def _mlp_half(cfg: ModelConfig, bp: Block, x, attn):
+    """The residual stream after a layer's attention output ``attn``."""
+    if cfg.post_norm:
+        attn = norm_apply(bp.ln1_post, attn, cfg.norm)
+    x = x + attn
+    h2 = norm_apply(bp.ln2, x, cfg.norm)
+    y = mlp_apply(bp.mlp, h2, cfg.act) if cfg.d_ff else torch.zeros_like(h2)
+    if cfg.post_norm:
+        y = norm_apply(bp.ln2_post, y, cfg.norm)
+    return x + y
+
+
+def prefill(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
+            max_len: int):
+    """Process a prompt (B, S); return (last-position logits (B, V), the
+    filled cache)."""
+    check_supported(cfg)
+    B, S = tokens.shape
+    dev = params.embed.device
+    x = embed_tokens(cfg, params, tokens)
+    positions = torch.arange(S, device=dev)
+    cache = init_cache(cfg, B, max_len, dev)
+    for i, entry in enumerate(cache):
+        bp = cast_params(params.blocks[i], _DT[cfg.dtype])
+        kind = cfg.layer_kind(i)
+        spec = _attn_spec(cfg, kind)
+        h = norm_apply(bp.ln1, x, cfg.norm)
+        q, k, v = project_qkv(bp.attn, h, spec, positions, cfg.rope_theta,
+                              use_rope=(cfg.pos == "rope"),
+                              norm_kind=cfg.norm)
+        attn = torch.einsum("bshk,hkd->bsd", attend(q, k, v, spec),
+                            bp.attn.wo)
+        kc, vc = entry["k"], entry["v"]
+        L = kc.shape[1]
+        if _is_ring(cfg, kind) and S >= L:
+            # ring buffer smaller than the prompt: keep the last L KVs at
+            # their rotated slots (slot = position % L)
+            idx = torch.arange(S - L, S, device=dev) % L
+            kc[:, idx] = k[:, -L:].to(kc.dtype)
+            vc[:, idx] = v[:, -L:].to(vc.dtype)
+        else:
+            kc[:, :S] = k.to(kc.dtype)
+            vc[:, :S] = v.to(vc.dtype)
+        x = _mlp_half(cfg, bp, x, attn)
+    logits = unembed(cfg, params, x[:, -1:])
+    return logits[:, 0], cache
+
+
+def decode_step(cfg: ModelConfig, params: LM, cache, tokens: torch.Tensor,
+                pos: int):
+    """One decode step: tokens (B,), position ``pos`` -> (logits (B, V),
+    cache).  The cache is updated in place and returned."""
+    check_supported(cfg)
+    x = embed_tokens(cfg, params, tokens[:, None])[:, 0]       # (B,D)
+    for i, entry in enumerate(cache):
+        bp = cast_params(params.blocks[i], _DT[cfg.dtype])
+        kind = cfg.layer_kind(i)
+        h = norm_apply(bp.ln1, x[:, None], cfg.norm)[:, 0]
+        attn, entry["k"], entry["v"] = decode_attention(
+            bp.attn, h, entry["k"], entry["v"], pos, _attn_spec(cfg, kind),
+            cfg.rope_theta, use_rope=(cfg.pos == "rope"),
+            ring=_is_ring(cfg, kind), norm_kind=cfg.norm)
+        x = _mlp_half(cfg, bp, x, attn)
+    logits = unembed(cfg, params, x[:, None])
+    return logits[:, 0], cache

@@ -1,5 +1,6 @@
-"""The generated kernels on the card, against their plain PyTorch
-versions.  Marked ``cuda``; each test skips where
+"""The CUDA kernels on the card, against their plain PyTorch versions:
+the generated stencil kernels, and the sliding-window attention kernel
+with the LM serving path that runs it.  Marked ``cuda``; each test skips where
 ``torch.cuda.is_available()`` is false.  This file imports only the port,
 so it runs on a machine without JAX:
 
@@ -178,3 +179,111 @@ def test_stream_float64_raises_on_the_card():
     ex = compile_program(p, grid, dtype="float64", schedule="stream")
     with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
         ex(*_inputs(p, grid))
+
+
+# --------------------------------------------------------------------------
+# sliding-window attention and the LM serving path
+# --------------------------------------------------------------------------
+
+# (B, S, H, KV, D, window): head dims 64/80/128/256, GQA, a window >= S, a
+# last query tile that is not full, window 1
+SWA_SHAPES = [
+    (2, 256, 4, 4, 64, 64),
+    (2, 512, 8, 2, 128, 256),
+    (1, 256, 32, 8, 80, 96),
+    (1, 128, 4, 4, 256, 512),
+    (2, 200, 4, 1, 80, 4096),
+    (1, 128, 2, 2, 64, 1),
+]
+
+
+def _swa_inputs(B, S, H, KV, D, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.standard_normal((B, S, h, D)).astype(
+        np.float32), device="cuda").to(getattr(torch, dtype))
+        for h in (H, KV, KV)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("B,S,H,KV,D,w", SWA_SHAPES)
+def test_swa_kernel_matches_plain_version_on_the_card(B, S, H, KV, D, w,
+                                                      dtype, tol):
+    """The kernel against ``swa_plain`` on the same inputs, relative to the
+    plain output's max abs (bf16: a few ulps of the rounded output)."""
+    from repro_torch.kernels import swa
+
+    _needs_card()
+    q, k, v = _swa_inputs(B, S, H, KV, D, dtype, seed=S + D + w)
+    before = swa.launches
+    got = swa.swa_cuda(q, k, v, window=w)
+    torch.cuda.synchronize()
+    assert swa.launches == before + 1
+    want = swa.swa_plain(q, k, v, window=w, q_block=128 if S % 128 == 0
+                         else S)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert _rel_err(got, want) <= tol
+
+
+@pytest.mark.cuda
+def test_swa_kernel_reads_strided_inputs_on_the_card():
+    """q as the transposed view of a (B,H,S,D) buffer, k and v as slices
+    of one packed (B,S,2*KV,D) tensor: read through their strides."""
+    from repro_torch.kernels import swa
+
+    _needs_card()
+    q, k, v = _swa_inputs(1, 256, 8, 2, 80, "float32", seed=4)
+    qt = q.transpose(1, 2).contiguous().transpose(1, 2)
+    kv = torch.cat([k, v], dim=2)
+    got = swa.swa_cuda(qt, kv[:, :, :2], kv[:, :, 2:], window=100)
+    want = swa.swa_plain(q, k, v, window=100)
+    assert _rel_err(got, want) <= 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+def test_lm_prefill_runs_the_kernel_and_matches_the_cpu(dtype, tol):
+    """The Danube smoke config (window 16) over a 64-token prompt: each
+    local layer launches the kernel once, and the logits agree with the
+    same model on the CPU (the torch slab path there)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import swa
+    from repro_torch.models import init_lm, prefill
+
+    _needs_card()
+    cfg = dataclasses.replace(get_smoke("h2o_danube_1_8b"), dtype=dtype)
+    lm = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 64)), device="cuda")
+    before = swa.launches
+    got, _ = prefill(cfg, lm, tokens, 80)
+    torch.cuda.synchronize()
+    assert swa.launches - before == cfg.n_layers
+    want, _ = prefill(cfg, lm.cpu(), tokens.cpu(), 80)
+    assert _rel_err(got.cpu(), want) <= tol
+
+
+@pytest.mark.cuda
+def test_lm_path_raises_when_the_kernel_cannot_build(monkeypatch, tmp_path):
+    """No fallback: without nvcc the SWA layer raises on the card."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import build, swa
+    from repro_torch.models import init_lm, prefill
+
+    _needs_card()
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setenv("REPRO_TORCH_BUILD", str(tmp_path))
+    monkeypatch.setattr(swa, "_FNS", {})
+    monkeypatch.setattr(build, "nvcc", no_nvcc)
+    cfg = get_smoke("h2o_danube_1_8b")
+    lm = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.zeros((2, 64), dtype=torch.long, device="cuda")
+    before = swa.launches
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        prefill(cfg, lm, tokens, 80)
+    assert swa.launches == before

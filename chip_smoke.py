@@ -25,21 +25,26 @@ Stream schedule (``schedule="stream"``, generated CUDA sweep kernels):
    zero fused ``steps=4``, periodic single step (eight regions);
 6. ``pw_advection`` in bfloat16 at 256x256x128, a zero single step.
 
-LM serving (the hand-written CUDA sliding-window attention kernel):
+LM serving (the hand-written CUDA sliding-window attention kernels:
+``swa_mma.cu`` on the tensor cores for bfloat16, ``swa.cu`` for float32):
 
 7. H2O-Danube-1.8B at full width and depth (24 layers, d 2560, 32 heads
    over 8 KV heads, head dim 80, window 4096, bfloat16), random weights
    from ``--seed``: ``ServeEngine.generate`` on two prompts of 8192 tokens,
-   16 greedy new tokens.  The prefill launches the kernel once a layer
-   (24), the decode steps never.  Layer 0's q, k and v are captured and
-   the kernel held against ``swa_plain`` on them (bf16 at 2e-2, and at
-   float32 on the same values cast up at 2e-5); at a depth of 4 layers the
-   last-position logits of an 8192-token prefill (the kernel) are held
-   against a 7168-token prefill and 1024 teacher-forced decode steps (the
-   ring cache, no kernel) at 2e-2; the kernel is also held against
-   ``swa_plain`` at head dims 64/80/128/256 with GQA and a window >= S in
-   both dtypes.  ``torch.nn.functional.scaled_dot_product_attention`` with
-   the band mask is timed on the same inputs as the library yardstick.
+   16 greedy new tokens.  The prefill launches the bf16 kernel once a
+   layer (24), the decode steps never.  Layer 0's q, k and v are captured
+   and the kernel held against ``swa_plain`` on them (bf16 at 2e-2, and
+   the float32 kernel on the same values cast up at 2e-5); at a depth of 4
+   layers the last-position logits of an 8192-token prefill (the kernel)
+   are held against a 7168-token prefill and 1024 teacher-forced decode
+   steps (the ring cache, no kernel) at 2e-2; the kernels are also held
+   against ``swa_plain`` at head dims 40/64/80/128/256 with GQA, ragged
+   last tiles and a window >= S in both dtypes.
+   ``torch.nn.functional.scaled_dot_product_attention`` with the band mask
+   is timed on the same inputs as the library yardstick, in turns with the
+   kernel (kernel, SDPA, kernel, SDPA, ...), in both dtypes.  The float32
+   kernel is off the serving path; its row (0 launches on the path) keeps
+   its time.
 
 Every stencil path is compared with the same compile on
 ``backend="torch_fused"`` on the card, and each stream path with the block
@@ -73,6 +78,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -91,12 +97,14 @@ PW_STEPS, TRACER_STEPS = 10, 4
 LM_ARCH = "h2o_danube_1_8b"
 LM_BATCH, LM_PROMPT, LM_NEW = 2, 8192, 16
 LM_E2E_DEPTH, LM_E2E_SPLIT = 4, 7168     # prefill 7168, decode 1024
-SWA_HEAD_DIMS = (64, 80, 128, 256)
+SWA_HEAD_DIMS = (40, 64, 80, 128, 256)
 # (B, S, H, KV, D, window): the head dims, GQA, a window >= S, a last query
-# tile that is not full
+# tile that is not full, a head dim that is not a multiple of 16, D 256
+# with a ragged last tile
 SWA_SHAPES = [(2, 256, 4, 4, 64, 64), (1, 256, 32, 8, 80, 96),
               (2, 512, 8, 2, 128, 256), (1, 128, 4, 4, 256, 512),
-              (2, 200, 4, 1, 80, 4096)]
+              (2, 200, 4, 1, 80, 4096), (1, 192, 8, 2, 40, 100),
+              (1, 200, 4, 2, 256, 96)]
 
 
 def log(*a):
@@ -143,6 +151,38 @@ def time_ms(fn, inner=1, reps=5, warmup=2):
         e1.synchronize()
         ts.append(e0.elapsed_time(e1) / inner)
     return statistics.median(ts)
+
+
+def time_in_turns(fns, reps=5, warmup=2):
+    """Median CUDA-event time of one call of each of ``fns``, the calls
+    made in turns (a, b, a, b, ...) so that all see the same clocks."""
+    import torch
+
+    for fn in fns:
+        for _ in range(warmup):
+            fn()
+    torch.cuda.synchronize()
+    ts = [[] for _ in fns]
+    for _ in range(reps):
+        for t, fn in zip(ts, fns):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            e1.synchronize()
+            t.append(e0.elapsed_time(e1))
+    return [statistics.median(t) for t in ts]
+
+
+def ptxas_stats(report: str) -> dict:
+    """Registers and spill bytes of the kernel in a ``-Xptxas -v`` log."""
+    regs = re.findall(r"Used (\d+) registers", report)
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        report)
+    return {"registers": int(regs[-1]) if regs else None,
+            "spill_stores": int(spills[-1][0]) if spills else None,
+            "spill_loads": int(spills[-1][1]) if spills else None}
 
 
 def rel_err(got, want):
@@ -242,6 +282,7 @@ def main() -> int:
     from repro_torch import compile_program
     from repro_torch.apps import (pw_advection, pw_advection_update,
                                   tracer_advection, tracer_advection_update)
+    from repro_torch.configs import get_config
     from repro_torch.core import TileDemotionWarning
     from repro_torch.interop import inputs_from_numpy
     from repro_torch.kernels import build, stencil3d, stream3d, swa
@@ -302,6 +343,24 @@ def main() -> int:
         regs = [ln.strip() for ln in build.ptxas_report(src, tag).splitlines()
                 if "registers" in ln or "spill" in ln]
         log("ptxas:", " | ".join(regs))
+    swa_ptxas = []
+    for dt in (torch.bfloat16, torch.float32):
+        for d in SWA_HEAD_DIMS:
+            st = ptxas_stats(build.ptxas_report(swa.kernel_source(dt, d),
+                                                "swa"))
+            st.update(dtype=str(dt).removeprefix("torch."), d=d,
+                      source=str(swa.SOURCES[dt].relative_to(ROOT)),
+                      smem_bytes=swa.smem_bytes(dt, d))
+            swa_ptxas.append(st)
+            log(f"ptxas swa {st['dtype']} D {d} ({st['source']}): "
+                f"{st['registers']} registers, spill stores "
+                f"{st['spill_stores']} B, spill loads {st['spill_loads']} B,"
+                f" {st['smem_bytes']} B of dynamic shared memory a CTA")
+            # the served library (the LM's head dim) keeps all in registers
+            if dt == torch.bfloat16 and d == get_config(LM_ARCH).d_head \
+                    and (st["spill_stores"] or st["spill_loads"]):
+                raise SystemExit(f"ptxas spills in the bf16 SWA library at "
+                                 f"D {d}")
 
     # ------------------------------------------- main path, counted launches
     inputs = {}
@@ -394,8 +453,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # --------------------------------------------------- LM serving path
-    lm_row, lm = lm_phase(args.seed, torch, swa)
-    rows.append(lm_row)
+    lm_rows, lm = lm_phase(args.seed, torch, swa)
+    rows += lm_rows
+    lm["swa_ptxas"] = swa_ptxas
 
     result = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "seed": args.seed,
@@ -643,25 +703,36 @@ def device_profile(fn, torch) -> dict:
             "kernel_launches": launches, "device_ms_by": by}
 
 
-def swa_bound(B, S, H, KV, D, w, itemsize):
+def swa_flops(B, S, H, D, w):
+    """4·D operations for each (query, key) pair of the band,
+    ``sum_i min(i+1, w)`` a row."""
+    return 4 * D * sum(min(i + 1, w) for i in range(S)) * B * H
+
+
+def swa_bound(B, S, H, KV, D, w, dtype):
     """(bound ms, what bounds it): q, k, v and o moved once over 3.35 TB/s,
-    against 4·D operations for each (query, key) pair of the band,
-    ``sum_i min(i+1, w)`` a row, over the tensor cores' dense bf16 peak
-    (989 TFLOP/s; data sheet, 700 W)."""
+    against the band's operations over the peak for the dtype (data sheet,
+    700 W): bf16 on the tensor cores' 989 TFLOP/s, float32 on the CUDA
+    cores' 67 TFLOP/s."""
+    import torch
+
     from repro_torch import hw
 
-    pairs = sum(min(i + 1, w) for i in range(S))
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    peak = (hw.H100.peak_bf16_flops if dtype == torch.bfloat16
+            else hw.H100.peak_f32_flops)
     t_bytes = B * S * (2 * H + 2 * KV) * D * itemsize / hw.H100.hbm_bandwidth
-    t_ops = 4 * D * pairs * B * H / hw.H100.peak_bf16_flops
+    t_ops = swa_flops(B, S, H, D, w) / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
 def lm_phase(seed, torch, swa):
     """H2O-Danube-1.8B served at full width and depth through
-    ``ServeEngine.generate``; the SWA kernel against its plain version on
-    the inputs layer 0 gives it and at the test shapes; prefill against
-    decode at depth 4; times.  Returns (the kernel's row, the LM record)."""
+    ``ServeEngine.generate``; the SWA kernels (bf16 and float32) against
+    their plain version on the inputs layer 0 gives the bf16 one and at the
+    test shapes; prefill against decode at depth 4; times.  Returns (the
+    kernels' rows, bf16 then float32; the LM record)."""
     import dataclasses
 
     import torch.nn.functional as F
@@ -695,10 +766,15 @@ def lm_phase(seed, torch, swa):
     captured = []
     launch = swa.swa_cuda
 
+    by_dtype = {torch.bfloat16: 0, torch.float32: 0}
+
     def capture(q, k, v, *, window):
         if not captured:
             captured.append((q.clone(), k.clone(), v.clone(), window))
-        return launch(q, k, v, window=window)
+        before = swa.launches
+        out = launch(q, k, v, window=window)
+        by_dtype[q.dtype] += swa.launches - before
+        return out
 
     def counted(name, fn):
         def run(*a, **kw):
@@ -727,55 +803,74 @@ def lm_phase(seed, torch, swa):
             setattr(m, n, f)
     log(f"generate: ids {ids.shape}, {gen_s:.3f} s; SWA launches {launches}"
         f" (prefill {counts['prefill']}, decode steps "
-        f"{sum(counts['decode'])} over {len(counts['decode'])})")
+        f"{sum(counts['decode'])} over {len(counts['decode'])}; bf16 "
+        f"{by_dtype[torch.bfloat16]}, float32 {by_dtype[torch.float32]})")
     if ids.shape != (B, new) or not ((ids >= 0) & (ids < cfg.vocab)).all():
         raise SystemExit(f"generate returned bad ids {ids.shape}")
     if counts["prefill"] != [cfg.n_layers] or any(counts["decode"]) \
-            or launches != cfg.n_layers:
+            or launches != cfg.n_layers \
+            or by_dtype[torch.bfloat16] != cfg.n_layers:
         raise SystemExit("the SWA kernel did not run once a layer in the "
                          "prefill and never in decode")
     if eng.stats.prefill_tokens != B * S:
         raise SystemExit(f"stats {eng.stats}")
 
-    # the kernel against its plain version on layer 0's inputs
+    # the kernels against their plain version on layer 0's inputs (float32:
+    # the same values cast up)
     q, k, v, w = captured[0]
     H, KV, D = q.shape[2], k.shape[2], q.shape[3]
+    q32, k32, v32 = q.float(), k.float(), v.float()
     got = swa.swa_cuda(q, k, v, window=w)
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    want = swa.swa_plain(q, k, v, window=w)
-    e1.record()
-    e1.synchronize()
-    plain_ms = e0.elapsed_time(e1)
-    err = float((got.float() - want.float()).abs().max())
-    rel = rel_err(got, want)
-    got32 = swa.swa_cuda(q.float(), k.float(), v.float(), window=w)
-    rel32 = rel_err(got32, swa.swa_plain(q.float(), k.float(), v.float(),
-                                         window=w))
+    got32 = swa.swa_cuda(q32, k32, v32, window=w)
+    plain_ms, want = {}, {}
+    for dt, args in ((torch.bfloat16, (q, k, v)), (torch.float32,
+                                                    (q32, k32, v32))):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        want[dt] = swa.swa_plain(*args, window=w)
+        e1.record()
+        e1.synchronize()
+        plain_ms[dt] = e0.elapsed_time(e1)
+    err = float((got.float() - want[torch.bfloat16].float()).abs().max())
+    err32 = float((got32 - want[torch.float32]).abs().max())
+    rel = rel_err(got, want[torch.bfloat16])
+    rel32 = rel_err(got32, want[torch.float32])
     log(f"swa layer 0 {tuple(q.shape)} KV {KV} w {w}: kernel vs plain max "
         f"abs err {err:.3e}, max rel err {rel:.3e} (bf16, tol 2e-2); "
-        f"float32 {rel32:.3e} (tol 2e-5)")
-    if rel > 2e-2 or rel32 > 2e-5 or not bool(torch.isfinite(got).all()):
+        f"float32 {err32:.3e} abs, {rel32:.3e} rel (tol 2e-5)")
+    if rel > 2e-2 or rel32 > 2e-5 or not bool(torch.isfinite(got).all()) \
+            or not bool(torch.isfinite(got32).all()):
         raise SystemExit("the SWA kernel disagrees with its plain version")
-    del got, want, got32
-    ms = time_ms(lambda: swa.swa_cuda(q, k, v, window=w))
-    # the library yardstick, timed only: SDPA with the band mask on the
-    # same inputs (KV heads repeated, (B, H, S, D) views)
+    del got, got32, want
+    # each kernel in turns with the library yardstick, SDPA with the band
+    # mask on the same inputs (KV heads repeated, (B, H, S, D) views)
     G = H // KV
-    qt = q.transpose(1, 2)
-    kt = k.repeat_interleave(G, 2).transpose(1, 2)
-    vt = v.repeat_interleave(G, 2).transpose(1, 2)
     i = torch.arange(S, device="cuda")
     band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
-    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=band))
-    del qt, kt, vt, band
-    bound_ms, bound_by = swa_bound(B, S, H, KV, D, w, q.element_size())
-    log(f"swa kernel: {ms:.4f} ms a call (bound {bound_ms:.4f} ms by "
-        f"{bound_by}), plain {plain_ms:.3f} ms, SDPA with the band mask "
-        f"{library_ms:.4f} ms; {cfg.n_layers} launches a prefill")
+    flops = swa_flops(B, S, H, D, w)
+    timed = {}
+    for dt, (qq, kk, vv) in ((torch.bfloat16, (q, k, v)),
+                             (torch.float32, (q32, k32, v32))):
+        qt = qq.transpose(1, 2)
+        kt = kk.repeat_interleave(G, 2).transpose(1, 2)
+        vt = vv.repeat_interleave(G, 2).transpose(1, 2)
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            ms, library_ms = time_in_turns([
+                lambda: swa.swa_cuda(qq, kk, vv, window=w),
+                lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                       attn_mask=band)])
+        del qt, kt, vt
+        bound_ms, bound_by = swa_bound(B, S, H, KV, D, w, dt)
+        timed[dt] = dict(ms=ms, library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, tflops=flops / ms / 1e9,
+                         bound_share=bound_ms / ms)
+        log(f"swa kernel {dt}: {ms:.4f} ms a call ({flops / ms / 1e9:.1f} "
+            f"TFLOP/s on the band, {bound_ms / ms:.1%} of the bound "
+            f"{bound_ms:.4f} ms by {bound_by}), plain {plain_ms[dt]:.3f} ms,"
+            f" SDPA with the band mask {library_ms:.4f} ms (medians, in "
+            f"turns); {by_dtype[dt]} launches a prefill")
+    del band, q32, k32, v32
 
     # end-to-end times of the serving path
     toks = prompts
@@ -846,23 +941,28 @@ def lm_phase(seed, torch, swa):
     log(f"swa kernel at {len(shapes)} test shapes: worst max rel err "
         f"{max(x['max_rel_err'] for x in shapes):.3e}")
 
-    row = {
-        "name": f"swa.swa_cuda[{cfg.name} prefill B{B} S{S} H{H} KV{KV} "
-                f"D{D} w{w} bf16]",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/swa.cu",
-        "replaces": swa.REPLACES,
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": library_ms,
-        "max_rel_err": rel,
-        "max_rel_err_f32": rel32,
-        "smem_bytes": swa.smem_bytes(D),
-    }
+    rows = []
+    for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        t = timed[dt]
+        rows.append({
+            "name": f"swa.swa_cuda[{cfg.name} prefill B{B} S{S} H{H} KV{KV} "
+                    f"D{D} w{w} {tag}]",
+            "route": "cuda",
+            "source": str(swa.SOURCES[dt].relative_to(ROOT)),
+            "replaces": swa.REPLACES,
+            "launches": by_dtype[dt],
+            "max_abs_err": err if dt == torch.bfloat16 else err32,
+            "ms": t["ms"],
+            "plain_ms": plain_ms[dt],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "max_rel_err": rel if dt == torch.bfloat16 else rel32,
+            "tflops": t["tflops"],
+            "bound_share": t["bound_share"],
+            "on_serving_path": by_dtype[dt] > 0,
+            "smem_bytes": swa.smem_bytes(dt, D),
+        })
     record = {"arch": LM_ARCH, "batch": B, "prompt": S, "new_tokens": new,
               "generate_s": gen_s, "prefill_ms": prefill_ms,
               "decode_ms_per_step": decode_ms,
@@ -873,7 +973,7 @@ def lm_phase(seed, torch, swa):
               "profile": prof,
               "e2e_depth": LM_E2E_DEPTH, "e2e_max_rel_err": e2e,
               "swa_shapes": shapes}
-    return row, record
+    return rows, record
 
 
 if __name__ == "__main__":

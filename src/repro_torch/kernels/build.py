@@ -3,7 +3,8 @@ plain C interface, loaded with ``ctypes``.
 
 Sources come only from the repository: the emitters of
 :mod:`repro_torch.kernels.stencil3d` and :mod:`~repro_torch.kernels.stream3d`,
-and ``swa.cu`` specialised by :mod:`repro_torch.kernels.swa`.  Each library
+and ``swa.cu`` and ``swa_mma.cu`` specialised by
+:mod:`repro_torch.kernels.swa`.  Each library
 is cached by the hash of its source and flags under
 ``build/repro_torch_kernels/`` at the root of the checkout
 (``REPRO_TORCH_BUILD`` overrides the directory), so a second compile of the

@@ -1,38 +1,54 @@
-"""Sliding-window attention kernel for Hopper, written as CUDA C++
-(``swa.cu`` beside this module).
+"""Sliding-window attention kernels for Hopper, written as CUDA C++: one
+fixed source per storage type beside this module.
 
-Replaces the TPU kernel ``repro.kernels.swa.swa_pallas`` (the Pallas call
-at ``src/repro/kernels/swa.py:92``): causal sliding-window attention over
-``(B, S, H, D)``, query ``i`` attending to keys ``(i - window, i]``, f32
-accumulation, the output in ``q``'s dtype.
+* bfloat16: ``swa_mma.cu``, on the tensor cores (``mma.sync`` m16n8k16,
+  ``ldmatrix``, K and V chunks double-buffered by ``cp.async``);
+* float32: ``swa.cu``, FMA on the CUDA cores (TF32 or bf16 products would
+  not meet the float32 check, and nothing serves float32).
+
+Both replace the TPU kernel ``repro.kernels.swa.swa_pallas`` (the Pallas
+call at ``src/repro/kernels/swa.py:92``): causal sliding-window attention
+over ``(B, S, H, D)``, query ``i`` attending to keys ``(i - window, i]``,
+float32 softmax statistics and sums, the output in ``q``'s dtype.
 
 Bound on the H100: operations.  The band holds ``sum_i min(i+1, w)`` keys a
 query row, and each costs ``4 D`` operations (``q.k`` and ``p.v``): for
 H2O-Danube's prefill (B 2, S 8192, H 32, D 80, w 4096) 5.2e11, 0.52 ms at
-the tensor cores' 989 TFLOP/s against 0.06 ms for the bytes.  The TPU
-kernel holds a query tile's whole ``window + Bq`` KV slab in VMEM and takes
-a tile-local softmax; Danube's slab (4,224 rows x 80 x 2 tensors) does not
-fit the 227 KB of shared memory a CTA can use.  The design:
+the tensor cores' 989 TFLOP/s, plus about 0.4 ms of ``exp2`` on the SFUs
+(1.6e9 band pairs at 16 a clock an SM), against 0.06 ms for the bytes.
+The TPU kernel holds a query tile's whole ``window + Bq`` KV slab in VMEM
+and takes a tile-local softmax; Danube's slab (4,224 rows x 80 x 2
+tensors) does not fit the 227 KB of shared memory a CTA can use.  What the
+two sources share:
 
-* one CTA per (64-row query tile, head, batch row), 256 threads; the q tile
-  is staged in shared memory once, and the tile's key range is walked in
-  64-row chunks, K and V staged in shared memory as float32;
-* an online softmax (running max and denominator per row) in place of the
-  tile-local one; keys outside the band contribute ``exp(-inf) = 0``, as
-  the TPU kernel's ``-1e30`` does, since every row sees its own position;
+* one CTA per (64-row query tile, head, batch row); the tile's key range
+  is walked in 64-key chunks staged in shared memory, with an online
+  softmax (running max and denominator per row) in place of the tile-local
+  one; keys outside the band contribute ``exp(-inf) = 0``, as the TPU
+  kernel's ``-1e30`` does, since every row sees its own position;
 * ``(B, S, H, D)`` is read through its strides (no transpose is copied) and
   query head ``h`` reads KV head ``h // (H / KV)`` (the GQA repeat is not
-  materialised);
-* FMA on the CUDA cores, a 4 x 4 register tile of scores and a 4 x D/16
-  tile of the output per thread.  ``wgmma`` and TMA are later work.
+  materialised).
 
-Compiled per (dtype, head dim): float32 or bfloat16 storage, any D whose
-shared memory fits a CTA (D <= 256).  The C entry returns
-``cudaGetLastError()`` and :func:`swa_cuda` raises if it is not 0.
+``swa_mma.cu`` (bf16) answers the operations bound with the tensor cores:
+4 warps of 16 query rows, both products by ``mma.sync`` with f32 sums,
+the q fragments held in registers (D <= 128), P packed to bf16 in
+registers as the second product's A operand, the softmax in registers
+(quad shuffles, ``exp2`` with the scale folded into one FFMA), a 2-stage
+``cp.async`` ring so that the next chunk loads while this one computes,
+and chunks aligned to 64 keys so that only the band's edge chunks test a
+mask.  ``swa.cu`` (float32) keeps K and V as float32 in shared memory,
+FMA from a 4 x 4 register tile of scores.  ``wgmma`` and TMA are later
+work.
+
+Compiled per (dtype, head dim): any D whose shared memory fits a CTA
+(:func:`smem_bytes`).  The C entry returns ``cudaGetLastError()`` and
+:func:`swa_cuda` raises if it is not 0; there is no fallback from one
+source to the other.
 
 :func:`swa_plain` is the plain PyTorch version: ``swa_pallas``'s
 arithmetic tile by tile, float32 throughout.  ``launches`` counts the
-kernel's launches (plain-version runs excluded).
+kernels' launches (plain-version runs excluded).
 """
 
 from __future__ import annotations
@@ -53,7 +69,9 @@ launches = 0
 #: the TPU kernel this module replaces
 REPLACES = "src/repro/kernels/swa.py:92"
 
-SOURCE = Path(__file__).with_name("swa.cu")
+#: the fixed source of each storage type
+SOURCES = {torch.float32: Path(__file__).with_name("swa.cu"),
+           torch.bfloat16: Path(__file__).with_name("swa_mma.cu")}
 
 #: query rows of a CTA's tile and key rows of a chunk (``BQ``, ``BK``)
 Q_TILE = KV_CHUNK = 64
@@ -65,24 +83,34 @@ _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
 _FNS: dict = {}
 
 
-def smem_bytes(d: int) -> int:
-    """Shared memory of one CTA at head dim ``d`` (``SMEM_FLOATS``)."""
+def _check_dtype(dtype: torch.dtype) -> None:
+    if dtype not in SOURCES:
+        raise NotImplementedError(f"the CUDA SWA kernel takes float32 or "
+                                  f"bfloat16, not {dtype}")
+
+
+def smem_bytes(dtype: torch.dtype, d: int) -> int:
+    """Shared memory of one CTA at head dim ``d``: ``swa.cu``'s
+    ``SMEM_FLOATS`` (float32 q, K, V and score tiles) or ``swa_mma.cu``'s
+    ``SMEM_BYTES`` (bf16 q tile and two K and V stages, rows of D rounded
+    up to 16, plus 8)."""
+    _check_dtype(dtype)
     bq, bk = Q_TILE, KV_CHUNK
+    if dtype == torch.bfloat16:
+        return 2 * (bq + 4 * bk) * (-(-d // 16) * 16 + 8)
     return 4 * (bq * (d + 1) + bk * (d + 1) + bk * d + bq * (bk + 1)
                 + 11 * bq)
 
 
 def kernel_source(dtype: torch.dtype, d: int) -> str:
-    """``swa.cu`` specialised to a storage type and head dim."""
-    if dtype not in _CTYPE:
-        raise NotImplementedError(f"the CUDA SWA kernel takes float32 or "
-                                  f"bfloat16, not {dtype}")
-    if smem_bytes(d) > hw.H100.smem_per_block:
-        raise ValueError(f"head dim {d} needs {smem_bytes(d)} B of shared "
-                         f"memory a CTA; the H100 gives "
+    """The dtype's source specialised to its storage type and head dim."""
+    _check_dtype(dtype)
+    if smem_bytes(dtype, d) > hw.H100.smem_per_block:
+        raise ValueError(f"head dim {d} needs {smem_bytes(dtype, d)} B of "
+                         f"shared memory a CTA in {dtype}; the H100 gives "
                          f"{hw.H100.smem_per_block}")
     return (f"#define SWA_T {_CTYPE[dtype]}\n#define SWA_D {d}\n"
-            + SOURCE.read_text())
+            + SOURCES[dtype].read_text())
 
 
 def _function(dtype: torch.dtype, d: int):
@@ -112,7 +140,8 @@ def _check(q, k, v, window) -> None:
 def swa_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
              window: int) -> torch.Tensor:
     """The kernel on CUDA tensors: q (B,S,H,D), k and v (B,S,KV,D), the
-    head dim contiguous.  Returns a contiguous (B,S,H,D) in q's dtype."""
+    head dim contiguous.  bfloat16 runs ``swa_mma.cu``, float32
+    ``swa.cu``.  Returns a contiguous (B,S,H,D) in q's dtype."""
     global launches
     _check(q, k, v, window)
     for name, t in (("q", q), ("k", k), ("v", v)):

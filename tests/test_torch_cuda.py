@@ -186,7 +186,8 @@ def test_stream_float64_raises_on_the_card():
 # --------------------------------------------------------------------------
 
 # (B, S, H, KV, D, window): head dims 64/80/128/256, GQA, a window >= S, a
-# last query tile that is not full, window 1
+# last query tile that is not full, window 1, a head dim that is not a
+# multiple of 16 (bf16 pads it to 48), D 256 with a ragged last tile
 SWA_SHAPES = [
     (2, 256, 4, 4, 64, 64),
     (2, 512, 8, 2, 128, 256),
@@ -194,6 +195,8 @@ SWA_SHAPES = [
     (1, 128, 4, 4, 256, 512),
     (2, 200, 4, 1, 80, 4096),
     (1, 128, 2, 2, 64, 1),
+    (1, 192, 8, 2, 40, 100),
+    (1, 200, 4, 2, 256, 96),
 ]
 
 
@@ -223,6 +226,27 @@ def test_swa_kernel_matches_plain_version_on_the_card(B, S, H, KV, D, w,
                          else S)
     assert got.dtype == q.dtype and got.shape == q.shape
     assert _rel_err(got, want) <= tol
+
+
+@pytest.mark.cuda
+def test_swa_bf16_call_runs_the_tensor_core_library():
+    """A bf16 call loads the library built from ``swa_mma.cu`` (its source
+    holds ``mma.sync``; ptxas compiled ``swa_kernel_mma``) and launches it
+    once; float32 stays on ``swa.cu``."""
+    from repro_torch.kernels import build, swa
+
+    _needs_card()
+    q, k, v = _swa_inputs(1, 256, 8, 2, 80, "bfloat16", seed=5)
+    before = swa.launches
+    got = swa.swa_cuda(q, k, v, window=100)
+    torch.cuda.synchronize()
+    assert swa.launches == before + 1
+    src = swa.kernel_source(torch.bfloat16, 80)
+    assert "mma.sync" in src
+    assert build.library_path(src, "swa").exists()
+    assert "swa_kernel_mma" in build.ptxas_report(src, "swa")
+    assert "mma.sync" not in swa.kernel_source(torch.float32, 80)
+    assert _rel_err(got, swa.swa_plain(q, k, v, window=100)) <= 2e-2
 
 
 @pytest.mark.cuda

@@ -46,6 +46,10 @@ LM serving (the hand-written CUDA sliding-window attention kernels:
    kernel is off the serving path; its row (0 launches on the path) keeps
    its time.
 
+Each block path's kernel row also keeps its CTA (chunk, tile, threads,
+shared memory, CTAs an SM, levels), what ptxas reported for it (registers,
+spill bytes) and its generated operations and staged bytes a grid point.
+
 Every stencil path is compared with the same compile on
 ``backend="torch_fused"`` on the card, and each stream path with the block
 path of the same program, boundary, grid and steps where there is one.
@@ -489,6 +493,7 @@ def block_row(ph, torch, stencil3d) -> dict:
     inputs the path gives it, and its times."""
     from repro_torch.core import boundary as bc
     from repro_torch.core.ir import count_flops
+    from repro_torch.kernels import build
 
     p, ex, grid = ph["p"], ph["ex"], ph["grid"]
     call = ex.kernels[0]
@@ -545,6 +550,15 @@ def block_row(ph, torch, stencil3d) -> dict:
     out_bytes = pts * call.itemsize * len(call.group_outputs)
     flops = pts * sum(count_flops(p.ops[i].expr) for i in call.group)
     bound_ms, bound_by = bound(in_bytes, out_bytes, flops)
+    cta = call.cta
+    ptxas = ptxas_stats(build.ptxas_report(call.module.source))
+    log(f"{ph['name']}: CTA chunk {cta.tile[0]} tile {cta.tile[1:]}, "
+        f"{call.threads[0] * call.threads[1]} threads, {call.smem_bytes} B "
+        f"shared memory, {cta.ctas_per_sm} CTAs an SM planned; ptxas "
+        f"{ptxas['registers']} registers, spill stores "
+        f"{ptxas['spill_stores']} B, loads {ptxas['spill_loads']} B; "
+        f"{call.flops_per_point():.1f} generated operations and "
+        f"{call.staged_bytes_per_point():.1f} staged bytes a point")
     return {
         "name": f"stencil3d.build_group_call[{ph['name']} "
                 f"{'x'.join(map(str, grid))} {ph['dtype']}]",
@@ -560,8 +574,13 @@ def block_row(ph, torch, stencil3d) -> dict:
         "library_ms": None,
         "launches_per_step": ph["launches"] / (ph["steps"] or 1),
         "block": list(call.block),
+        "threads": list(call.threads),
         "smem_bytes": call.smem_bytes,
+        "ctas_per_sm": cta.ctas_per_sm,
+        "levels": len(cta.levels),
+        **ptxas,
         "gen_flops_per_point": call.flops_per_point(),
+        "staged_bytes_per_point": call.staged_bytes_per_point(),
         "min_bytes": in_bytes + out_bytes,
     }
 

@@ -30,12 +30,13 @@ from typing import Sequence
 import numpy as np
 
 from .. import hw
-from .ir import Program
+from .ir import Access, CoeffRef, Const, Program, ScalarRef
 from .passes import _zeros, infer_halo, stage_split
 
 SCHEDULES = ("block", "stream")
 
-#: tile extents the planner tries: outer axes in powers of two, the
+#: tile extents the block planner tries: the axis before the contiguous one
+#: in powers of two (axis 0 of a 3-D program is swept in chunks), the
 #: contiguous axis in one, two or four warps
 OUTER_TILES = (1, 2, 4, 8, 16)
 LANE_TILES = (32, 64, 128)
@@ -373,26 +374,279 @@ def plan_time_loop(p: Program, plan: DataflowPlan, grid: Sequence[int],
 
 
 # --------------------------------------------------------------------------
-# Shared-memory cost and the block planner
+# The block kernel's CTA (2.5-D: a plane tile sweeping a chunk of axis 0)
 # --------------------------------------------------------------------------
 
-def window_bytes(p: Program, gh, block: Sequence[int], dtype: str) -> int:
-    """Bytes of the input windows (tile + input halo, every group input)
-    one CTA of a fuse group stages in shared memory."""
-    win = np.asarray(block) + gh.input_halo[:, 0] + gh.input_halo[:, 1]
-    return int(np.prod(win)) * len(gh.group_inputs) * hw.DTYPE_BYTES[dtype]
+#: bytes one ``cp.async`` moves at most; a plane's rows are padded to it
+COPY_BYTES = 16
+
+#: registers a block-kernel thread is planned with: the planner counts the
+#: CTAs an SM holds at this many, and the kernel's launch bounds ask
+#: ptxas for no more than those CTAs allow
+BLOCK_REGS = 64
+
+
+def _round16(n: int) -> int:
+    return -(-int(n) // 16) * 16
+
+
+def _lift3(v, fill) -> tuple:
+    v = tuple(v)
+    return (fill,) * (3 - len(v)) + v
+
+
+@dataclasses.dataclass(frozen=True)
+class InputRing:
+    """The ring of one group input's planes in a block-kernel CTA.
+
+    ``lo``/``hi`` are the input's halo around the tile on each lifted axis
+    (on axis 0 around the output plane, so ``hi[0]`` is how many planes
+    ahead of the output it is fetched); ``low`` is the lowest plane one
+    iteration reads, relative to the sweep front.  The ring holds
+    ``slots`` planes: the span one iteration reads plus the plane in
+    flight.  A plane is ``rows`` x ``pitch`` elements in the storage
+    dtype; column ``shift`` holds the halo's first column, the copy
+    starting at the 16-byte boundary below it."""
+
+    field: str
+    lo: tuple
+    hi: tuple
+    low: int
+    slots: int
+    rows: int
+    pitch: int
+    shift: int
+    itemsize: int
+    offset: int = 0
+
+    @property
+    def plane(self) -> int:
+        return self.rows * self.pitch
+
+    @property
+    def nbytes(self) -> int:
+        return _round16(self.slots * self.plane * self.itemsize)
+
+
+@dataclasses.dataclass(frozen=True)
+class OpRing:
+    """float32 planes of an op that is read at an offset: ``slots`` planes
+    of ``extent`` (axes 1 and 2: the tile widened by the op's margins) at
+    ``offset`` bytes.  Single-plane rings whose lives within one iteration
+    do not overlap share their bytes."""
+
+    out: str
+    slots: int
+    extent: tuple
+    offset: int
+
+    @property
+    def plane(self) -> int:
+        return self.extent[0] * self.extent[1]
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockLoop:
+    """The roots of one level that share their margins: one loop of the
+    CTA's threads over their plane, one value-numbered body.  ``flops`` is
+    the body's distinct operations (SSA-inlined ops included)."""
+
+    level: int
+    margins: tuple
+    roots: tuple
+    flops: int
+
+    @property
+    def lead(self) -> int:
+        return self.margins[0][1]
+
+    @property
+    def span(self) -> int:
+        return self.margins[0][0] + self.margins[0][1]
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockCTA:
+    """Geometry of one CTA of a fuse group's block kernel (2.5-D).
+
+    The CTA owns ``tile`` = (chunk, rows, columns) on the lifted axes and
+    sweeps its chunk of axis 0 plane by plane, ``warmup`` planes early.
+    Every op is evaluated once per point of its margin-extended plane: a
+    *root* (an op read at an offset, or a group output) in ``levels``,
+    one level per ``__syncthreads``; an op read only at its own point is
+    inlined into the roots that read it (``inline``).  A root runs
+    ``margins[out][0][1]`` planes ahead of the output.  ``inputs`` and
+    ``rings`` are the shared-memory buffers."""
+
+    tile: tuple
+    threads: tuple
+    margins: dict
+    inline: dict
+    levels: tuple
+    inputs: tuple
+    rings: dict
+    smem_bytes: int
+    warmup: int
+
+    @property
+    def ctas_per_sm(self) -> int:
+        """CTAs one SM holds, at :data:`BLOCK_REGS` registers a thread (the
+        kernel's launch bounds hold ptxas to it)."""
+        nt = self.threads[0] * self.threads[1]
+        return max(1, resident_threads(self.tile, self.smem_bytes,
+                                       BLOCK_REGS) // nt)
+
+    def traffic(self, grid: Sequence[int]) -> tuple:
+        """(bytes staged into shared memory, generated operations) per grid
+        point over all CTAs of ``grid``: each chunk fetches its planes once
+        (halo planes included) and computes each loop on its extended plane
+        for the chunk and its warm-up; ragged tiles count in full."""
+        n0, n1, n2 = _lift3(grid, 1)
+        ch, ta, tb = self.tile
+        plane_tiles = -(-n1 // ta) * -(-n2 // tb)
+        lens = [min(ch, n0 - c) for c in range(0, n0, ch)]
+        staged = sum(r.plane * r.itemsize * (ln + r.lo[0] + r.hi[0])
+                     for r in self.inputs for ln in lens)
+        ops = sum(lp.flops * (ta + sum(lp.margins[1]))
+                  * (tb + sum(lp.margins[2])) * (ln + lp.span)
+                  for lv in self.levels for lp in lv for ln in lens)
+        pts = n0 * n1 * n2
+        return staged * plane_tiles / pts, ops * plane_tiles / pts
+
+
+def _unique_ops(exprs) -> int:
+    """Distinct operation nodes of ``exprs`` (the value numbering's
+    count: equal subtrees evaluate once)."""
+    seen: set = set()
+
+    def rec(e):
+        if isinstance(e, (Access, CoeffRef, Const, ScalarRef)) or e in seen:
+            return
+        seen.add(e)
+        for c in e.children():
+            rec(c)
+
+    for e in exprs:
+        rec(e)
+    return len(seen)
+
+
+def plan_block_cta(p: Program, group: Sequence[int], block: Sequence[int],
+                   dtype: str) -> BlockCTA:
+    """The CTA of a fuse group's block kernel computing ``block`` (already
+    clipped to the grid; on a 3-D program ``block[0]`` is the chunk of
+    axis 0 a CTA sweeps)."""
+    gh = infer_halo(p, group)
+    ops = [p.ops[i] for i in group]
+    margins = {p.ops[i].out: tuple(_lift3(
+        [(int(gh.margins[i][a, 0]), int(gh.margins[i][a, 1]))
+         for a in range(p.ndim)], (0, 0))) for i in group}
+    lead = {out: m[0][1] for out, m in margins.items()}
+    produced = set(margins)
+    planar = {a.field for op in ops for a in op.accesses()
+              if a.field in produced and any(a.offset)}
+    roots = [op.out for op in ops
+             if op.out in planar or op.out in gh.group_outputs]
+    by_out = {op.out: op for op in ops}
+
+    def inlined(op, acc):
+        for a in op.accesses():
+            if a.field in produced and a.field not in planar \
+                    and a.field not in acc:
+                inlined(by_out[a.field], acc)
+                acc.append(a.field)
+        return acc
+
+    inline = {r: tuple(inlined(by_out[r], [])) for r in roots}
+    # (field, lifted offset) each root's body reads, inlined ops included
+    reads = {r: [(a.field, _lift3(a.offset, 0))
+                 for o in (r,) + inline[r] for a in by_out[o].accesses()
+                 if a.field not in inline[r]] for r in roots}
+    level: dict = {}
+    for r in roots:
+        level[r] = max([level[f] + 1 for f, o in reads[r]
+                        if f in planar and lead[r] + o[0] == lead[f]]
+                       + [0])
+    ch, ta, tb = _lift3(block, 1)
+    isz = hw.DTYPE_BYTES[dtype]
+    vec = max(1, COPY_BYTES // isz)
+    halo_lo = _lift3(gh.input_halo[:, 0], 0)
+    inputs = []
+    for f in gh.group_inputs:
+        rr = [(margins[r], lead[r], o) for r in roots
+              for g, o in reads[r] if g == f]
+        lo = tuple(max(m[a][0] - o[a] for m, _, o in rr) for a in range(3))
+        hi = tuple(max(m[a][1] + o[a] for m, _, o in rr) for a in range(3))
+        low = min(ld + o[0] for _, ld, o in rr)
+        shift = (int(halo_lo[2]) - lo[2]) % vec
+        inputs.append(InputRing(
+            field=f, lo=lo, hi=hi, low=low, slots=hi[0] - low + 2,
+            rows=lo[1] + ta + hi[1],
+            pitch=-(-(shift + lo[2] + tb + hi[2]) // vec) * vec,
+            shift=shift, itemsize=isz))
+    # op rings: depth = the planes between the lowest read and the lead
+    slots, ext, last = {}, {}, {}
+    for j in (r for r in roots if r in planar):
+        rr = [(r, o) for r in roots for g, o in reads[r] if g == j]
+        slots[j] = lead[j] - min(lead[r] + o[0] for r, o in rr) + 1
+        last[j] = max(level[r] for r, _ in rr)
+        ext[j] = (ta + sum(margins[j][1]), tb + sum(margins[j][2]))
+    off = 0
+    placed = []
+    for r in inputs:
+        placed.append(dataclasses.replace(r, offset=off))
+        off += r.nbytes
+    rings = {}
+    for j in slots:
+        if slots[j] > 1:
+            rings[j] = OpRing(j, slots[j], ext[j], off)
+            off += _round16(4 * slots[j] * ext[j][0] * ext[j][1])
+    # single planes: a pool is reused once every plane in it has been read
+    pools, where = [], {}
+    for j in sorted((j for j in slots if slots[j] == 1),
+                    key=lambda j: level[j]):
+        nb = _round16(4 * ext[j][0] * ext[j][1])
+        free = [k for k, (_, busy) in enumerate(pools) if busy < level[j]]
+        fits = [k for k in free if pools[k][0] >= nb]
+        k = (min(fits, key=lambda k: pools[k][0]) if fits
+             else max(free, key=lambda k: pools[k][0]) if free else None)
+        if k is None:
+            pools.append([nb, last[j]])
+            k = len(pools) - 1
+        pools[k] = [max(pools[k][0], nb), last[j]]
+        where[j] = k
+    pool_off = []
+    for size, _ in pools:
+        pool_off.append(off)
+        off += size
+    for j, k in where.items():
+        rings[j] = OpRing(j, 1, ext[j], pool_off[k])
+    levels = []
+    for lv in range(max(level.values()) + 1 if level else 0):
+        loops: dict = {}
+        for r in roots:
+            if level[r] == lv:
+                loops.setdefault(margins[r], []).append(r)
+        levels.append(tuple(
+            BlockLoop(lv, m, tuple(rs), _unique_ops(
+                [by_out[o].expr for r in rs for o in (r,) + inline[r]]))
+            for m, rs in loops.items()))
+    tile = (ch, ta, tb)
+    return BlockCTA(tile=tile, threads=cta_threads(tile), margins=margins,
+                    inline=inline, levels=tuple(levels),
+                    inputs=tuple(placed), rings=rings, smem_bytes=off,
+                    warmup=max([sum(margins[r][0]) for r in roots] + [0]))
 
 
 def smem_cost(p: Program, plan: DataflowPlan, grid: Sequence[int]) -> int:
     """Bytes of shared memory one CTA of the *largest* group claims.
 
-    Block schedule: the generated kernel stages every group input's window
-    (tile + input halo) in shared memory and keeps in-group temps in
-    registers (each thread evaluates the temps it needs at every offset it
-    needs them), so the claim is the windows alone.  Fused-loop carries do
-    not enlarge it: the kernel reads its own window out of an oversized
-    carry through a base offset.  Blocks are clipped to the grid as the
-    kernel clips them.
+    Block schedule: the block kernel's CTA (:func:`plan_block_cta`): a
+    ring of planes per group input in the field dtype, and float32 rings
+    of the ops read at an offset, single-plane rings sharing bytes where
+    their lives do not overlap.  Fused-loop carries do not enlarge it: the
+    kernel reads its planes out of an oversized carry through a base
+    offset.  Blocks are clipped to the grid as the kernel clips them.
 
     Stream schedule: the largest sweep-kernel CTA over the legalised
     regions at the effective ``time_tile``/``plane_tile``
@@ -407,7 +661,7 @@ def smem_cost(p: Program, plan: DataflowPlan, grid: Sequence[int]) -> int:
                                    graph.plane_tile, plan.dtype).smem_bytes
                    for r in graph.regions)
     blk = clamp_block(plan.block[:p.ndim], grid)
-    return max(window_bytes(p, infer_halo(p, grp), blk, plan.dtype)
+    return max(plan_block_cta(p, grp, blk, plan.dtype).smem_bytes
                for grp in plan.groups)
 
 
@@ -571,13 +825,11 @@ def plan_stream_cta(p: Program, region, grid: Sequence[int], time_tile: int,
     then the largest.  Chunks: the stream axis is cut into the number of
     chunks that minimises the modelled time, waves of CTAs (132 SMs times
     the CTAs one SM holds) times the planes each CTA sweeps, warm-up
-    included, then the fewest chunks; no chunk is shorter than four times
-    the planes it recomputes to warm up (nor 16 planes).  ``tile`` and
-    ``chunk`` override the choice (tests);
+    included (:func:`sweep_chunk`).  ``tile`` and ``chunk`` override the
+    choice (tests);
     ``updates`` is :func:`stream_buffers`'."""
     grid = tuple(int(g) for g in grid)
     T, P = max(1, int(time_tile)), max(1, int(plane_tile))
-    spec = hw.H100
 
     def block3(t):
         return (1,) * (3 - len(t)) + tuple(t)
@@ -612,17 +864,8 @@ def plan_stream_cta(p: Program, region, grid: Sequence[int], time_tile: int,
     if chunk is None:
         per_sm = max(1, resident_threads(block3(tile), smem)
                      // (threads[0] * threads[1]))
-        slots = spec.sms * per_sm
-        extra = warm + (T - 1) * int(region.lead)
-        shortest = max(16, 4 * extra)
-
-        def modelled(n):
-            # waves of CTAs times the planes each CTA sweeps
-            waves = -(-int(np.prod(tiles)) * n // slots)
-            return waves * (-(-n0 // n) + extra), n
-
-        n = min(range(1, max(1, n0 // shortest) + 1), key=modelled)
-        chunk = -(-n0 // n)
+        chunk = sweep_chunk(n0, int(np.prod(tiles)), per_sm,
+                            warm + (T - 1) * int(region.lead))
     chunk = max(1, min(int(chunk), n0))
     return StreamCTA(tile=tile, threads=threads, buffers=bufs, chunk=chunk,
                      n_chunks=-(-n0 // chunk), warmup=warm, tiles=tiles)
@@ -637,45 +880,81 @@ def cta_threads(block: Sequence[int]) -> tuple:
     return tx, ty
 
 
-def resident_threads(block: Sequence[int], smem: int) -> int:
+def resident_threads(block: Sequence[int], smem: int,
+                     regs: int | None = None) -> int:
     """Threads of CTAs of ``block`` claiming ``smem`` bytes each that one
-    SM holds at once, as shared memory and the thread and CTA limits allow
-    (registers are not known before the kernel is compiled)."""
+    SM holds at once, as shared memory and the thread and CTA limits allow,
+    and, given ``regs`` registers a thread, the register file (registers
+    are not known before the kernel is compiled: a kernel planned with
+    ``regs`` holds ptxas to them through its launch bounds)."""
     spec = hw.H100
     tx, ty = cta_threads(block)
     ctas = min(spec.smem_per_sm // (smem + spec.smem_reserved_per_cta),
                spec.threads_per_sm // (tx * ty), spec.ctas_per_sm)
+    if regs is not None:
+        ctas = min(ctas, spec.registers_per_sm // (regs * tx * ty))
     return ctas * tx * ty
+
+
+def sweep_chunk(n0: int, n_tiles: int, ctas_per_sm: int, extra: int) -> int:
+    """Planes of axis 0 one CTA sweeps, when ``n_tiles`` tiles of the other
+    axes each sweep ``n0`` planes and a CTA computes ``extra`` planes
+    before its chunk: the number of chunks that minimises the modelled
+    time, waves of CTAs (132 SMs times ``ctas_per_sm``) times the planes a
+    CTA sweeps, then the fewest chunks; no chunk is shorter than four
+    times ``extra`` (nor 16 planes)."""
+    slots = hw.H100.sms * ctas_per_sm
+    shortest = max(16, 4 * extra)
+
+    def modelled(n):
+        waves = -(-n_tiles * n // slots)
+        return waves * (-(-n0 // n) + extra), n
+
+    n = min(range(1, max(1, n0 // shortest) + 1), key=modelled)
+    return -(-n0 // n)
 
 
 def pick_block(p: Program, groups: list, grid: Sequence[int], dtype: str,
                smem_budget: int) -> tuple:
-    """The tile among :data:`OUTER_TILES` x :data:`LANE_TILES` (clipped to
-    the grid) whose windows fit ``smem_budget`` and that keeps the most
-    threads resident per SM; among those, the one staging the fewest
-    window bytes per grid point (halo re-reads and tile-alignment waste
-    included), then the largest."""
+    """The block kernel's tile.  Its plane tile is the one among
+    :data:`OUTER_TILES` x :data:`LANE_TILES` (the axis before the
+    contiguous one, and the contiguous one; clipped to the grid) whose
+    CTAs (:func:`plan_block_cta`) fit ``smem_budget`` and that keeps the
+    most threads resident per SM (at :data:`BLOCK_REGS` registers a
+    thread), then at least two CTAs an SM (one CTA's
+    barriers leave the SM to the other), then stages the fewest bytes per grid
+    point, then generates the fewest operations per point, then is the
+    largest.  On a 3-D program ``block[0]`` is the chunk of axis 0 one CTA
+    sweeps (:func:`sweep_chunk`, with the groups' deepest warm-up)."""
     grid = tuple(int(g) for g in grid)
-    halos = [infer_halo(p, grp) for grp in groups]
-    axes = [sorted({min(t, g) for t in OUTER_TILES}) for g in grid[:-1]]
+    sweep = len(grid) == 3
+    axes = [sorted({min(t, g) for t in OUTER_TILES}) for g in grid[-2:-1]]
     axes.append(sorted({min(t, grid[-1]) for t in LANE_TILES}))
-    best, best_key = None, None
-    for blk in itertools.product(*axes):
-        per_group = [window_bytes(p, gh, blk, dtype) for gh in halos]
-        smem = max(per_group)
+    best, best_key, smallest = None, None, None
+    for tile in itertools.product(*axes):
+        blk = (1,) * sweep + tile
+        ctas = [plan_block_cta(p, grp, blk, dtype) for grp in groups]
+        smem = max(c.smem_bytes for c in ctas)
+        smallest = smallest or (tile, smem)
         if smem > smem_budget:
             continue
-        tiles = int(np.prod([-(-g // b) for g, b in zip(grid, blk)]))
-        staged = sum(per_group) * tiles / int(np.prod(grid))
-        key = (resident_threads(blk, smem), -staged, int(np.prod(blk)))
+        threads = resident_threads(blk, smem, BLOCK_REGS)
+        per_sm = threads // (ctas[0].threads[0] * ctas[0].threads[1])
+        if sweep:
+            n_tiles = int(np.prod([-(-g // t) for g, t in zip(grid[1:],
+                                                               tile)]))
+            blk = (sweep_chunk(grid[0], n_tiles, max(1, per_sm),
+                               max(c.warmup for c in ctas)),) + tile
+            ctas = [dataclasses.replace(c, tile=blk) for c in ctas]
+        staged, ops = np.sum([c.traffic(grid) for c in ctas], axis=0)
+        key = (threads, min(per_sm, 2), -staged, -ops,
+               int(np.prod(tile)))
         if best_key is None or key > best_key:
             best, best_key = blk, key
     if best is None:
-        smallest = tuple(a[0] for a in axes)
         raise ValueError(
             f"no tile of {p.name!r} fits {smem_budget} B of shared memory "
-            f"(smallest tile {smallest} needs "
-            f"{max(window_bytes(p, gh, smallest, dtype) for gh in halos)} B)")
+            f"(smallest plane tile {smallest[0]} needs {smallest[1]} B)")
     return tuple(int(b) for b in best)
 
 
@@ -684,13 +963,13 @@ def auto_plan(p: Program, grid: Sequence[int], *, backend: str = "cuda",
               smem_budget: int = hw.H100.smem_per_block,
               steps: int | None = None, schedule: str = "block",
               time_tile: int = 1, plane_tile: int = 1) -> DataflowPlan:
-    """Pick fuse groups and a tile whose windows fit one CTA's shared memory.
+    """Pick fuse groups and a tile whose CTA fits one CTA's shared memory.
 
     The groups are ``stage_split(p, strategy)``, as in the reference.  The
-    tile is :func:`pick_block`'s: the most threads resident per SM, then the
-    fewest staged window bytes per point.  ``steps`` is accepted for the
-    reference's signature: a fused loop does not change the kernel's
-    shared-memory claim.  ``schedule="stream"`` plans the sweep instead
+    tile is :func:`pick_block`'s: the most threads resident per SM, then
+    two CTAs an SM, then the fewest staged bytes and generated operations
+    per point.  ``steps`` is accepted for the reference's signature: a
+    fused loop does not change the kernel's shared-memory claim.  ``schedule="stream"`` plans the sweep instead
     (:func:`_auto_plan_stream`).
     """
     grid = tuple(int(g) for g in grid)

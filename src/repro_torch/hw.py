@@ -4,9 +4,10 @@ bound calculations.
 Sources: NVIDIA's H100 data sheet, the Hopper architecture white paper and
 the CUDA C++ programming guide's compute-capability 9.0 table (132 SMs,
 228 KB of shared memory an SM holds, 227 KB of it a CTA can opt into, 1 KB
-of it reserved per resident CTA, 2048 threads and 32 CTAs resident per SM,
-50 MB L2, 80 GB of HBM3 at 3.35 TB/s, 67 TFLOP/s float32 outside the
-tensor cores, 989 TFLOP/s dense bfloat16 on the tensor cores, at 700 W).
+of it reserved per resident CTA, 2048 threads, 32 CTAs and 65,536 32-bit
+registers per SM, 50 MB L2, 80 GB of HBM3 at 3.35 TB/s, 67 TFLOP/s float32
+outside the tensor cores, 989 TFLOP/s dense bfloat16 on the tensor cores,
+at 700 W).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ class ChipSpec:
     smem_reserved_per_cta: int  # shared memory the runtime keeps per CTA
     threads_per_sm: int         # resident threads per SM
     ctas_per_sm: int            # resident CTAs per SM
+    registers_per_sm: int       # 32-bit registers of one SM
     sms: int                    # streaming multiprocessors
     l2_bytes: int
     peak_f32_flops: float       # FLOP/s, CUDA cores
@@ -39,6 +41,7 @@ H100 = ChipSpec(
     smem_reserved_per_cta=1024,
     threads_per_sm=2048,
     ctas_per_sm=32,
+    registers_per_sm=65_536,
     sms=132,
     l2_bytes=50 * 1024**2,
     peak_f32_flops=67e12,

@@ -2,31 +2,43 @@
 
 Replaces the TPU kernel ``repro.kernels.stencil3d.build_group_call`` (the
 Pallas call at ``src/repro/kernels/stencil3d.py:202``): one fuse group of a
-stencil program over halo-padded input windows, in-group producers
-recomputed on their margins (``passes.infer_halo``), zero-boundary temps
-masked against the *global* domain through the runtime origin, scalars and
-the origin as kernel arguments, 1-D coefficients read along their axis.
+stencil program over halo-padded inputs, every op evaluated over its
+margins (``passes.infer_halo``), zero-boundary temps masked against the
+*global* domain through the runtime origin, scalars and the origin as
+kernel arguments, 1-D coefficients read along their axis.
 
 Bound on the H100: bytes.  The group reads each input once and writes each
-output once (pw_advection: 3 + 3 float32 fields plus four 1-D
-coefficients, about 24 B a point, 0.24 ms at 3.35 TB/s for 512x256x256);
-its arithmetic is far below the card's float32 rate even with the margin
-recompute.  The design keeps that traffic near the minimum:
+output once (pw_advection: 3 + 3 float32 fields, about 24 B a point,
+0.24 ms at 3.35 TB/s for 512x256x256; tracer_advection: 6 + 1 fields, 28 B
+a point); its IR operations are far below the card's float32 rate.  The
+TPU kernel evaluates each op once over its margin-extended block; a CUDA
+CTA cannot hold a 3-D block of every op in 227 KB, so the design sweeps
+(2.5-D, :func:`repro_torch.core.schedule.plan_block_cta`):
 
-* one CTA per output tile; its threads stage every group input's window
-  (tile + input halo) in shared memory with coalesced loads along the
-  contiguous axis 2, then each thread evaluates its points reading only
-  shared memory — the halo re-reads of neighbouring tiles come from L2;
-* in-group temps never touch memory: each thread evaluates a temp at every
-  offset at which it is (transitively) read, as SSA registers with value
-  numbering, so shared subtrees — the reference's hash-consed CSE — and
-  repeated loads evaluate once.  This trades recompute (tracer_advection's
-  deep chains) for zero synchronisation beyond the one after staging;
-* the planner (``schedule.auto_plan``) picks a tile whose staged windows
-  fit the 227 KB a CTA can use and that keeps the most threads resident
-  per SM, then stages the fewest window bytes per point.
+* one CTA per (chunk of axis 0, tile of axes 1 and 2); it sweeps its chunk
+  plane by plane, starting ``warmup`` planes early;
+* every group input has a ring of planes (its halo around the tile) in
+  shared memory; the plane the next iteration needs is fetched with
+  ``cp.async`` (16 B a copy where the base and strides allow, else 4 B, or
+  element by element for unaligned bfloat16) while the current one
+  computes, so each input plane comes from device memory once per CTA;
+* every op read at an offset is a *root*: it is evaluated once per point
+  of its margin-extended plane, ahead of the output by its axis-0 high
+  margin, into a float32 ring as deep as the planes it is read at;
+  single-plane rings whose lives do not overlap share bytes; an op read
+  only at its own point is inlined into the roots that read it as
+  value-numbered SSA (the reference's hash-consed CSE);
+* roots run level by level, one ``__syncthreads`` between levels; roots
+  of a level with equal margins share one loop over their plane, each
+  thread computing :data:`POINTS` neighbouring points of a row; the
+  zero-boundary mask is applied when a plane is written;
+* the generated code is mostly integer index work, so it is kept small:
+  loops are not unrolled, per-thread indices are recomputed at each plane
+  instead of being held in registers across it, and the launch bounds
+  hold ptxas to the registers the planner counted
+  (``schedule.BLOCK_REGS``).
 
-Windows inside an oversized fused-loop carry (``input_pad``) are read
+Inputs inside an oversized fused-loop carry (``input_pad``) are read
 through a base offset and the carry's strides; nothing is copied.  The C
 entry returns ``cudaGetLastError()`` and the wrapper raises if it is not 0.
 float32 and bfloat16 are compiled (bfloat16 rounds each op's result, as
@@ -50,7 +62,7 @@ from ..core.expr_eval import evaluate
 from ..core.ir import (Access, BinOp, BinOpKind, Cmp, CmpKind, CoeffRef,
                        Const, ScalarRef, Select, UnOp, UnOpKind, Program)
 from ..core.passes import GroupHalo, infer_halo
-from ..core.schedule import cta_threads
+from ..core.schedule import COPY_BYTES, BlockCTA, plan_block_cta
 from . import build
 
 #: kernel launches made by :class:`GroupCall` (plain-version runs excluded)
@@ -58,6 +70,11 @@ launches = 0
 
 #: the TPU kernel this module replaces
 REPLACES = "src/repro/kernels/stencil3d.py:202"
+
+#: neighbouring points of a row one thread of the block kernel computes in
+#: a loop: they share the index arithmetic, the addresses, the masks and
+#: the loads their stencils have in common
+POINTS = 2
 
 _DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
                 torch.float64: "float64"}
@@ -92,6 +109,54 @@ __device__ __forceinline__ float rsign(float a) {
 __device__ __forceinline__ int pmod(int a, int m) {
   const int r = a % m;
   return r < 0 ? r + m : r;
+}
+"""
+
+#: what the block kernel adds to the preamble: its asynchronous copies (all
+#: of its inline PTX, between the two marker lines) and the plane stager
+BLOCK_HELPERS = r"""// ---- PTX helpers: the block kernel's asynchronous copies
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(a), "l"(src));
+}
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(a), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+// x, opaque to the compiler: what derives from it is computed where it is
+// used, not hoisted into registers held across the sweep's levels
+__device__ __forceinline__ int opaque(int x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+// ---- end of PTX helpers
+// Columns [x0, x1) of `rows` rows (source row stride s1, shared pitch P),
+// E elements of T a copy: asynchronous for 16 and 4 bytes, else a plain
+// load and store.  The first copy of a row starts at the E-aligned column
+// at or below x0.
+template <int E, typename T>
+__device__ __forceinline__ void stage_rows(T* dst, const T* src, long long s1,
+                                           int rows, int P, int x0, int x1,
+                                           int tid, int nt) {
+  const int c0 = x0 / E, n = (x1 + E - 1) / E - c0;
+#pragma unroll 1
+  for (int i = tid; i < rows * n; i += nt) {
+    const int r = i / n, x = (c0 + i % n) * E;
+    if constexpr (E * sizeof(T) == 16)
+      cp_async_16(dst + r * P + x, src + r * s1 + x);
+    else if constexpr (E * sizeof(T) == 4)
+      cp_async_4(dst + r * P + x, src + r * s1 + x);
+    else
+      dst[r * P + x] = src[r * s1 + x];
+  }
 }
 """
 
@@ -180,8 +245,6 @@ class GroupCall:
         self.pad_lo = self.halo_lo
         self.pad_hi = tuple(self.halo_hi[a] + self.align_hi[a]
                             for a in range(ndim))
-        self.window = tuple(self.block[a] + self.halo_lo[a] + self.halo_hi[a]
-                            for a in range(ndim))
         self.expect = tuple(self.halo_lo[a] + self.padded_out[a]
                             + self.halo_hi[a] for a in range(ndim))
         self.group_inputs = list(gh.group_inputs)
@@ -199,16 +262,13 @@ class GroupCall:
         self.n_scalars = len(p.scalars)
         self.dtype_name = _DTYPE_NAMES[dtype]
         self.itemsize = torch.empty((), dtype=dtype).element_size()
-        # shared memory of one CTA: every input's window in the field dtype
-        self.smem_bytes = (int(np.prod(self.window)) * len(self.group_inputs)
-                           * self.itemsize)
-        # 3-D view of the geometry (1-D and 2-D programs get unit outer axes)
-        lift = 3 - ndim
-        self._lift = lift
-        self.block3 = (1,) * lift + self.block
-        self.window3 = (1,) * lift + self.window
-        self.halo3 = (0,) * lift + self.halo_lo
-        self.threads = cta_threads(self.block3)
+        # the CTA: block[0] is the chunk of axis 0 it sweeps (1-D and 2-D
+        # programs get unit outer axes)
+        self._lift = 3 - ndim
+        self.cta: BlockCTA = plan_block_cta(p, self.group, self.block,
+                                            self.dtype_name)
+        self.smem_bytes = self.cta.smem_bytes
+        self.threads = self.cta.threads
         self.module = None
         self.entry = "g0"
 
@@ -281,8 +341,9 @@ class GroupCall:
                                  "its last axis")
             base = sum(lo[a] * x.stride(a) for a in range(ndim))
             strides = [0] * lift + [x.stride(a) for a in range(ndim)]
-            args += [x.data_ptr() + base * self.itemsize,
-                     strides[0], strides[1]]
+            ptr = x.data_ptr() + base * self.itemsize
+            args += [ptr, strides[0], strides[1],
+                     self._copy_bytes(x, ptr, strides, lo[-1])]
         for c in self.group_coeffs:
             t = padded_coeffs[c]
             self._check(t, c, device)
@@ -306,6 +367,19 @@ class GroupCall:
         org = [0] * ndim if origin is None else [int(o) for o in origin]
         return args + [0] * lift + org
 
+    def _copy_bytes(self, x, ptr, strides, col) -> int:
+        """Bytes one copy of an input's planes moves: 16, else 4, where the
+        window's base and outer strides are multiples of it and the copies
+        that round a row up to it stay inside the row (``col``: the
+        window's first column in ``x``); else one element."""
+        for q in (COPY_BYTES, 4):
+            e = q // self.itemsize
+            if e and ptr % q == 0 \
+                    and all(s * self.itemsize % q == 0 for s in strides[:2]) \
+                    and col + -(-self.expect[-1] // e) * e <= x.shape[-1]:
+                return q
+        return self.itemsize
+
     def _check(self, t, name, device):
         if t.device != device:
             raise ValueError(f"{name!r} is on {t.device}, expected {device}")
@@ -316,7 +390,8 @@ class GroupCall:
     # ----------------------------------------------------------- emitting
     def c_argtypes(self) -> list:
         n_in, n_c = len(self.group_inputs), len(self.group_coeffs)
-        return ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong] * n_in
+        return ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                 ctypes.c_int] * n_in
                 + [ctypes.c_void_p] * n_c
                 + [ctypes.c_void_p] * len(self.group_outputs)
                 + [ctypes.c_float] * self.n_scalars
@@ -329,10 +404,16 @@ class GroupCall:
         """CUDA C++ of this group's kernel and its C launch entry."""
         return _emit(self, name or self.entry)
 
-    def flops_per_point(self) -> int:
-        """Arithmetic ops the generated code performs per output point,
-        margin recompute included."""
-        return _Emitter(self).run()[1]
+    def flops_per_point(self) -> float:
+        """Arithmetic operations the generated code performs per grid
+        point, over all CTAs: each loop's value-numbered body on its
+        margin-extended plane, warm-up planes and ragged tiles included."""
+        return self.cta.traffic(self.grid_shape)[1]
+
+    def staged_bytes_per_point(self) -> float:
+        """Bytes the CTAs stage into shared memory per grid point (halo
+        planes and rows included)."""
+        return self.cta.traffic(self.grid_shape)[0]
 
 
 def build_group_call(p: Program, group: Sequence[int], block: Sequence[int],
@@ -435,23 +516,30 @@ def group_call_reference(call: GroupCall, padded_inputs: dict,
 # --------------------------------------------------------------------------
 
 class _Emitter:
-    """Per-thread SSA code for one output point of a fuse group.
+    """Value-numbered SSA for one loop of the block kernel: the roots of
+    one level that share their margins (``loop``), at one point of their
+    plane — plane ``q``, tile-relative ``a`` (axis 1) and ``b`` (axis 2),
+    global coordinates ``G0``/``G1``/``G2``.
 
-    Every value is numbered by its structure: a load by (input, absolute
-    offset), a temp by (field, offset), an operation by its kind and its
-    operands' numbers — so a subtree shared between ops or between the
-    offsets at which a temp is recomputed is emitted once.
+    Every value is numbered by its structure: a load by (buffer, offset),
+    an inlined op by (field, offset), an operation by its kind and its
+    operands' numbers — so a subtree shared between the roots of the loop
+    or the ops inlined into them is emitted once.
     """
 
-    def __init__(self, call: GroupCall):
+    def __init__(self, call: GroupCall, loop):
         self.call = call
         p = call.program
         self.p = p
         self.lift = call._lift
+        self.loop = loop
+        self.cta = call.cta
         self.ops = {p.ops[i].out: p.ops[i] for i in call.group}
-        self.inputs = {f: k for k, f in enumerate(call.group_inputs)}
+        self.inputs = {r.field: (k, r) for k, r in enumerate(self.cta.inputs)}
+        self.rings = {out: j for j, out in enumerate(self.cta.rings)}
         self.coeffs = {c: k for k, c in enumerate(call.group_coeffs)}
         self.scalars = {s: k for k, s in enumerate(p.scalars)}
+        self.halo3 = (0,) * self.lift + call.halo_lo
         self.extent3 = (1,) * self.lift + call.global_extent
         self.lines: list = []
         self.vn: dict = {}
@@ -521,22 +609,47 @@ class _Emitter:
         ax = self.call.coeff_axis[e.coeff] + self.lift
         o = off[ax] + int(e.offset)
         k = self.coeffs[e.coeff]
+        pos = ("q", "t1 + a", "t2 + b")[ax]
         return self._var(("coeff", k, o),
-                         f"ld(&cf{k}[g{ax} + {self.call.halo3[ax] + o}])", "f")
+                         f"ld(&cf{k}[{pos} + {self.halo3[ax] + o}])", "f")
 
     def access(self, e: Access, off: tuple):
         o = tuple(off[a] + v for a, v in
                   enumerate((0,) * self.lift + tuple(int(x) for x in
                                                      e.offset)))
-        if e.field in self.ops:
-            return self.temp(e.field, o)
-        k = self.inputs[e.field]
-        w = self.call.window3
-        lin = (o[0] * w[1] + o[1]) * w[2] + o[2]
-        return self._var(("in", k, o), f"ld(&win{k}[l + ({lin})])", "f")
+        if e.field in self.inputs:
+            k, r = self.inputs[e.field]
+            idx = (f"pmod(q + {o[0]}, {r.slots}) * {r.plane} + "
+                   f"(a + {o[1] + r.lo[1]}) * {r.pitch} + b + "
+                   f"{o[2] + r.lo[2] + r.shift}")
+            return self._var(("in", k, o), f"ld(&win{k}[{idx}])", "f")
+        if e.field in self.rings:
+            ring = self.cta.rings[e.field]
+            m = self.cta.margins[e.field]
+            slot = (f"pmod(q + {o[0]}, {ring.slots}) * {ring.plane} + "
+                    if ring.slots > 1 else "")
+            idx = (f"{slot}(a + {o[1] + m[1][0]}) * {ring.extent[1]} + b + "
+                   f"{o[2] + m[2][0]}")
+            return self._var(("ring", e.field, o),
+                             f"op{self.rings[e.field]}[{idx}]", "f")
+        return self.temp(e.field, o)
+
+    def _masked(self, field: str, code: str, off: tuple) -> str:
+        """``code`` as a zero-boundary op's value at ``off`` from the loop's
+        point: 0 outside the global domain, checked on the axes along
+        which the loop's plane reaches past its tile."""
+        if not self.call.masked[field]:
+            return code
+        axes = [a for a in range(3) if any(self.loop.margins[a])]
+        if not axes:
+            return code
+        cond = " && ".join(f"(unsigned)(G{a} + ({off[a]})) < "
+                           f"{self.extent3[a]}u" for a in axes)
+        return f"(({cond}) ? {code} : 0.0f)"
 
     def temp(self, field: str, off: tuple):
-        """The value of the group's op producing ``field`` at ``off``."""
+        """The value of the group's op producing ``field`` at ``off``,
+        inlined: its result rounded (bfloat16) and masked."""
         key = ("tmp", field, off)
         hit = self.vn.get(key)
         if hit is not None:
@@ -545,20 +658,16 @@ class _Emitter:
         code = self._f(r)
         if self.bf16:
             code = f"rnd_bf16({code})"
-        if self.call.masked[field] and any(off):
-            cond = " && ".join(
-                f"G{a} + ({o}) >= 0 && G{a} + ({o}) < {self.extent3[a]}"
-                for a, o in enumerate(off) if o)
-            code = f"(({cond}) ? {code} : 0.0f)"
+        code = self._masked(field, code, off)
         if code == r[0] and r[1] == "f":
             self.vn[key] = r
             return r
         return self._var(key, code, "f")
 
-    def run(self):
-        outs = [(k, self.temp(f, (0, 0, 0)))
-                for k, f in enumerate(self.call.group_outputs)]
-        return outs, self.flops
+    def root(self, out: str, j: int = 0) -> str:
+        """C expression of root ``out`` at the loop's point ``j`` columns
+        along axis 2 from ``b``."""
+        return self._f(self.temp(out, (0, 0, j)))
 
 
 def kernel_params(call: GroupCall) -> list:
@@ -568,7 +677,7 @@ def kernel_params(call: GroupCall) -> list:
     params = []
     for k in range(len(call.group_inputs)):
         params += [f"const {T}* __restrict__ in{k}", f"long long in{k}_s0",
-                   f"long long in{k}_s1"]
+                   f"long long in{k}_s1", f"int in{k}_q"]
     params += [f"const {T}* __restrict__ cf{k}"
                for k in range(len(call.group_coeffs))]
     params += [f"{T}* __restrict__ out{k}"
@@ -584,85 +693,162 @@ def _emit(call: GroupCall, name: str) -> str:
             f"the CUDA group kernel takes float32 or bfloat16, not "
             f"{call.dtype_name}")
     T = _CTYPE[call.dtype_name]
-    em = _Emitter(call)
-    outs, _ = em.run()
-    B, W, H = call.block3, call.window3, call.halo3
+    cta = call.cta
+    CH, TA, TB = cta.tile
     N = (1,) * call._lift + call.grid_shape
     tiles = (1,) * call._lift + call.tiles
-    tx, ty = call.threads
-    n_in = len(call.group_inputs)
-    win = int(np.prod(W))
+    H = (0,) * call._lift + call.halo_lo
+    tx, ty = cta.threads
+    nt = tx * ty
+    W = cta.warmup
+    outputs = {f: k for k, f in enumerate(call.group_outputs)}
+    rings = {out: j for j, out in enumerate(cta.rings)}
 
     params = kernel_params(call)
     args = [q.split()[-1] for q in params]
-
-    fields = ", ".join(call.group_inputs)
-    body = [f"// fuse group {call.group} of {call.program.name}: "
-            f"inputs [{fields}], outputs [{', '.join(call.group_outputs)}]",
-            f"// tile {B}, window {W}, {call.smem_bytes} B shared memory",
-            f"__global__ void __launch_bounds__({tx * ty})",
-            f"{name}_kernel({', '.join(params)}) {{"]
-    body.append("  extern __shared__ __align__(16) unsigned char smem_raw[];")
-    for k in range(n_in):
-        body.append(f"  {T}* win{k} = reinterpret_cast<{T}*>(smem_raw)"
-                    f" + {k * win};")
-    body += [
+    L = [f"// fuse group {call.group} of {call.program.name}: inputs "
+         f"[{', '.join(call.group_inputs)}], outputs "
+         f"[{', '.join(call.group_outputs)}]",
+         f"// CTA: chunk {CH} planes (+{W} warm-up) of a ({TA},{TB}) tile, "
+         f"{nt} threads, {len(cta.levels)} levels, {cta.smem_bytes} B "
+         "shared memory",
+         f"__global__ void __launch_bounds__({nt}, {cta.ctas_per_sm})",
+         f"{name}_kernel({', '.join(params)}) {{",
+         "  extern __shared__ __align__(16) unsigned char smem_raw[];"]
+    for k, r in enumerate(cta.inputs):
+        L.append(f"  {T}* win{k} = reinterpret_cast<{T}*>(smem_raw + "
+                 f"{r.offset});")
+    for out, j in rings.items():
+        L.append(f"  float* op{j} = reinterpret_cast<float*>(smem_raw + "
+                 f"{cta.rings[out].offset});  // {out}")
+    L += [
         "  const int bid = blockIdx.x;",
-        f"  const int t2 = (bid % {tiles[2]}) * {B[2]};",
-        f"  const int t1 = ((bid / {tiles[2]}) % {tiles[1]}) * {B[1]};",
-        f"  const int t0 = (bid / {tiles[2] * tiles[1]}) * {B[0]};",
-        "  // stage every input's window (tile + halo), coalesced on axis 2",
-        f"  for (int row = threadIdx.y; row < {W[0] * W[1]}; row += {ty}) {{",
-        f"    const int w0 = row / {W[1]}, w1 = row % {W[1]};",
-        f"    for (int w2 = threadIdx.x; w2 < {W[2]}; w2 += {tx}) {{",
-        f"      const int l = row * {W[2]} + w2;",
+        f"  const int t2 = (bid % {tiles[2]}) * {TB};",
+        f"  const int t1 = ((bid / {tiles[2]}) % {tiles[1]}) * {TA};",
+        f"  const int c0 = (bid / {tiles[2] * tiles[1]}) * {CH};",
+        f"  const int c1 = min({N[0]}, c0 + {CH});",
+        f"  const int vA = min({TA}, {N[1]} - t1), "
+        f"vB = min({TB}, {N[2]} - t2);",
+        "  const int tid = threadIdx.y * blockDim.x + threadIdx.x;",
+        "  (void)vA; (void)vB;",
     ]
-    for k in range(n_in):
-        body.append(f"      win{k}[l] = in{k}[(long long)(t0 + w0) * in{k}_s0"
-                    f" + (long long)(t1 + w1) * in{k}_s1 + (t2 + w2)];")
-    body += [
-        "    }",
-        "  }",
-        "  __syncthreads();",
-        f"  for (int i0 = 0; i0 < {B[0]}; ++i0) {{",
-        "    const int g0 = t0 + i0;",
-        f"    if (g0 >= {N[0]}) break;",
-        f"    for (int i1 = threadIdx.y; i1 < {B[1]}; i1 += {ty}) {{",
-        "      const int g1 = t1 + i1;",
-        f"      if (g1 >= {N[1]}) break;",
-        f"      for (int i2 = threadIdx.x; i2 < {B[2]}; i2 += {tx}) {{",
-        "      const int g2 = t2 + i2;",
-        f"      if (g2 >= {N[2]}) break;",
-        f"      const int l = ((i0 + {H[0]}) * {W[1]} + (i1 + {H[1]})) * {W[2]}"
-        f" + (i2 + {H[2]});",
-        "      const int G0 = org0 + g0, G1 = org1 + g1, G2 = org2 + g2;",
-        "      (void)l; (void)G0; (void)G1; (void)G2;",
-    ]
-    body += em.lines
-    body.append(f"      const long long o = ((long long)g0 * {N[1]} + g1)"
-                f" * {N[2]} + g2;")
-    for k, (code, ty_) in outs:
-        body.append(f"      st(&out{k}[o], {em._f((code, ty_))});")
-    body += ["      }", "    }", "  }", "}", ""]
-
-    n_tiles = int(np.prod(tiles))
-    body += [
+    # each input's plane fetch into its ring slot
+    for k, r in enumerate(cta.inputs):
+        x1 = r.shift + r.lo[2] + TB + r.hi[2]
+        stage = (f"(dst, src, in{k}_s1, {r.rows}, {r.pitch}, {r.shift}, "
+                 f"{x1}, t, {nt})")
+        modes = [(COPY_BYTES, COPY_BYTES // call.itemsize),
+                 (4, 4 // call.itemsize)]
+        if call.itemsize < 4:
+            modes.append((call.itemsize, 1))
+        L += [f"  auto fetch{k} = [&](int qq, int t) {{  // {r.field}",
+              f"    if (qq < c0 - ({r.lo[0]}) || qq > c1 - 1 + {r.hi[0]}) "
+              "return;",
+              f"    {T}* dst = win{k} + pmod(qq, {r.slots}) * {r.plane};",
+              f"    const {T}* src = in{k} + (long long)(qq + {H[0]}) * "
+              f"in{k}_s0 + (long long)(t1 + {H[1] - r.lo[1]}) * in{k}_s1 "
+              f"+ (t2 + {H[2] - r.lo[2] - r.shift});"]
+        for i, (q, e) in enumerate(modes):
+            if i == len(modes) - 1:
+                L.append(f"    else stage_rows<{e}>{stage};")
+            else:
+                L.append(f"    {'else ' if i else ''}if (in{k}_q == {q}) "
+                         f"stage_rows<{e}>{stage};")
+        L.append("  };")
+    L.append(f"  const int z0 = c0 - {W};")
+    for k, r in enumerate(cta.inputs):
+        L.append(f"  for (int qq = z0 + ({r.low}); qq <= z0 + {r.hi[0]}; "
+                 f"++qq) fetch{k}(qq, tid);")
+    L += ["  cp_async_commit();",
+          "  for (int z = z0; z < c1; ++z) {",
+          "    cp_async_wait_all();",
+          "    __syncthreads();",
+          "    const int tz = opaque(tid);"]
+    L += [f"    fetch{k}(z + {r.hi[0] + 1}, tz);"
+          for k, r in enumerate(cta.inputs)]
+    L.append("    cp_async_commit();")
+    for lv, loops in enumerate(cta.levels):
+        if lv:
+            L.append("    __syncthreads();")
+        for loop in loops:
+            L += ["    " + x for x in _loop(call, loop, rings, outputs, N,
+                                             nt, W)]
+    L += ["  }", "}", ""]
+    smem = cta.smem_bytes
+    L += [
         f'extern "C" int {name}_launch({", ".join(params)}, void* stream) {{',
         "  static bool ready = false;",
-        f"  if (!ready && {call.smem_bytes} > 48 * 1024) {{",
+        f"  if (!ready && {smem} > 48 * 1024) {{",
         f"    cudaError_t e = cudaFuncSetAttribute({name}_kernel,",
         "        cudaFuncAttributeMaxDynamicSharedMemorySize,"
-        f" {call.smem_bytes});",
+        f" {smem});",
         "    if (e != cudaSuccess) return (int)e;",
         "  }",
         "  ready = true;",
-        f"  {name}_kernel<<<{n_tiles}, dim3({tx}, {ty}), {call.smem_bytes},"
+        f"  {name}_kernel<<<{int(np.prod(tiles))}, dim3({tx}, {ty}), {smem},"
         f" (cudaStream_t)stream>>>({', '.join(args)});",
         "  return (int)cudaGetLastError();",
         "}",
         "",
     ]
-    return "\n".join(body)
+    return "\n".join(L)
+
+
+def _loop(call: GroupCall, loop, rings: dict, outputs: dict, N, nt: int,
+          warmup: int) -> list:
+    """One loop of the CTA's threads over the plane of ``loop``'s roots,
+    :data:`POINTS` neighbouring points of a row a thread: each root's
+    value at each point, written into its ring and, for a group output,
+    into the output where the point is the chunk's."""
+    cta = call.cta
+    (_, _), (la, ha), (lb, hb) = loop.margins
+    ta, tb = cta.tile[1:]
+    ea, eb = ta + la + ha, tb + lb + hb
+    nq = -(-eb // POINTS)
+
+    def points() -> list:
+        em = _Emitter(call, loop)
+        blocks = []
+        for j in range(POINTS):
+            start = len(em.lines)
+            stores = []
+            for n, out in enumerate(loop.roots):
+                r = f"r{n}_{j}"
+                stores.append(f"const float {r} = {em.root(out, j)};")
+                if out in rings:
+                    ring = cta.rings[out]
+                    slot = (f"pmod(q, {ring.slots}) * {ring.plane} + "
+                            if ring.slots > 1 else "")
+                    stores.append(f"op{rings[out]}[{slot}l + {j}] = {r};")
+                if out in outputs:
+                    stores += [
+                        f"if (q >= c0 && q < c1 && a >= 0 && a < vA && "
+                        f"b + {j} >= 0 && b + {j} < vB)",
+                        f"  st(&out{outputs[out]}[((long long)q * {N[1]} + "
+                        f"t1 + a) * {N[2]} + t2 + b + {j}], {r});"]
+            blocks.append([x.strip() for x in em.lines[start:]] + stores)
+        # point j exists where the row has j more columns; the points
+        # before it exist then too, so their values are in scope
+        lines = []
+        for j in reversed(range(POINTS)):
+            lines = blocks[j] + ([f"if (b + {j + 1} < {eb - lb}) {{"]
+                                 + ["  " + x for x in lines] + ["}"]
+                                 if lines else [])
+        return ["#pragma unroll 1",
+                f"for (int i = tz; i < {ea * nq}; i += {nt}) {{",
+                f"  const int a = i / {nq} - {la}, "
+                f"b = (i % {nq}) * {POINTS} - {lb};",
+                f"  const int l = (a + {la}) * {eb} + b + {lb};",
+                "  const int G1 = org1 + t1 + a, G2 = org2 + t2 + b;",
+                "  (void)l; (void)G1; (void)G2;"] + ["  " + x for x in lines] \
+            + ["}"]
+
+    body = [f"const int q = opaque(z + {loop.lead});",
+            "const int G0 = org0 + q;",
+            "(void)G0;"] + points()
+    head = (f"if (z >= c0 - {loop.span}) {{" if loop.span < warmup else "{")
+    return ([f"{head}  // {', '.join(loop.roots)}"]
+            + ["  " + x for x in body] + ["}"])
 
 
 # --------------------------------------------------------------------------
@@ -675,7 +861,9 @@ class KernelModule:
 
     def __init__(self, calls: Sequence[GroupCall]):
         self.calls = list(calls)
-        self.source = PREAMBLE + "\n".join(
+        helpers = (BLOCK_HELPERS if any(isinstance(c, GroupCall)
+                                        for c in self.calls) else "")
+        self.source = PREAMBLE + helpers + "\n".join(
             c.source(f"g{i}") for i, c in enumerate(self.calls))
         self._lib = None
         self._fns: dict = {}

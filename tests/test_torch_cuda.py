@@ -43,21 +43,28 @@ def _inputs(p, grid, seed=1):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("app,boundary,dtype,tol", [
-    (pw_advection, "zero", "float32", 1e-5),
-    (pw_advection, "periodic", "float32", 1e-5),
-    (pw_advection, "zero", "bfloat16", 2e-2),
-    (tracer_advection, "zero", "float32", 1e-5),
-    (tracer_advection, "periodic", "float32", 1e-5),
+@pytest.mark.parametrize("app,boundary,dtype,tol,grid", [
+    (pw_advection, "zero", "float32", 1e-5, (20, 18, 100)),
+    (pw_advection, "periodic", "float32", 1e-5, (20, 18, 100)),
+    (pw_advection, "zero", "bfloat16", 2e-2, (20, 18, 100)),
+    (tracer_advection, "zero", "float32", 1e-5, (20, 18, 100)),
+    (tracer_advection, "periodic", "float32", 1e-5, (20, 18, 100)),
+    # axis 0 in four chunks (33, 33, 33, 31), ragged tiles on axes 1 and 2
+    (tracer_advection, "zero", "float32", 1e-5, (130, 70, 100)),
+    (tracer_advection, "periodic", "float32", 1e-5, (130, 70, 100)),
 ])
-def test_kernel_matches_plain_version_on_the_card(app, boundary, dtype, tol):
+def test_kernel_matches_plain_version_on_the_card(app, boundary, dtype, tol,
+                                                  grid):
     """(h) The generated kernel against its plain version on the card, on
-    a grid that is not a tile multiple; tolerances are relative to each
+    grids that are not tile multiples; tolerances are relative to each
     field's max abs (bfloat16: a few ulps)."""
     _needs_card()
     p = app(boundary)
-    grid = (20, 18, 100)
     ex = compile_program(p, grid, dtype=dtype)
+    call = ex.kernels[0]
+    if grid[0] > 100:
+        assert call.tiles[0] > 1 and grid[0] % call.block[0] \
+            and grid[1] % call.block[1] and grid[2] % call.block[2]
     f, s, c = _inputs(p, grid)
     before = stencil3d.launches
     got = ex(f, s, c)

@@ -49,7 +49,7 @@ thread_local unsigned char* emu_smem;
 #define __global__
 #define __device__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __restrict__ __restrict
 #define __align__(x)
 inline void __syncthreads() { emu_bar->arrive_and_wait(); }
@@ -64,12 +64,35 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {
 """
 
 
+# host versions of the block kernel's PTX helpers: a copy lands at once
+HOST_COPIES = r"""
+inline void cp_async_16(void* dst, const void* src) { std::memcpy(dst, src, 16); }
+inline void cp_async_4(void* dst, const void* src) { std::memcpy(dst, src, 4); }
+inline void cp_async_commit() {}
+inline void cp_async_wait_all() {}
+inline int opaque(int x) { return x; }
+"""
+HELPERS_BEGIN, HELPERS_END = "// ---- PTX helpers", "// ---- end of PTX helpers"
+
+
+def _block_helpers():
+    """``stencil3d.BLOCK_HELPERS`` with its PTX helpers block swapped for
+    :data:`HOST_COPIES`."""
+    head, rest = stencil3d.BLOCK_HELPERS.split(HELPERS_BEGIN)
+    return head + HOST_COPIES + rest.split(HELPERS_END)[1]
+
+
 def _emulated(call):
-    """ctypes entry running ``call``'s generated kernel on host threads."""
+    """ctypes entry running ``call``'s generated kernel on host threads.
+    Shared memory starts as 0xff bytes (NaN), so a read of a plane that
+    was never fetched or written shows in the result."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler to run the generated kernel")
-    src = stencil3d.PREAMBLE + call.source("g0")
+    src = stencil3d.PREAMBLE
+    if isinstance(call, stencil3d.GroupCall):
+        src += _block_helpers()
+    src += call.source("g0")
     src = src.split('extern "C"')[0]
     src = src.replace("extern __shared__ __align__(16) unsigned char "
                       "smem_raw[];", "unsigned char* smem_raw = emu_smem;")
@@ -79,7 +102,7 @@ def _emulated(call):
 extern "C" int emu_launch({', '.join(params)}, int nblocks, int tx, int ty,
                           int smem) {{
   for (int b = 0; b < nblocks; ++b) {{
-    std::vector<unsigned char> sm(smem);
+    std::vector<unsigned char> sm(smem, 0xff);
     std::barrier<> bar(tx * ty);
     std::vector<std::thread> ts;
     for (int y = 0; y < ty; ++y)
@@ -165,6 +188,7 @@ CASES = [
     (pw_advection, "zero", torch.bfloat16, (2, 4, 32), 0.0),
     (tracer_advection, "zero", torch.float32, (1, 4, 32), 1e-5),
     (tracer_advection, "periodic", torch.float32, (1, 4, 32), 1e-5),
+    (tracer_advection, "zero", torch.bfloat16, (2, 4, 32), 2e-2),
 ]
 
 
@@ -255,6 +279,99 @@ def test_generated_kernel_lifts_1d_and_2d_programs(grid, block):
     want = stencil3d.group_call_reference(call, padded, [], {})
     got = run_emulated(call, padded, [], {})
     torch.testing.assert_close(got["o"], want["o"], atol=1e-6, rtol=1e-6)
+
+
+# (app, boundary, dtype, grid, block, global extent, origin, carry padding
+# added to each side of every input, tolerance): axis 0 cut into chunks of 4
+# planes with a ragged last one (11 = 4 + 4 + 3) and ragged tiles on axes 1
+# and 2; a shard whose chunks' warm-up planes cross the global domain's low
+# edge (origin 2) and whose last chunk ends at its high edge; a shard
+# inside the domain, whose margins on most planes and tiles do not leave
+# it; windows inside
+# oversized carries (extra padding per axis and side), which take the
+# 4-byte copies (float32 rows of 75 elements, bfloat16 of 70) and the
+# element-wise ones (bfloat16 rows of 75)
+SWEEP_CASES = [
+    (tracer_advection, "zero", torch.float32, None, None, None, 1e-5),
+    (tracer_advection, "periodic", torch.float32, None, None, None, 1e-5),
+    (tracer_advection, "zero", torch.float32, (13, 6, 72), (2, 0, 32), None,
+     1e-5),
+    (tracer_advection, "zero", torch.float32, (24, 24, 80), (4, 8, 16), None,
+     1e-5),
+    (tracer_advection, "zero", torch.float32, None, None,
+     ((1, 2), (2, 1), (1, 2)), 1e-5),
+    (tracer_advection, "zero", torch.bfloat16, None, None,
+     ((1, 2), (2, 1), (1, 2)), 2e-2),
+    (pw_advection, "zero", torch.bfloat16, None, None,
+     ((2, 1), (1, 1), (2, 2)), 0.0),
+    (pw_advection, "periodic", torch.float32, None, None, None, 0.0),
+]
+
+
+@pytest.mark.parametrize("app,boundary,dtype,extent,origin,extra,tol",
+                         SWEEP_CASES)
+def test_generated_kernel_sweeps_chunks_of_axis_0(app, boundary, dtype,
+                                                  extent, origin, extra, tol):
+    """Kernel vs plain version with the stream axis cut into chunks, each
+    CTA warming up below its chunk: rings across chunk starts, the
+    zero-boundary mask on warm-up planes against the global domain, and
+    the copies of carry windows.  Tolerances as in
+    :func:`test_generated_kernel_matches_plain_version` (bfloat16 2e-2)."""
+    p = app(boundary)
+    grid = (11, 6, 40)
+    call = stencil3d.build_group_call(p, auto_plan(p, grid).groups[0],
+                                      (4, 4, 32), grid, dtype=dtype,
+                                      global_extent=extent)
+    assert call.tiles == (3, 2, 2)
+    f, svec, c = _inputs(p, grid, dtype, seed=11)
+    padded, pc = _pad_all(p, call, f, c)
+    ipad = None
+    got_in = padded
+    if extra is not None:
+        ipad = {k: np.stack([np.array(call.halo_lo), np.array(call.pad_hi)],
+                            1) + np.array(extra) for k in call.group_inputs}
+        got_in = {k: bc.pad_field(f[k], ipad[k][:, 0], ipad[k][:, 1],
+                                  "zero").contiguous()
+                  for k in call.group_inputs}
+        # the windows sit inside the carries; their halos match the plain
+        # version's padded inputs (zero boundary), so both see equal data
+        for k in call.group_inputs:
+            win = got_in[k][tuple(slice(int(ipad[k][a, 0]) - call.halo_lo[a],
+                                        int(ipad[k][a, 0]) - call.halo_lo[a]
+                                        + call.expect[a]) for a in range(3))]
+            assert torch.equal(win, padded[k])
+    want = stencil3d.group_call_reference(call, padded, svec, pc,
+                                          origin=origin)
+    got = run_emulated(call, got_in, svec, pc, origin=origin,
+                       input_pad=ipad)
+    for k in want:
+        w, g = want[k].float(), got[k].float()
+        assert torch.isfinite(g).all(), k
+        assert float((g - w).abs().max()) <= tol * float(w.abs().max()), k
+
+
+def test_copy_sizes_follow_the_layout():
+    """16-byte copies where the window's base and strides allow, 4-byte
+    ones where they allow those, element by element else (bfloat16)."""
+    p = pw_advection()
+    grid = (4, 6, 40)
+    for dtype, width, want in [(torch.float32, 68, 16),
+                               (torch.float32, 69, 4),
+                               (torch.bfloat16, 72, 16),
+                               (torch.bfloat16, 70, 4),
+                               (torch.bfloat16, 69, 2)]:
+        call = stencil3d.build_group_call(p, [0, 1, 2], (4, 4, 32), grid,
+                                          dtype=dtype)
+        f, svec, c = _inputs(p, grid, dtype)
+        padded, pc = _pad_all(p, call, f, c)
+        # rows of ``width`` elements (the window's are 66)
+        x = {k: torch.nn.functional.pad(v, (0, width - v.shape[-1]))
+             for k, v in padded.items()}
+        outs = {o: torch.empty(grid, dtype=dtype) for o in call.group_outputs}
+        args = call.kernel_args(x, svec, pc, None, None, outs)
+        assert args[3] == want, (dtype, width)
+    # and each is taken by the sweep cases' carries: rows of 75 float32
+    # elements (4 bytes), 70 and 75 bfloat16 ones (4 bytes, element-wise)
 
 
 # --------------------------------------------------------------------------

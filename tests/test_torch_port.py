@@ -21,7 +21,7 @@ from repro.core.schedule import program_fingerprint as ref_fingerprint
 from repro_torch import compile_program, hw
 from repro_torch.apps import pw_advection, tracer_advection
 from repro_torch.core import ir
-from repro_torch.core.schedule import (DataflowPlan, auto_plan,
+from repro_torch.core.schedule import (BLOCK_REGS, DataflowPlan, auto_plan,
                                        plan_from_dict, plan_to_dict,
                                        program_fingerprint, resident_threads,
                                        smem_cost)
@@ -96,33 +96,42 @@ def test_auto_plan_keeps_reference_groups_and_fits_shared_memory(apps, grid):
 
 
 def test_resident_threads_follow_the_h100_limits():
-    """Occupancy as shared memory (1 KB kept per CTA) and the 2048-thread
-    limit allow, and the planner keeps the SM full where the windows
-    let it."""
+    """Occupancy as shared memory (1 KB kept per CTA), the 2048-thread
+    limit and, given the registers a thread holds, the register file
+    allow; the planner keeps the SM as full as the registers it plans the
+    block kernel with (64 a thread: 1024 threads) let it."""
     assert resident_threads((8, 8, 64), 79_200) == 2 * 512      # smem
     assert resident_threads((4, 16, 32), 44_064) == 4 * 512     # threads
     assert resident_threads((1, 4, 64), 186_624) == 256         # one CTA
+    assert resident_threads((4, 16, 32), 44_064, 64) == 2 * 512  # registers
+    assert resident_threads((4, 8, 32), 44_064, 128) == 2 * 256
     for grid in [(256, 256, 128), (512, 256, 256)]:
         p = pw_advection()
         plan = auto_plan(p, grid)
-        assert resident_threads(plan.block, smem_cost(p, plan, grid)) \
-            == hw.H100.threads_per_sm
+        assert resident_threads(plan.block, smem_cost(p, plan, grid),
+                                BLOCK_REGS) \
+            == hw.H100.registers_per_sm // BLOCK_REGS
         p = tracer_advection()
         plan = auto_plan(p, grid)
-        assert resident_threads(plan.block, smem_cost(p, plan, grid)) \
-            >= 512
+        assert resident_threads(plan.block, smem_cost(p, plan, grid),
+                                BLOCK_REGS) >= 512
 
 
 def test_smem_cost_counts_dtype_bytes():
-    """The window byte count is right for every dtype (float64 is 8 B)."""
+    """The CTA's byte count is right for every dtype (float64 is 8 B).
+    pw_advection reads no op at an offset, so its CTA holds one ring per
+    input (3): 4 planes (axis-0 reads at -1..+1 and the plane in flight)
+    of 10 rows (the tile's 8 and a halo row each side) by 66 columns (64
+    and a halo column each side) padded to a multiple of 16 bytes."""
     p = pw_advection()
     grid = (64, 64, 128)
     costs = {dt: smem_cost(p, DataflowPlan(groups=[[0, 1, 2]],
                                            block=(8, 8, 64), dtype=dt), grid)
              for dt in ("bfloat16", "float32", "float64")}
-    win = 10 * 10 * 66 * 3
-    assert costs == {"bfloat16": 2 * win, "float32": 4 * win,
-                     "float64": 8 * win}
+    want = {dt: 3 * 4 * 10 * (-(-66 * isz // 16) * 16)
+            for dt, isz in (("bfloat16", 2), ("float32", 4), ("float64", 8))}
+    assert costs == want == {"bfloat16": 17_280, "float32": 32_640,
+                             "float64": 63_360}
 
 
 def test_plan_dict_round_trip():

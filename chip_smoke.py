@@ -48,7 +48,12 @@ LM serving (the hand-written CUDA sliding-window attention kernels:
 
 Each block path's kernel row also keeps its CTA (chunk, tile, threads,
 shared memory, CTAs an SM, levels), what ptxas reported for it (registers,
-spill bytes) and its generated operations and staged bytes a grid point.
+spill bytes), its generated operations and staged bytes a grid point, and
+the SHA-256 of its generated source.  Each stream path's row keeps, for
+every region's sweep kernel, its CTA (tile, threads, chunk, warm-up, CTAs,
+shared memory, CTAs an SM planned), the planes it keeps in flight, the
+barriers it passes a plane, its staged bytes a grid point and what ptxas
+reported for it; a spill in any sweep kernel fails the run.
 
 Every stencil path is compared with the same compile on
 ``backend="torch_fused"`` on the card, and each stream path with the block
@@ -61,9 +66,11 @@ CPU oracle.  Every tolerance is relative to each output's own max abs:
 bfloat16 ulps) for bfloat16.  Every launch count is zeroed just before each
 path and read just after.  Kernel and end-to-end times come from CUDA
 events (warm-up, then the median of 5; the LM prefill and decode the
-median of 3); a stream path's kernel, plain-version and bound times are
-per time step (a chained sweep's divided by its depth), and its plain
-version is timed in the one run that checks it.  One prefill and one
+median of 3); a stencil kernel's time is that of 20 launches made
+while the card sleeps, so that they run back to back and the host's time
+to launch them does not count; a stream path's kernel, plain-version and
+bound times are per time step (a chained sweep's divided by its depth),
+and its plain version is timed in the one run that checks it.  One prefill and one
 decode step also run under ``torch.profiler`` for their device time, idle
 share and kernel launches.
 
@@ -81,6 +88,7 @@ failure exits non-zero without a result line.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import re
 import statistics
@@ -137,8 +145,17 @@ def make_inputs(p, grid, seed):
     return fields, scalars, coeffs
 
 
-def time_ms(fn, inner=1, reps=5, warmup=2):
-    """Median over ``reps`` of CUDA-event time per call of ``fn``."""
+#: clock cycles the card sleeps while a timing's calls are queued: about
+#: 10 ms at the H100's 1.98 GHz, longer than 20 launches take from Python
+QUEUE_SLEEP_CYCLES = 20_000_000
+
+
+def time_ms(fn, inner=1, reps=5, warmup=2, queued=False):
+    """Median over ``reps`` of CUDA-event time per call of ``fn``.
+    ``queued``: the ``inner`` calls are queued while the card sleeps
+    before the first event, so they run back to back and the time is the
+    card's alone, not the host's time to launch them (a kernel of 0.1 ms
+    takes about as long to launch from Python)."""
     import torch
 
     for _ in range(warmup):
@@ -146,6 +163,8 @@ def time_ms(fn, inner=1, reps=5, warmup=2):
     torch.cuda.synchronize()
     ts = []
     for _ in range(reps):
+        if queued:
+            torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -187,6 +206,28 @@ def ptxas_stats(report: str) -> dict:
     return {"registers": int(regs[-1]) if regs else None,
             "spill_stores": int(spills[-1][0]) if spills else None,
             "spill_loads": int(spills[-1][1]) if spills else None}
+
+
+def ptxas_by_entry(report: str) -> dict:
+    """Registers and spill bytes of each kernel of a ``-Xptxas -v`` log
+    with several, by entry (``g0``, ``g1``, ...): the most that any
+    function compiled for the entry reports."""
+    out = {}
+    for chunk in report.split("Compiling entry function '")[1:]:
+        m = re.match(r"_Z\d+(g\d+)_kernel", chunk)
+        if m:
+            st = ptxas_stats(chunk)
+            spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes "
+                                r"spill loads", chunk)
+            st["spill_stores"] = max([int(a) for a, _ in spills] + [0])
+            st["spill_loads"] = max([int(b) for _, b in spills] + [0])
+            out[m.group(1)] = st
+    return out
+
+
+def source_digest(source: str) -> str:
+    """Short SHA-256 of a generated translation unit."""
+    return hashlib.sha256(source.encode()).hexdigest()[:16]
 
 
 def rel_err(got, want):
@@ -539,7 +580,7 @@ def block_row(ph, torch, stencil3d) -> dict:
         raise SystemExit(f"{ph['name']}: kernel disagrees with its "
                          "plain version")
     del got, want
-    ms = time_ms(kernel, inner=10)
+    ms = time_ms(kernel, inner=20, queued=True)
     plain_ms = time_ms(plain, inner=1)
     pts = int(grid[0] * grid[1] * grid[2])
     # each input's grid points read once, each output written once (the
@@ -552,6 +593,8 @@ def block_row(ph, torch, stencil3d) -> dict:
     bound_ms, bound_by = bound(in_bytes, out_bytes, flops)
     cta = call.cta
     ptxas = ptxas_stats(build.ptxas_report(call.module.source))
+    digest = source_digest(call.module.source)
+    log(f"{ph['name']}: generated source sha256 {digest}")
     log(f"{ph['name']}: CTA chunk {cta.tile[0]} tile {cta.tile[1:]}, "
         f"{call.threads[0] * call.threads[1]} threads, {call.smem_bytes} B "
         f"shared memory, {cta.ctas_per_sm} CTAs an SM planned; ptxas "
@@ -582,6 +625,7 @@ def block_row(ph, torch, stencil3d) -> dict:
         "gen_flops_per_point": call.flops_per_point(),
         "staged_bytes_per_point": call.staged_bytes_per_point(),
         "min_bytes": in_bytes + out_bytes,
+        "source_sha256": digest,
     }
 
 
@@ -591,6 +635,7 @@ def stream_row(ph, torch, stream3d) -> dict:
     times per step: each call's time times its launches in the path, over
     the path's steps."""
     from repro_torch.core.ir import count_flops
+    from repro_torch.kernels import build
 
     p, ex, grid = ph["p"], ph["ex"], ph["grid"]
     captured = {}
@@ -636,7 +681,7 @@ def stream_row(ph, torch, stream3d) -> dict:
                     for k in want)
         c_rel = max(rel_err(got[k], want[k]) for k in want)
         del got, want
-        c_ms = time_ms(kernel, inner=10)
+        c_ms = time_ms(kernel, inner=20, queued=True)
         # each region input's grid points read once and each stored field
         # written once a sweep; operations: every op and update a stage
         c_in = (len(call.group_inputs) * pts * call.itemsize
@@ -653,18 +698,37 @@ def stream_row(ph, torch, stream3d) -> dict:
         out_bytes += c_out * n / steps
         flops += c_flops * n / steps
         cta = call.cta
+        ptxas = ptxas_by_entry(build.ptxas_report(call.module.source)).get(
+            call.entry, ptxas_stats(""))
         calls.append({"region": list(call.region.ops), "time_tile": call.T,
                       "plane_tile": call.P, "launches_per_run": n,
                       "ms": c_ms, "plain_ms": c_plain, "max_abs_err": c_err,
                       "max_rel_err": c_rel, "tile": list(cta.tile),
                       "threads": list(cta.threads), "chunk": cta.chunk,
                       "n_chunks": cta.n_chunks, "warmup": cta.warmup,
-                      "ctas": cta.ctas, "smem_bytes": call.smem_bytes})
+                      "ctas": cta.ctas, "smem_bytes": call.smem_bytes,
+                      "ctas_per_sm": cta.ctas_per_sm,
+                      "planes_in_flight": call.P,
+                      "barriers_per_plane": call.barriers_per_plane(),
+                      "staged_bytes_per_point":
+                          call.staged_bytes_per_point(),
+                      **ptxas})
         log(f"{ph['name']} region {list(call.region.ops)} T={call.T} "
             f"P={call.P}: kernel {c_ms:.4f} ms x{n}, plain {c_plain:.1f} ms,"
             f" max abs err {c_err:.3e}, max rel err {c_rel:.3e}; tile "
             f"{cta.tile}, chunk {cta.chunk} (+{cta.warmup}), {cta.ctas} "
-            f"CTAs, {call.smem_bytes} B")
+            f"CTAs, {call.smem_bytes} B, {cta.ctas_per_sm} CTAs an SM "
+            f"planned, {call.P} planes in flight, "
+            f"{call.barriers_per_plane():g} barriers a plane, "
+            f"{call.staged_bytes_per_point():.1f} staged bytes a point; "
+            f"ptxas {ptxas['registers']} registers, spill stores "
+            f"{ptxas['spill_stores']} B, loads {ptxas['spill_loads']} B")
+        if ptxas["registers"] is None:
+            raise SystemExit(f"{ph['name']}: no ptxas report for "
+                             f"{call.entry}")
+        if ptxas["spill_stores"] or ptxas["spill_loads"]:
+            raise SystemExit(f"{ph['name']}: ptxas spills in sweep kernel "
+                             f"{call.entry}")
     if rel > ph["tol"]:
         raise SystemExit(f"{ph['name']}: a sweep kernel disagrees with its "
                          "plain version")

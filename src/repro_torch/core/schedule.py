@@ -686,16 +686,22 @@ def plan_group_halos(p: Program, plan: DataflowPlan) -> list:
 #: powers of two, the contiguous axis in one, two or four warps
 STREAM_OUTER_TILES = (1, 2, 4, 8, 16, 32)
 
+#: registers a sweep-kernel thread is planned with: the planner counts the
+#: CTAs an SM holds at this many, and the kernel's launch bounds ask ptxas
+#: for no more than those CTAs allow
+STREAM_REGS = 64
+
 
 @dataclasses.dataclass(frozen=True)
 class StreamBuffer:
     """One shared-memory buffer of a sweep-kernel CTA: ``slots`` planes of
     ``extent`` (per non-stream axis), rotated by plane index.
 
-    ``key`` is ``("win", field)`` for an input's window (storage dtype),
-    ``("field", stage, field)`` for a chain stage's ring of updated fields,
-    or ``("op", stage, out)`` for an op's result plane or temp ring (both
-    float32)."""
+    ``key`` is ``("win", field)`` for an input's window (storage dtype; its
+    rows padded to 16 bytes, so every row of a plane starts where a
+    16-byte copy may land), ``("field", stage, field)`` for a chain
+    stage's ring of updated fields, or ``("op", stage, out)`` for an op's
+    result plane or temp ring (both float32)."""
 
     key: tuple
     slots: int
@@ -713,7 +719,9 @@ class StreamCTA:
     """Geometry of one CTA of a region's sweep kernel: its tile of the
     non-stream axes, threads, shared-memory buffers, and the chunk of the
     stream axis it owns (``warmup`` planes before the chunk are computed
-    again so every window, ring and chain stage is exact at its start)."""
+    again so every window, ring and chain stage is exact at its start).
+    ``ctas_per_sm`` is what one SM holds at :data:`STREAM_REGS` registers a
+    thread (the kernel's launch bounds)."""
 
     tile: tuple
     threads: tuple
@@ -722,6 +730,7 @@ class StreamCTA:
     n_chunks: int
     warmup: int
     tiles: tuple
+    ctas_per_sm: int = 1
 
     @property
     def smem_bytes(self) -> int:
@@ -730,6 +739,25 @@ class StreamCTA:
     @property
     def ctas(self) -> int:
         return int(np.prod(self.tiles)) * self.n_chunks
+
+    def staged_bytes_per_point(self, grid: Sequence[int],
+                               front_depth: dict) -> float:
+        """Bytes the CTAs stage into shared memory per grid point: each
+        window's padded rows for every plane a chunk sweeps (warm-up and
+        the planes below its first one included); ragged tiles count in
+        full.  ``front_depth[f]`` is the planes each CTA fetches beyond
+        the ones it sweeps (the window depth less one, plus the chain's
+        lead)."""
+        grid = tuple(int(g) for g in grid)
+        n0 = grid[0]
+        swept = sum(min(self.chunk, n0 - c0) + min(self.warmup, c0)
+                    for c0 in range(0, n0, self.chunk))
+        staged = 0
+        for b in self.buffers:
+            if b.key[0] == "win":
+                planes = swept + self.n_chunks * front_depth[b.key[1]]
+                staged += int(np.prod(b.extent)) * b.itemsize * planes
+        return staged * int(np.prod(self.tiles)) / int(np.prod(grid))
 
 
 def stream_stage_add(region) -> np.ndarray:
@@ -740,15 +768,44 @@ def stream_stage_add(region) -> np.ndarray:
     return add
 
 
+def stream_levels(p: Program, region) -> dict:
+    """Level of each op of ``region`` in the sweep kernel: one above every
+    op whose value at the *same* plane it reads (ring reads of past
+    planes do not count); a barrier parts two levels."""
+    lvl: dict = {}
+    for i in region.ops:
+        op = p.ops[i]
+        lvl[op.out] = max([lvl[a.field] + 1 for a in op.accesses()
+                           if a.field in lvl and int(a.offset[0]) == 0]
+                          + [0])
+    return lvl
+
+
+def stream_update_fuses(p: Program, region) -> bool:
+    """Whether the sweep kernel applies the update rule in the loop of
+    the region's outputs, at the point each thread has just computed: the
+    outputs have no margin on the non-stream axes (so their loop covers
+    the update's extent, point for point) and sit in the last level."""
+    lvl = stream_levels(p, region)
+    outs = [(i, p.ops[i].out) for i in region.ops
+            if p.ops[i].out in set(region.halo.group_outputs)]
+    if not outs:
+        return False
+    last = max(lvl.values())
+    return all(lvl[o] == last and not np.asarray(
+        region.halo.margins[i])[1:].any() for i, o in outs)
+
+
 def stream_plane_ops(p: Program, region, updates: bool) -> list:
     """Ops of ``region`` whose results a CTA keeps in shared memory: those
     read by another op of the region (same plane or ring), and, when the
     kernel applies the update rule (``updates``: a chain, or its
-    remainder), the region's outputs, which the rule reads."""
+    remainder) in a loop of its own, the region's outputs, which the rule
+    reads (:func:`stream_update_fuses`)."""
     produced = {p.ops[i].out for i in region.ops}
     keep = {a.field for i in region.ops for a in p.ops[i].accesses()
             if a.field in produced}
-    if updates:
+    if updates and not stream_update_fuses(p, region):
         keep |= produced & set(region.halo.group_outputs)
     return [p.ops[i].out for i in region.ops if p.ops[i].out in keep]
 
@@ -757,12 +814,13 @@ def stream_buffers(p: Program, region, time_tile: int, plane_tile: int,
                    tile: Sequence[int], dtype: str,
                    updates: bool | None = None) -> list:
     """The shared-memory buffers of one CTA computing ``tile`` (one extent
-    per non-stream axis), in layout order: every input's window of
-    ``depth + plane_tile - 1`` planes widened by the chain's T-fold halo;
-    per chain stage after the first, a ring of ``depth`` updated planes of
-    each field; per stage, a plane (or a ring) of each op in
-    :func:`stream_plane_ops` at the stage's margin.  ``updates`` defaults
-    to ``time_tile > 1``."""
+    per non-stream axis), in layout order: every input's window ring of
+    ``depth + plane_tile - 1`` planes read by one step of the sweep plus
+    the ``plane_tile`` planes in flight, widened by the chain's
+    T-fold halo, its rows padded to 16 bytes; per chain stage after the
+    first, a ring of ``depth`` updated planes of each field; per stage, a
+    plane (or a ring) of each op in :func:`stream_plane_ops` at the
+    stage's margin.  ``updates`` defaults to ``time_tile > 1``."""
     T, P = max(1, int(time_tile)), max(1, int(plane_tile))
     if updates is None:
         updates = T > 1
@@ -771,9 +829,13 @@ def stream_buffers(p: Program, region, time_tile: int, plane_tile: int,
     add = stream_stage_add(region)
     span = add[1:, 0] + add[1:, 1]
     tile = np.asarray(tile, dtype=np.int64)
-    bufs = [StreamBuffer(("win", f), int(region.depths[f]) + P - 1,
-                         tuple(int(x) for x in tile + T * span),
-                         hw.DTYPE_BYTES[dtype])
+    isz = hw.DTYPE_BYTES[dtype]
+    vec = max(1, COPY_BYTES // isz)
+    win = [int(x) for x in tile + T * span]
+    win[-1] = -(-win[-1] // vec) * vec
+    bufs = [StreamBuffer(("win", f),
+                         int(region.depths[f]) + 2 * P - 1,
+                         tuple(win), isz)
             for f in gh.group_inputs]
     for s in range(1, T):
         bufs += [StreamBuffer(("field", s, f), int(region.depths[f]),
@@ -821,13 +883,10 @@ def plan_stream_cta(p: Program, region, grid: Sequence[int], time_tile: int,
 
     Tile: among :data:`STREAM_OUTER_TILES` x :data:`LANE_TILES` (clipped to
     the grid) whose buffers fit ``smem_budget``, the one keeping the most
-    threads resident per SM, then the fewest buffer bytes per output point,
-    then the largest.  Chunks: the stream axis is cut into the number of
-    chunks that minimises the modelled time, waves of CTAs (132 SMs times
-    the CTAs one SM holds) times the planes each CTA sweeps, warm-up
-    included (:func:`sweep_chunk`).  ``tile`` and ``chunk`` override the
-    choice (tests);
-    ``updates`` is :func:`stream_buffers`'."""
+    threads resident per SM (at :data:`STREAM_REGS` registers a thread),
+    then the fewest buffer bytes per output point, then the largest.
+    Chunks: :func:`sweep_chunk`.  ``tile`` and ``chunk`` override the
+    choice (tests); ``updates`` is :func:`stream_buffers`'."""
     grid = tuple(int(g) for g in grid)
     T, P = max(1, int(time_tile)), max(1, int(plane_tile))
 
@@ -844,7 +903,7 @@ def plan_stream_cta(p: Program, region, grid: Sequence[int], time_tile: int,
                                                         dtype, updates))
             if smem > smem_budget:
                 continue
-            key = (resident_threads(block3(t), smem),
+            key = (resident_threads(block3(t), smem, STREAM_REGS),
                    -smem / int(np.prod(t)), int(np.prod(t)))
             if best_key is None or key > best_key:
                 best, best_key = t, key
@@ -858,17 +917,22 @@ def plan_stream_cta(p: Program, region, grid: Sequence[int], time_tile: int,
     bufs = tuple(stream_buffers(p, region, T, P, tile, dtype, updates))
     smem = sum(b.nbytes for b in bufs)
     threads = cta_threads(block3(tile))
+    per_sm = resident_threads(block3(tile), smem, STREAM_REGS) \
+        // (threads[0] * threads[1])
+    if smem > smem_budget or per_sm < 1:
+        raise ValueError(f"sweep-kernel tile {tile} of {p.name!r} region "
+                         f"{region.ops} does not fit {smem_budget} B of "
+                         "shared memory")
     tiles = tuple(-(-g // t) for g, t in zip(grid[1:], tile))
     warm = stream_warmup(p, region, T)
     n0 = grid[0]
     if chunk is None:
-        per_sm = max(1, resident_threads(block3(tile), smem)
-                     // (threads[0] * threads[1]))
         chunk = sweep_chunk(n0, int(np.prod(tiles)), per_sm,
                             warm + (T - 1) * int(region.lead))
     chunk = max(1, min(int(chunk), n0))
     return StreamCTA(tile=tile, threads=threads, buffers=bufs, chunk=chunk,
-                     n_chunks=-(-n0 // chunk), warmup=warm, tiles=tiles)
+                     n_chunks=-(-n0 // chunk), warmup=warm, tiles=tiles,
+                     ctas_per_sm=per_sm)
 
 
 def cta_threads(block: Sequence[int]) -> tuple:
@@ -902,7 +966,22 @@ def sweep_chunk(n0: int, n_tiles: int, ctas_per_sm: int, extra: int) -> int:
     before its chunk: the number of chunks that minimises the modelled
     time, waves of CTAs (132 SMs times ``ctas_per_sm``) times the planes a
     CTA sweeps, then the fewest chunks; no chunk is shorter than four
-    times ``extra`` (nor 16 planes)."""
+    times ``extra`` (nor 16 planes).
+
+    Why waves of planes: a CTA's time is its planes, warm-up included,
+    whatever else runs (its input planes arrive while it computes, and
+    its SM holds the ``ctas_per_sm`` the planner sized for latency and
+    barriers to hide behind one another).  So a slot without a CTA is
+    lost, and so is each chunk's warm-up, and the model leaves SMs idle
+    only where every chunking that fills them costs more: a four-step
+    chain at one CTA an SM over 64 tiles of 512 planes takes two chunks
+    (128 CTAs of 256 + 6 planes, one wave, four SMs idle), since three
+    need a second wave (2 x 177 planes) and chunks short enough to fill
+    the slots evenly pay their six warm-up planes again and again.
+    Filling the slots at least once is what matters: a further wave of
+    shorter chunks costs little, a chunking that leaves half the slots
+    empty a good deal.  The sweep and the block kernel share this
+    model."""
     slots = hw.H100.sms * ctas_per_sm
     shortest = max(16, 4 * extra)
 

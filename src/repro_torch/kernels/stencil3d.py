@@ -112,8 +112,9 @@ __device__ __forceinline__ int pmod(int a, int m) {
 }
 """
 
-#: what the block kernel adds to the preamble: its asynchronous copies (all
-#: of its inline PTX, between the two marker lines) and the plane stager
+#: what the block and sweep kernels add to the preamble: their asynchronous
+#: copies (all of their inline PTX, between the two marker lines) and the
+#: plane stager
 BLOCK_HELPERS = r"""// ---- PTX helpers: the block kernel's asynchronous copies
 __device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
   const unsigned a = (unsigned)__cvta_generic_to_shared(dst);
@@ -861,9 +862,7 @@ class KernelModule:
 
     def __init__(self, calls: Sequence[GroupCall]):
         self.calls = list(calls)
-        helpers = (BLOCK_HELPERS if any(isinstance(c, GroupCall)
-                                        for c in self.calls) else "")
-        self.source = PREAMBLE + helpers + "\n".join(
+        self.source = PREAMBLE + BLOCK_HELPERS + "\n".join(
             c.source(f"g{i}") for i, c in enumerate(self.calls))
         self._lib = None
         self._fns: dict = {}

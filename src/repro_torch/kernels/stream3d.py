@@ -20,29 +20,52 @@ pw_advection at 512x256x256 moves 3 + 3 float32 fields, 0.2404 ms at
 3.35 TB/s.  Its arithmetic is far below the card's float32 rate.  The
 TPU kernel keeps whole planes in VMEM and relies on its grid running in
 order; CUDA CTAs run in no set order, and one CTA has 227 KB of shared
-memory.  The design (2.5-D blocking):
+memory.  So each CTA owns a tile of the non-stream axes
+(``schedule.plan_stream_cta``), widened by the region's non-stream halo
+(T-fold for a chain), and sweeps a chunk of axis 0 itself; its windows,
+per-op result planes, temp rings and per-stage field rings live in shared
+memory and rotate by plane index, so each input plane comes from device
+memory once per CTA (the halo columns of neighbouring tiles come again,
+mostly from L2).  What keeps such a sweep from the byte bound is latency:
+a plane that is loaded and only then computed leaves nothing in flight
+while it computes.  The design:
 
-* each CTA owns a tile of the non-stream axes (``schedule.plan_stream_cta``)
-  widened by the region's non-stream halo (T-fold for a chain), and loops
-  over axis 0 itself; its windows, per-op result planes, temp rings and
-  per-stage field rings live in shared memory and rotate by plane index,
-  so each input plane is loaded from device memory once per CTA (the halo
-  columns of neighbouring tiles come again, mostly from L2);
-* ops are evaluated level by level, one ``__syncthreads`` per level per
-  plane, with threads along the contiguous axis 2; a temp is evaluated once
-  per plane into shared memory and read by its consumers there (the block
-  kernel recomputes it per thread instead);
-* to fill the card the stream axis is cut into chunks, one per CTA; each
-  chunk first recomputes ``warmup`` planes below its first output plane
-  (the reference's sharded-sweep ghost planes, T-fold for a chain), so the
-  results do not depend on the chunking.
+* every input's window is a ring fed by ``cp.async`` (16 bytes a copy
+  where the window's base, strides and rows allow, else 4 bytes, or
+  element by element for unaligned bfloat16; rows padded to 16 bytes in
+  shared memory): it holds the ``depth + P - 1`` planes a loop step reads
+  and the P planes of the next step in flight; warm-up planes and the
+  chunk's prologue come through the same ring;
+* a loop step waits for its own planes (``cp.async.wait_all``), passes
+  one barrier, starts the fetch of the next step's planes into the slots
+  the previous step read, then computes; that top barrier also closes the
+  previous step's last level, so a stage ends with a barrier only where
+  the next chain stage, or the next plane of the same step, reads or
+  overwrites what it wrote;
+* ops are evaluated level by level, one barrier between levels, the
+  CTA's threads spread evenly over each loop's margin-extended plane by
+  one flat index; a temp is evaluated once per plane into shared memory
+  and read by its consumers there; a chain stage applies the update rule
+  in the loop that computes the region's outputs, at each thread's own
+  point, where their margins allow (else in a loop of its own, after a
+  barrier);
+* the generated code is mostly index work, so it is kept small: loops are
+  rolled, the thread and plane indices are opaque to the compiler once a
+  step (nothing plane-invariant is held in registers across the sweep),
+  and the launch bounds hold ptxas to the registers the planner counted
+  (``schedule.STREAM_REGS``) at the CTAs an SM it planned;
+* to fill the card the stream axis is cut into chunks, one per CTA
+  (``schedule.sweep_chunk``); each chunk first recomputes ``warmup`` planes
+  below its first output plane (the reference's sharded-sweep ghost
+  planes, T-fold for a chain), so the results do not depend on the
+  chunking.
 
-The plane unroll is a compile-time unroll of the plane loop by P: P planes
-load at once into a window of ``depth + P - 1`` slots, then P planes are
-computed.  float32 and bfloat16 are compiled (bfloat16 rounds each op's
-result and each updated field); float64 raises ``NotImplementedError`` on
-the card.  The C entry returns ``cudaGetLastError()`` and the wrapper
-raises if it is not 0.
+The plane unroll is a compile-time unroll of the plane loop by P.
+float32 and bfloat16 are compiled (bfloat16 rounds each op's result and
+each updated field); float64 raises ``NotImplementedError`` on the card.
+The C entry returns ``cudaGetLastError()`` and the wrapper raises if it is
+not 0.  All inline PTX sits in ``stencil3d.BLOCK_HELPERS``' helper block,
+which the host emulation swaps for plain copies.
 
 :func:`stream_call_reference` is the plain PyTorch version with the same
 signature and geometry, a plane-by-plane sweep with the TPU kernel's window
@@ -61,8 +84,9 @@ import torch
 
 from ..core.expr_eval import evaluate
 from ..core.ir import Access, CoeffRef, Program
-from ..core.schedule import (StreamCTA, plan_stream_cta, stream_plane_ops,
-                             stream_stage_add)
+from ..core.schedule import (COPY_BYTES, StreamCTA, plan_stream_cta,
+                             stream_levels, stream_plane_ops,
+                             stream_stage_add, stream_update_fuses)
 from .stencil3d import _CTYPE, _DTYPE_NAMES, _Emitter, bind
 
 #: kernel launches made by :class:`StreamCall` (plain-version runs excluded)
@@ -244,7 +268,9 @@ class StreamCall:
                                  "its last axis")
             base = sum(lo[a] * x.stride(a) for a in range(ndim))
             s1 = x.stride(1) if ndim == 3 else 0
-            args += [x.data_ptr() + base * self.itemsize, x.stride(0), s1]
+            ptr = x.data_ptr() + base * self.itemsize
+            args += [ptr, x.stride(0), s1,
+                     self._copy_bytes(x, ptr, (x.stride(0), s1), lo[-1])]
         for c in self.group_coeffs:
             t = padded_coeffs[c]
             self._check(t, c, device)
@@ -268,6 +294,21 @@ class StreamCall:
         org = [0] * ndim if origin is None else [int(o) for o in origin]
         return args + org[:1] + [0] * lift + org[1:]
 
+    def _copy_bytes(self, x, ptr, strides, col) -> int:
+        """Bytes one copy of an input's planes moves: 16, else 4, where the
+        window's base, its outer strides and the tile's first column are
+        multiples of it and the copies that round a row up to it stay
+        inside the row (``col``: the window's first column in ``x``); else
+        one element."""
+        for q in (COPY_BYTES, 4):
+            e = q // self.itemsize
+            if e and ptr % q == 0 \
+                    and all(s * self.itemsize % q == 0 for s in strides) \
+                    and self.cta.tile[-1] % e == 0 \
+                    and col + -(-self.expect[-1] // e) * e <= x.shape[-1]:
+                return q
+        return self.itemsize
+
     def _check(self, t, name, device):
         if t.device != device:
             raise ValueError(f"{name!r} is on {t.device}, expected {device}")
@@ -283,7 +324,8 @@ class StreamCall:
         params = []
         for k in range(len(self.group_inputs)):
             params += [f"const {ct}* __restrict__ in{k}",
-                       f"long long in{k}_s0", f"long long in{k}_s1"]
+                       f"long long in{k}_s0", f"long long in{k}_s1",
+                       f"int in{k}_q"]
         params += [f"const {ct}* __restrict__ cf{k}"
                    for k in range(len(self.group_coeffs))]
         params += [f"{ct}* __restrict__ out{k}"
@@ -293,7 +335,8 @@ class StreamCall:
 
     def c_argtypes(self) -> list:
         n_in, n_c = len(self.group_inputs), len(self.group_coeffs)
-        return ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong] * n_in
+        return ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                 ctypes.c_int] * n_in
                 + [ctypes.c_void_p] * n_c
                 + [ctypes.c_void_p] * len(self.group_outputs)
                 + [ctypes.c_float] * self.n_scalars
@@ -302,6 +345,19 @@ class StreamCall:
     def source(self, name: str | None = None) -> str:
         """CUDA C++ of this region's sweep kernel and its C launch entry."""
         return _SweepEmitter(self, name or self.entry).emit()
+
+    def barriers_per_plane(self) -> float:
+        """``__syncthreads`` the kernel passes per plane it sweeps."""
+        return _SweepEmitter(self, self.entry).barriers_per_plane()
+
+    def staged_bytes_per_point(self) -> float:
+        """Bytes the CTAs stage into shared memory per grid point (halo
+        rows, padded columns, warm-up planes and each chunk's planes
+        below and ahead of the ones it sweeps included)."""
+        extra = (self.T - 1) * self.lead
+        return self.cta.staged_bytes_per_point(
+            self.grid_shape, {f: d - 1 + extra
+                              for f, d in self.depths.items()})
 
 
 # --------------------------------------------------------------------------
@@ -582,6 +638,9 @@ class _SweepEmitter:
         self.outputs = {f: k for k, f in enumerate(call.group_outputs)}
         self.keep = set(stream_plane_ops(self.p, call.region,
                                          call.update is not None))
+        # the update rule runs in the outputs' loop, or in one of its own
+        self.fused = (call.update is not None
+                      and stream_update_fuses(self.p, call.region))
         # shared-memory layout, the planner's buffer order
         self.op_index = {op.out: j for j, op in enumerate(call.ops)}
         self.buf = {}
@@ -599,16 +658,9 @@ class _SweepEmitter:
 
     # -------------------------------------------------------- structure
     def _levels(self) -> list:
-        """Ops by level: an op sits one level above every op whose value
-        at the *same* plane it reads (ring reads of past planes do not
-        count).  Within a level, ops with equal margins share a loop."""
-        lvl = {}
-        for op in self.call.ops:
-            lv = 0
-            for a in op.accesses():
-                if a.field in lvl and int(a.offset[0]) == 0:
-                    lv = max(lv, lvl[a.field] + 1)
-            lvl[op.out] = lv
+        """Ops by level (``schedule.stream_levels``).  Within a level, ops
+        with equal margins share a loop."""
+        lvl = stream_levels(self.p, self.call.region)
         out = []
         for lv in range(max(lvl.values()) + 1 if lvl else 0):
             out.append([op for op in self.call.ops if lvl[op.out] == lv])
@@ -627,6 +679,31 @@ class _SweepEmitter:
         return off, b.slots, ext
 
     # ------------------------------------------------------------- code
+    def stage_barrier(self, s: int, kp: int) -> bool:
+        """Whether stage ``s`` of the ``kp``-th plane of a loop step ends
+        with a barrier: before the next chain stage, which reads the field
+        ring this stage's update wrote, and before the next plane of the
+        step where the stages write shared memory; never at the step's
+        end, where the next step's top barrier closes it."""
+        c = self.call
+        if s < c.T - 1:
+            return True
+        return kp < c.P - 1 and bool(self.keep or c.T > 1)
+
+    def barriers_per_plane(self) -> float:
+        """``__syncthreads`` the kernel passes per plane of its sweep: the
+        one at the top of each loop step, one per op level after the first
+        and one before the update of every stage, and the stage ends of
+        :meth:`stage_barrier`."""
+        c = self.call
+        n = 1
+        for kp in range(c.P):
+            for s in range(c.T):
+                n += (len(self.levels) - 1
+                      + (c.update is not None and not self.fused)
+                      + self.stage_barrier(s, kp))
+        return n / c.P
+
     def emit(self) -> str:
         c, ct, name = self.call, self.ct, self.name
         tx, ty = c.threads
@@ -636,15 +713,17 @@ class _SweepEmitter:
         NA, NB = self.N
         tiles = self.two(cta.tiles, 1)
         front = c.halo_lo[0] + c.lead
+        P = c.P
         params = c.kernel_params()
         args = [q.split()[-1] for q in params]
         L = [f"// sweep kernel of region {c.region.ops} of "
              f"{self.p.name}: inputs [{', '.join(c.group_inputs)}], "
              f"stores [{', '.join(c.group_outputs)}]",
-             f"// time_tile {c.T}, plane_tile {c.P}, CTA tile ({TA},{TB}), "
+             f"// time_tile {c.T}, plane_tile {P}, CTA tile ({TA},{TB}), "
              f"chunk {cta.chunk} planes (+{cta.warmup} warm-up), "
-             f"{cta.ctas} CTAs, {self.smem} B shared memory",
-             f"__global__ void __launch_bounds__({nt})",
+             f"{cta.ctas} CTAs ({cta.ctas_per_sm} an SM), "
+             f"{self.smem} B shared memory",
+             f"__global__ void __launch_bounds__({nt}, {cta.ctas_per_sm})",
              f"{name}_kernel({', '.join(params)}) {{",
              "  extern __shared__ __align__(16) unsigned char smem_raw[];"]
         for key, (off, b) in self.buf.items():
@@ -662,7 +741,7 @@ class _SweepEmitter:
             f"  const int cs = max(0, c0 - {cta.warmup});",
             f"  const int ce = c1 - 1 + {(c.T - 1) * c.lead};",
             "  const int tid = threadIdx.y * blockDim.x + threadIdx.x;",
-            "  (void)vA; (void)vB; (void)tid;",
+            "  (void)vA; (void)vB;",
         ]
         nring = (self.smem - self.ring_off) // 4
         if nring:
@@ -670,39 +749,53 @@ class _SweepEmitter:
                   "outside the domain",
                   f"  {{ float* z = reinterpret_cast<float*>(smem_raw + "
                   f"{self.ring_off});",
+                  "#pragma unroll 1",
                   f"    for (int i = tid; i < {nring}; i += {nt}) "
                   "z[i] = 0.0f; }"]
-        # window loads
+        # each input's plane fetch into its window ring: planes past the
+        # last one the chunk reads are not fetched
+        modes = [(COPY_BYTES, COPY_BYTES // c.itemsize), (4, 4 // c.itemsize)]
+        if c.itemsize < 4:
+            modes.append((c.itemsize, 1))
         for f, k in self.inputs.items():
             off, S, (WA, WB) = self.buffer(("win", f))
-            L += [f"  auto load{k} = [&](int q) {{",
+            stage = (f"(dst, src, in{k}_s1, vA + {c.T * self.span2[0]}, "
+                     f"{WB}, 0, vB + {c.T * self.span2[1]}, t, {nt})")
+            L += [f"  auto fetch{k} = [&](int q, int t) {{  // {f}",
+                  f"    if (q > ce + {front}) return;",
                   f"    {ct}* dst = win{k} + pmod(q, {S}) * {WA * WB};",
                   f"    const {ct}* src = in{k} + (long long)q * in{k}_s0"
-                  f" + (long long)bA * in{k}_s1 + bB;",
-                  f"    for (int r = threadIdx.y; r < vA + "
-                  f"{c.T * self.span2[0]}; r += {ty})",
-                  f"      for (int x = threadIdx.x; x < vB + "
-                  f"{c.T * self.span2[1]}; x += {tx})",
-                  f"        dst[r * {WB} + x] = src[(long long)r * in{k}_s1"
-                  " + x];",
-                  "  };"]
+                  f" + (long long)bA * in{k}_s1 + bB;"]
+            for i, (q, e) in enumerate(modes):
+                if i == len(modes) - 1:
+                    L.append(f"    else stage_rows<{e}>{stage};")
+                else:
+                    L.append(f"    {'else ' if i else ''}if (in{k}_q == {q})"
+                             f" stage_rows<{e}>{stage};")
+            L.append("  };")
+        # the prologue: the planes the first step reads
         for f, k in self.inputs.items():
             d = c.depths[f]
-            L.append(f"  for (int q = cs + {front - d + 1}; q < cs + {front};"
-                     f" ++q) load{k}(q);")
-        L.append(f"  for (int c = cs; c <= ce; c += {c.P}) {{")
-        for kp in range(c.P):
-            guard = f"c + {kp} <= ce" if kp else "true"
-            L.append(f"    if ({guard}) {{")
-            for k in self.inputs.values():
-                L.append(f"      load{k}(c + {kp + front});")
-            L.append("    }")
-        L.append("    __syncthreads();")
-        for kp in range(c.P):
+            L.append(f"  for (int q = cs + {front - d + 1}; q < cs + "
+                     f"{front + P}; ++q) fetch{k}(q, tid);")
+        L.append("  cp_async_commit();")
+        L += ["#pragma unroll 1",
+              f"  for (int c = cs; c <= ce; c += {P}) {{",
+              "    cp_async_wait_all();",
+              "    __syncthreads();",
+              "    const int tz = opaque(tid);"]
+        for k in self.inputs.values():
+            if P == 1:
+                L.append(f"    fetch{k}(c + {front + 1}, tz);")
+            else:
+                L.append(f"    for (int q = c + {front + P}; q < c + "
+                         f"{front + 2 * P}; ++q) fetch{k}(q, tz);")
+        L.append("    cp_async_commit();")
+        for kp in range(P):
             L.append(f"    if (c + {kp} <= ce) {{")
             L.append(f"      const int cc = c + {kp};")
             for s in range(c.T):
-                L += ["      " + x for x in self._stage(s)]
+                L += ["      " + x for x in self._stage(s, kp)]
             L.append("    }")
         L += ["  }", "}", ""]
         L += [
@@ -733,19 +826,24 @@ class _SweepEmitter:
         return f"op{key[1]}_{self.op_index[key[2]]}"
 
     def _loop(self, ext_lo_hi, body: list) -> list:
-        """Threads over the valid part of a plane extended by
-        ``((loA, hiA), (loB, hiB))`` around the tile: ``lA``/``lB`` local,
-        ``GA``/``GB`` global coordinates."""
+        """The CTA's threads over the valid part of a plane extended by
+        ``((loA, hiA), (loB, hiB))`` around the tile, one flat index over
+        the full tile's extended plane (so every thread gets its share of
+        the margins; the points a ragged tile lacks are skipped):
+        ``lA``/``lB`` local, ``GA``/``GB`` global coordinates."""
         (la, ha), (lb, hb) = ext_lo_hi
-        tx, ty = self.call.threads
-        return ([f"for (int lA = threadIdx.y; lA < vA + {la + ha}; "
-                 f"lA += {ty})",
-                 f"  for (int lB = threadIdx.x; lB < vB + {lb + hb}; "
-                 f"lB += {tx}) {{",
-                 f"    const int GA = org1 + bA - {la} + lA, "
+        TA, TB = self.tile
+        ea, eb = TA + la + ha, TB + lb + hb
+        nt = self.call.threads[0] * self.call.threads[1]
+        return (["#pragma unroll 1",
+                 f"for (int i = tz; i < {ea * eb}; i += {nt}) {{",
+                 f"  const int lA = i / {eb}, lB = i % {eb};",
+                 f"  if (lA >= vA + {la + ha} || lB >= vB + {lb + hb}) "
+                 "continue;",
+                 f"  const int GA = org1 + bA - {la} + lA, "
                  f"GB = org2 + bB - {lb} + lB;",
-                 "    (void)GA; (void)GB;"]
-                + ["    " + x for x in body] + ["  }"])
+                 "  (void)GA; (void)GB;"]
+                + ["  " + x for x in body] + ["}"])
 
     def _mask(self, axes_lo: dict) -> str:
         """Condition that the position lies in the global domain on the
@@ -753,14 +851,15 @@ class _SweepEmitter:
         ng = dict(zip("AB", self.NG))
         return " && ".join(f"G{a} >= 0 && G{a} < {ng[a]}" for a in axes_lo)
 
-    def _stage(self, s: int) -> list:
-        """One chain stage at stage-0 plane ``cc``: the op levels, then (in
-        a chain) the update; stores zeros into the stage's rings when its
-        plane lies outside the domain."""
+    def _stage(self, s: int, kp: int) -> list:
+        """One chain stage at stage-0 plane ``cc`` (the ``kp``-th plane of
+        the loop step): the op levels, then (in a chain) the update; stores
+        zeros into the stage's rings when its plane lies outside the
+        domain; ends with a barrier where :meth:`stage_barrier` asks."""
         c = self.call
         T = c.T
         body = [f"{{ // stage {s}",
-                f"  const int qs = cc - {s * c.lead};",
+                f"  const int qs = opaque(cc - {s * c.lead});",
                 f"  if (org0 + qs >= 0 && org0 + qs < "
                 f"{c.global_extent[0]}) {{"]
         for lv, ops in enumerate(self.levels):
@@ -771,7 +870,7 @@ class _SweepEmitter:
                 groups.setdefault(self.margin2(s, op.out), []).append(op)
             for m2, gops in groups.items():
                 body += ["    " + x for x in self._op_group(s, m2, gops)]
-        if c.update is not None:
+        if c.update is not None and not self.fused:
             body.append("    __syncthreads();")
             body += ["    " + x for x in self._update(s)]
         body.append("  } else {")
@@ -780,20 +879,24 @@ class _SweepEmitter:
             if out not in self.keep:
                 continue
             off, R, (PA, PB) = self.buffer(("op", s, out))
-            zero += [f"for (int i = tid; i < {PA * PB}; i += "
+            zero += ["#pragma unroll 1",
+                     f"for (int i = tz; i < {PA * PB}; i += "
                      f"{c.threads[0] * c.threads[1]})",
                      f"  {self.bname(('op', s, out))}[pmod(qs, {R}) * "
                      f"{PA * PB} + i] = 0.0f;"]
         if c.update is not None and s < T - 1:
             for f in c.group_inputs:
                 off, D, (FA, FB) = self.buffer(("field", s + 1, f))
-                zero += [f"for (int i = tid; i < {FA * FB}; i += "
+                zero += ["#pragma unroll 1",
+                         f"for (int i = tz; i < {FA * FB}; i += "
                          f"{c.threads[0] * c.threads[1]})",
                          f"  {self.bname(('field', s + 1, f))}[pmod(qs, "
                          f"{D}) * {FA * FB} + i] = 0.0f;"]
         body += ["    " + x for x in zero]
-        body += ["  }", "  __syncthreads();", "}"]
-        return body
+        body.append("  }")
+        if self.stage_barrier(s, kp):
+            body.append("  __syncthreads();")
+        return body + ["}"]
 
     def _resolver(self, s: int, m2):
         """Access/coefficient resolution for stage ``s`` code evaluated on
@@ -848,7 +951,8 @@ class _SweepEmitter:
     def _op_group(self, s: int, m2, ops) -> list:
         """One loop evaluating ``ops`` (one level, margin ``m2``) at stage
         ``s``: masks, bfloat16 rounding, shared-memory planes, rings, and
-        (outside a chain) the stored output planes of the chunk."""
+        (outside a chain) the stored output planes of the chunk; the loop
+        of the region's outputs also applies a fused update rule."""
         c = self.call
         em = _ExprEmitter(self.scalars, self.bf16,
                           self._resolver(s, m2))
@@ -879,17 +983,30 @@ class _SweepEmitter:
                     f"lB >= {mb} && lB < {mb} + vB)",
                     f"  st(&out{k}[(long long)qs * {NA * NB} + (long long)"
                     f"(bA + lA - {ma}) * {NB} + (bB + lB - {mb})], {r});"]
+        if self.fused and set(c.out_names) <= {op.out for op in ops}:
+            regs = {op.out: f"r{self.op_index[op.out]}" for op in ops}
+            stores += (["{  // the update rule at this point"]
+                       + ["  " + x for x in self._update_body(s, regs)]
+                       + ["}"])
         return self._loop(m2, em.lines + stores)
 
     def _update(self, s: int) -> list:
-        """The fused loop's update at stage ``s`` on the stage's extent:
-        into the next stage's field rings (zero outside the global domain)
-        or, at the last stage, into the stored fields of the chunk."""
+        """The fused loop's update at stage ``s`` in a loop of its own over
+        the stage's extent."""
+        acc = self.call.T - 1 - s
+        m2 = tuple((acc * self.hl2[i], acc * self.hh2[i]) for i in range(2))
+        return self._loop(m2, self._update_body(s))
+
+    def _update_body(self, s: int, regs: dict | None = None) -> list:
+        """The update at one point of stage ``s``'s extent: into the next
+        stage's field rings (zero outside the global domain) or, at the
+        last stage, into the stored fields of the chunk.  The region's
+        outputs are read from their planes, or from ``regs`` (their values
+        at this point, in the loop that computed them)."""
         c = self.call
         T = c.T
         acc = T - 1 - s
         hl2 = self.hl2
-        m2 = tuple((acc * hl2[i], acc * self.hh2[i]) for i in range(2))
 
         def resolve(e):
             if isinstance(e, Access) and e.field in self.inputs:
@@ -903,6 +1020,8 @@ class _SweepEmitter:
                 off, D, (FA, FB) = self.buffer(key)
                 return (f"{self.bname(key)}[pmod(qs, {D}) * {FA * FB} + "
                         f"(lA + {hl2[0]}) * {FB} + lB + {hl2[1]}]")
+            if isinstance(e, Access) and regs and e.field in c.out_names:
+                return regs[e.field]
             if isinstance(e, Access) and e.field in c.out_names:
                 key = ("op", s, e.field)
                 off, R, (PA, PB) = self.buffer(key)
@@ -940,4 +1059,4 @@ class _SweepEmitter:
                 lines.append(f"{self.bname(key)}[pmod(qs, {D}) * {FA * FB}"
                              f" + lA * {FB} + lB] = ({ok}) ? "
                              f"n{self.inputs[f]} : 0.0f;")
-        return self._loop(m2, em.lines + lines)
+        return em.lines + lines

@@ -102,6 +102,26 @@ def test_fused_loop_on_the_card_matches_torch_fused(app, update,
 
 
 @pytest.mark.cuda
+def test_multi_group_plan_on_the_card():
+    """tracer_advection split per field (a kernel a group, inter-group
+    fields re-padded between them) against the plain backend on the
+    card, to 1e-5 of each field's max abs."""
+    _needs_card()
+    p = tracer_advection()
+    grid = (20, 18, 100)
+    f, s, c = _inputs(p, grid)
+    ex = compile_program(p, grid, strategy="per_field")
+    assert len(ex.plan.groups) > 1
+    before = stencil3d.launches
+    got = ex(f, s, c)
+    torch.cuda.synchronize()
+    assert stencil3d.launches - before == len(ex.plan.groups)
+    want = compile_program(p, grid, backend="torch_fused")(f, s, c)
+    for k in want:
+        assert _rel_err(got[k], want[k]) <= 1e-5, k
+
+
+@pytest.mark.cuda
 def test_float64_raises_on_the_card():
     _needs_card()
     p = pw_advection()
@@ -111,9 +131,10 @@ def test_float64_raises_on_the_card():
         ex(*_inputs(p, grid))
 
 
-def _stream_region_check(ex, p, grid, dtype, tol):
+def _stream_region_check(ex, p, grid, dtype, tol, copy_bytes=None):
     """Every sweep kernel of ``ex`` against its plain version on the card,
-    on seeded inputs padded to the kernel's geometry."""
+    on seeded inputs padded to the kernel's geometry (``copy_bytes``: the
+    bytes each input's ``cp.async`` copies must move)."""
     from repro_torch.core import boundary as bc
     from repro_torch.kernels.stream3d import stream_call_reference
 
@@ -131,6 +152,12 @@ def _stream_region_check(ex, p, grid, dtype, tol):
             call.pad_hi[call.coeff_axis[c]], bc.coeff_mode(p)).contiguous()
             for c in call.group_coeffs}
         svec = [0.1] * len(p.scalars)
+        if copy_bytes is not None:
+            outs = {f: torch.empty(grid, dtype=tdt, device="cuda")
+                    for f in call.group_outputs}
+            args = call.kernel_args(padded, svec, pc, None, None, outs)
+            assert [args[4 * k + 3] for k in range(len(call.group_inputs))] \
+                == [copy_bytes] * len(call.group_inputs), call.region.ops
         got = call(padded, svec, pc)
         want = stream_call_reference(call, padded, svec, pc)
         for k in want:
@@ -176,6 +203,34 @@ def test_stream_kernels_on_the_card(app, boundary, dtype, kw, tol):
         for k in want:
             assert _rel_err(got[k], want[k]) <= tol, (backend, k)
     _stream_region_check(ex, p, grid, dtype, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("boundary,dtype,grid,kw,tol", [
+    ("zero", "float32", (20, 18, 254), {}, 1e-5),
+    ("zero", "bfloat16", (20, 18, 254), {}, 2e-2),
+    ("periodic", "float32", (20, 18, 126), {}, 1e-5),
+    ("zero", "float32", (20, 18, 252), dict(steps=4, time_tile=2), 1e-4),
+], ids=["zero", "bf16", "periodic", "T2"])
+def test_stream_kernels_take_16_byte_copies_on_the_card(boundary, dtype,
+                                                        grid, kw, tol):
+    """pw_advection on grids whose padded rows are multiples of 16 bytes:
+    every input window of every sweep kernel (a T=2 chain's T-fold window
+    too) is fetched by 16-byte ``cp.async`` copies, and each kernel
+    matches its plain version and the path the plain backend."""
+    _needs_card()
+    p = pw_advection(boundary)
+    if "steps" in kw:
+        kw = dict(kw, update=pw_advection_update(0.1))
+    f, s, c = _inputs(p, grid)
+    ex = compile_program(p, grid, dtype=dtype, schedule="stream", **kw)
+    got = ex(f, s, c)
+    base = {k: v for k, v in kw.items() if k in ("steps", "update")}
+    want = compile_program(p, grid, dtype=dtype, backend="torch_fused",
+                           **base)(f, s, c)
+    for k in want:
+        assert _rel_err(got[k], want[k]) <= tol, k
+    _stream_region_check(ex, p, grid, dtype, tol, copy_bytes=16)
 
 
 @pytest.mark.cuda

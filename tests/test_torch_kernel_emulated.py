@@ -35,6 +35,7 @@ from repro_torch.kernels.stream3d import StreamCall, stream_call_reference
 SHIM = r"""
 #include <barrier>
 #include <cmath>
+#include <deque>
 #include <cstdint>
 #include <cstring>
 #include <thread>
@@ -64,7 +65,7 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {
 """
 
 
-# host versions of the block kernel's PTX helpers: a copy lands at once
+# host versions of the kernels' PTX helpers: a copy lands at once
 HOST_COPIES = r"""
 inline void cp_async_16(void* dst, const void* src) { std::memcpy(dst, src, 16); }
 inline void cp_async_4(void* dst, const void* src) { std::memcpy(dst, src, 4); }
@@ -72,26 +73,48 @@ inline void cp_async_commit() {}
 inline void cp_async_wait_all() {}
 inline int opaque(int x) { return x; }
 """
+# ... or a copy is queued by the thread that starts it (its source read at
+# once) and lands only when that thread waits for its group: a plane read
+# before its wait, or a slot fetched into while another thread still reads
+# it, shows
+QUEUED_HOST_COPIES = r"""
+struct EmuCopy { void* dst; unsigned char b[16]; int n; };
+thread_local std::vector<EmuCopy> emu_open;
+thread_local std::deque<std::vector<EmuCopy>> emu_groups;
+inline void emu_queue(void* dst, const void* src, int n) {
+  EmuCopy c; c.dst = dst; c.n = n; std::memcpy(c.b, src, n);
+  emu_open.push_back(c); }
+inline void emu_land_oldest() {
+  for (auto& c : emu_groups.front()) std::memcpy(c.dst, c.b, c.n);
+  emu_groups.pop_front(); }
+inline void cp_async_16(void* dst, const void* src) { emu_queue(dst, src, 16); }
+inline void cp_async_4(void* dst, const void* src) { emu_queue(dst, src, 4); }
+inline void cp_async_commit() {
+  emu_groups.push_back(std::move(emu_open)); emu_open.clear(); }
+inline void cp_async_wait_all() {
+  cp_async_commit(); while (!emu_groups.empty()) emu_land_oldest(); }
+inline int opaque(int x) { return x; }
+"""
 HELPERS_BEGIN, HELPERS_END = "// ---- PTX helpers", "// ---- end of PTX helpers"
 
 
-def _block_helpers():
+def _helpers(queued=False):
     """``stencil3d.BLOCK_HELPERS`` with its PTX helpers block swapped for
-    :data:`HOST_COPIES`."""
+    :data:`HOST_COPIES` (or :data:`QUEUED_HOST_COPIES`)."""
     head, rest = stencil3d.BLOCK_HELPERS.split(HELPERS_BEGIN)
-    return head + HOST_COPIES + rest.split(HELPERS_END)[1]
+    return (head + (QUEUED_HOST_COPIES if queued else HOST_COPIES)
+            + rest.split(HELPERS_END)[1])
 
 
-def _emulated(call):
+def _emulated(call, queued=False):
     """ctypes entry running ``call``'s generated kernel on host threads.
     Shared memory starts as 0xff bytes (NaN), so a read of a plane that
-    was never fetched or written shows in the result."""
+    was never fetched or written shows in the result.  ``queued``: the
+    asynchronous copies land at their wait, not at once."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler to run the generated kernel")
-    src = stencil3d.PREAMBLE
-    if isinstance(call, stencil3d.GroupCall):
-        src += _block_helpers()
+    src = stencil3d.PREAMBLE + _helpers(queued)
     src += call.source("g0")
     src = src.split('extern "C"')[0]
     src = src.replace("extern __shared__ __align__(16) unsigned char "
@@ -379,10 +402,11 @@ def test_copy_sizes_follow_the_layout():
 # --------------------------------------------------------------------------
 
 def run_stream_emulated(call, padded, svec, pcoeffs, origin=None,
-                        input_pad=None):
+                        input_pad=None, queued=False):
     """The sweep kernel launched as ``StreamCall._launch`` launches it, on
-    CPU tensors, through the emulated entry."""
-    fn = _emulated(call)
+    CPU tensors, through the emulated entry (``queued``: its copies land
+    at their wait)."""
+    fn = _emulated(call, queued)
     outs = {f: torch.full(call.grid_shape, float("nan"), dtype=call.dtype)
             for f in call.group_outputs}
     args = call.kernel_args(padded, svec, pcoeffs, origin, input_pad, outs)
@@ -446,7 +470,28 @@ STREAM_CASES = [
     (pw_advection, "zero", torch.float32, 2, 2, (4, 32), 4),
     (tracer_advection, "zero", torch.float32, 1, 1, None, None),
     (tracer_advection, "zero", torch.float32, 1, 1, (2, 32), 3),
+    # eight regions; a four-stage chain cut into chunks
+    (tracer_advection, "periodic", torch.float32, 1, 1, None, None),
+    (pw_advection, "zero", torch.float32, 4, 1, (4, 32), 4),
 ]
+
+
+def _check_sweep_case(app, boundary, dtype, time_tile, plane_tile, tile,
+                      chunk, queued=False):
+    grid = (7, 6, 40)
+    p, calls = _stream_calls(app, boundary, grid, dtype, time_tile,
+                             plane_tile, tile, chunk)
+    tol = 0.0 if p.name == "pw_advection" else 1e-6
+    for k, call in enumerate(calls):
+        padded, svec, pc = _stream_inputs(p, call, grid, dtype, seed=k,
+                                          scale=0.1 if time_tile > 1 else 1)
+        want = stream_call_reference(call, padded, svec, pc)
+        got = run_stream_emulated(call, padded, svec, pc, queued=queued)
+        for f in want:
+            w, g = want[f].float(), got[f].float()
+            assert torch.isfinite(g).all(), (k, f)
+            scale = float(w.abs().max())
+            assert float((g - w).abs().max()) <= tol * scale, (k, f)
 
 
 @pytest.mark.parametrize("app,boundary,dtype,time_tile,plane_tile,tile,chunk",
@@ -459,20 +504,20 @@ def test_generated_sweep_kernel_matches_plain_version(
     host build does not contract into FMAs and both round each op), 1e-6
     for tracer_advection (value numbering may share a subtree in another
     association)."""
-    grid = (7, 6, 40)
-    p, calls = _stream_calls(app, boundary, grid, dtype, time_tile,
-                             plane_tile, tile, chunk)
-    tol = 0.0 if p.name == "pw_advection" else 1e-6
-    for k, call in enumerate(calls):
-        padded, svec, pc = _stream_inputs(p, call, grid, dtype, seed=k,
-                                          scale=0.1 if time_tile > 1 else 1)
-        want = stream_call_reference(call, padded, svec, pc)
-        got = run_stream_emulated(call, padded, svec, pc)
-        for f in want:
-            w, g = want[f].float(), got[f].float()
-            assert torch.isfinite(g).all(), (k, f)
-            scale = float(w.abs().max())
-            assert float((g - w).abs().max()) <= tol * scale, (k, f)
+    _check_sweep_case(app, boundary, dtype, time_tile, plane_tile, tile,
+                      chunk)
+
+
+@pytest.mark.parametrize("app,boundary,dtype,time_tile,plane_tile,tile,chunk",
+                         STREAM_CASES)
+def test_generated_sweep_kernel_with_queued_copies_matches_plain_version(
+        app, boundary, dtype, time_tile, plane_tile, tile, chunk):
+    """The same cases with each copy landing only when its thread waits
+    for it: a plane read before its wait, a slot fetched into before
+    every thread has read it, or a ring too shallow for the planes in
+    flight shows.  Tolerances as above."""
+    _check_sweep_case(app, boundary, dtype, time_tile, plane_tile, tile,
+                      chunk, queued=True)
 
 
 def _coeff_program(ndim):
@@ -508,8 +553,10 @@ def test_generated_sweep_kernel_coefficients_and_2d_lift(ndim, grid, tile,
     call = StreamCall(p, region, grid, tile=tile, chunk=chunk)
     padded, svec, pc = _stream_inputs(p, call, grid, torch.float32, seed=9)
     want = stream_call_reference(call, padded, svec, pc)
-    got = run_stream_emulated(call, padded, svec, pc)
-    torch.testing.assert_close(got["o"], want["o"], atol=1e-6, rtol=1e-6)
+    for queued in (False, True):
+        got = run_stream_emulated(call, padded, svec, pc, queued=queued)
+        torch.testing.assert_close(got["o"], want["o"], atol=1e-6,
+                                   rtol=1e-6)
 
 
 def test_generated_sweep_kernel_reads_windows_inside_an_oversized_carry():
@@ -526,6 +573,49 @@ def test_generated_sweep_kernel_reads_windows_inside_an_oversized_carry():
         padded[k], (2, 2, 3, 1, 1, 2)).contiguous()
         for k in call.group_inputs}
     want = stream_call_reference(call, padded, svec, pc)
-    got = run_stream_emulated(call, carry, svec, pc, input_pad=fpad)
-    for f in want:
-        torch.testing.assert_close(got[f], want[f], atol=0, rtol=0)
+    for queued in (False, True):
+        got = run_stream_emulated(call, carry, svec, pc, input_pad=fpad,
+                                  queued=queued)
+        for f in want:
+            torch.testing.assert_close(got[f], want[f], atol=0, rtol=0)
+
+
+def _unfused_chain_program():
+    """A chainable region whose update rule runs in a loop of its own:
+    output ``a`` has margins (``o`` reads it at offsets along axis 2), so
+    the rule reads both outputs from their planes."""
+    b = ProgramBuilder("chain_unfused", ndim=3)
+    u = b.input("u")
+    a = b.output("a")
+    o = b.output("o")
+    b.define(a, u[0, 0, -1] + u[0, 1, 0] * 0.5 - u[-1, 0, 0])
+    b.define(o, a[0, 0, 1] - a[0, 0, -1] + u[1, 0, 0] * 0.25)
+    return b.build()
+
+
+@pytest.mark.parametrize("time_tile,tile,chunk", [(2, None, None),
+                                                  (4, (4, 32), 3)])
+def test_generated_sweep_kernel_chain_with_the_update_in_its_own_loop(
+        time_tile, tile, chunk):
+    """A chain whose update cannot run in its outputs' loop, against the
+    plain version, with copies landing at once and at their wait; exact
+    (the host build does not contract into FMAs)."""
+    p = _unfused_chain_program()
+    grid = (7, 6, 40)
+    plan = auto_plan(p, grid, schedule="stream", time_tile=time_tile)
+    (region,) = lower_to_dataflow(p, plan, grid).regions
+    upd = adapt_update(lambda fields, out: {
+        "u": fields["u"] + 0.1 * out["o"] - 0.05 * out["a"]})
+    exprs, why = trace_update(p, upd, region.halo.group_inputs, ["a", "o"])
+    assert why is None, why
+    call = StreamCall(p, region, grid, time_tile=time_tile, update=upd,
+                      update_exprs=exprs, tile=tile, chunk=chunk)
+    src = call.source()
+    assert src.count("// the update rule at this point") == 0
+    padded, svec, pc = _stream_inputs(p, call, grid, torch.float32, seed=5,
+                                      scale=0.1)
+    want = stream_call_reference(call, padded, svec, pc)
+    for queued in (False, True):
+        got = run_stream_emulated(call, padded, svec, pc, queued=queued)
+        for f in want:
+            torch.testing.assert_close(got[f], want[f], atol=0, rtol=0)

@@ -53,7 +53,30 @@ the SHA-256 of its generated source.  Each stream path's row keeps, for
 every region's sweep kernel, its CTA (tile, threads, chunk, warm-up, CTAs,
 shared memory, CTAs an SM planned), the planes it keeps in flight, the
 barriers it passes a plane, its staged bytes a grid point and what ptxas
-reported for it; a spill in any sweep kernel fails the run.
+reported for it, and the SHA-256 of the path's generated source; a
+spill in any sweep kernel fails the run.  Every stencil row's bound comes
+from ``repro_torch.analysis.stencil_roofline`` (each input read once,
+each output written once, priced at the H100's data-sheet rates), and
+every path row also keeps the plan model's time a step (``modeled_ms``,
+``model_plan``) and its ``roofline_fraction`` (modeled over the measured
+step, ``obs.fraction_for``).
+
+Tuner phase (``repro_torch.core.tune``, after the stencil paths): the
+measured plan search at full size, each with a plan cache in a fresh
+temporary file, ``max_measured`` 8, best of 3: ``pw_advection`` 512x256x256
+float32, zero boundary, fused ``steps=10`` with its update (loop mode),
+and ``tracer_advection`` 256x256x128, single step.  Each logs every
+measured candidate (label, modeled and measured µs, roofline fraction),
+the winner against the ``auto_plan`` seed (the winner may not be slower)
+and the tune's seconds with ``nvcc``'s share; runs every measured
+candidate's executables again on seeded inputs against ``torch_fused``
+(1e-5 single step, 1e-4 fused); compiles again with
+``strategy="tuned"`` through the same file (a cache hit with no timed
+run); and times the tuned and ``auto_plan`` executables in turns.
+
+Before anything else the card's properties are logged beside the
+``hw.H100`` constants the planner uses; fewer SMs or less shared memory a
+CTA may opt into than the planner assumes fail the run.
 
 Every stencil path is compared with the same compile on
 ``backend="torch_fused"`` on the card, and each stream path with the block
@@ -307,12 +330,36 @@ def config_key(ph) -> tuple:
             ph["steps"])
 
 
+def check_card(torch) -> dict:
+    """The card's properties beside the ``hw.H100`` data-sheet constants
+    the planner uses (which stay its constants, so plans do not depend on
+    the card); a card with fewer SMs or less shared memory a CTA may opt
+    into than the planner assumes fails the run."""
+    from repro_torch import hw
+
+    pr = torch.cuda.get_device_properties(0)
+    got = {"sms": pr.multi_processor_count,
+           "smem_per_block": pr.shared_memory_per_block_optin,
+           "smem_per_sm": pr.shared_memory_per_multiprocessor,
+           "registers_per_sm": pr.regs_per_multiprocessor,
+           "threads_per_sm": pr.max_threads_per_multi_processor,
+           "l2_bytes": pr.L2_cache_size, "hbm_bytes": pr.total_memory}
+    for k, v in got.items():
+        log(f"card {k}: {v} (planner's hw.H100: {getattr(hw.H100, k)})")
+    for k in ("sms", "smem_per_block"):
+        if got[k] < getattr(hw.H100, k):
+            raise SystemExit(f"the card has {k} {got[k]}, fewer than the "
+                             f"planner's {getattr(hw.H100, k)}")
+    return got
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=str(ROOT / "build" /
                                          "chip_smoke.json"))
     args = ap.parse_args()
+    t_smoke = time.perf_counter()
 
     import torch
     if not torch.cuda.is_available():
@@ -325,12 +372,14 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
 
     from repro_torch import compile_program
+    from repro_torch.analysis.stencil_roofline import model_plan
     from repro_torch.apps import (pw_advection, pw_advection_update,
                                   tracer_advection, tracer_advection_update)
     from repro_torch.configs import get_config
     from repro_torch.core import TileDemotionWarning
     from repro_torch.interop import inputs_from_numpy
     from repro_torch.kernels import build, stencil3d, stream3d, swa
+    from repro_torch.obs import fraction_for
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -339,6 +388,7 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"{torch.cuda.get_device_name(0)}")
+    card_props = check_card(torch)
 
     # ---------------------------------------------------------------- paths
     apps = (pw_advection, pw_advection_update, tracer_advection,
@@ -483,12 +533,16 @@ def main() -> int:
             row = block_row(ph, torch, stencil3d)
         steps = ph["steps"] or 1
         row.update(step_ms=step_ms / steps,
-                   plain_backend_step_ms=plain_step[key] / steps)
+                   plain_backend_step_ms=plain_step[key] / steps,
+                   modeled_ms=model_plan(ph["p"], ex.plan, ph["grid"]) * 1e3,
+                   roofline_fraction=fraction_for(ex, step_ms / 1e3))
         rows.append(row)
         log(f"{ph['name']}: kernel {row['ms']:.4f} ms/step (bound "
             f"{row['bound_ms']:.4f} ms by {row['bound_by']}), plain "
             f"{row['plain_ms']:.3f} ms, end-to-end {row['step_ms']:.4f} "
-            f"ms/step, torch_fused {row['plain_backend_step_ms']:.4f} "
+            f"ms/step (plan model {row['modeled_ms']:.4f} ms/step, "
+            f"roofline fraction {row['roofline_fraction']:.3f}), "
+            f"torch_fused {row['plain_backend_step_ms']:.4f} "
             f"ms/step, launches/step {row['launches_per_step']:g}")
     path_rows = [{k: ph.get(k) for k in (
         "name", "schedule", "grid", "dtype", "boundary", "steps", "time_tile",
@@ -497,14 +551,21 @@ def main() -> int:
     del paths, inputs, plain_ex, ph
     torch.cuda.empty_cache()
 
+    # ------------------------------------------------- measured plan search
+    tuner = tuner_phase(args.seed, torch)
+    torch.cuda.empty_cache()
+
     # --------------------------------------------------- LM serving path
     lm_rows, lm = lm_phase(args.seed, torch, swa)
     rows += lm_rows
     lm["swa_ptxas"] = swa_ptxas
 
-    result = {"card": card, "torch": torch.__version__,
-              "cuda": torch.version.cuda, "seed": args.seed,
-              "kernels": rows, "paths": path_rows, "lm": lm}
+    smoke_s = time.perf_counter() - t_smoke
+    log(f"chip_smoke: {smoke_s:.1f} s in all")
+    result = {"card": card, "card_properties": card_props,
+              "torch": torch.__version__, "cuda": torch.version.cuda,
+              "seed": args.seed, "kernels": rows, "paths": path_rows,
+              "tuner": tuner, "lm": lm, "seconds": smoke_s}
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=1))
@@ -517,23 +578,12 @@ def main() -> int:
     return 0
 
 
-def bound(in_bytes, out_bytes, flops):
-    """(bound ms, what bounds it) on the H100's published peaks (data sheet,
-    700 W): bytes over 3.35 TB/s, float32 operations over 67 TFLOP/s (the
-    kernels compute in float32 whatever the storage type)."""
-    from repro_torch import hw
-
-    t_bytes = (in_bytes + out_bytes) / hw.H100.hbm_bandwidth * 1e3
-    t_ops = flops / hw.H100.peak_f32_flops * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
-
-
 def block_row(ph, torch, stencil3d) -> dict:
     """The path's first fuse-group kernel against its plain version on the
     inputs the path gives it, and its times."""
+    from repro_torch.analysis.stencil_roofline import (kernel_traffic,
+                                                       roofline_seconds)
     from repro_torch.core import boundary as bc
-    from repro_torch.core.ir import count_flops
     from repro_torch.kernels import build
 
     p, ex, grid = ph["p"], ph["ex"], ph["grid"]
@@ -582,15 +632,13 @@ def block_row(ph, torch, stencil3d) -> dict:
     del got, want
     ms = time_ms(kernel, inner=20, queued=True)
     plain_ms = time_ms(plain, inner=1)
-    pts = int(grid[0] * grid[1] * grid[2])
     # each input's grid points read once, each output written once (the
     # halo and alignment slabs of the windows are padding, not data)
-    in_bytes = len(call.group_inputs) * pts * call.itemsize
-    in_bytes += sum(grid[call.coeff_axis[c]] * call.itemsize
-                    for c in call.group_coeffs)
-    out_bytes = pts * call.itemsize * len(call.group_outputs)
-    flops = pts * sum(count_flops(p.ops[i].expr) for i in call.group)
-    bound_ms, bound_by = bound(in_bytes, out_bytes, flops)
+    min_bytes, flops = kernel_traffic(
+        p, grid, call.group_inputs, call.group_outputs,
+        [p.ops[i].expr for i in call.group], call.itemsize,
+        coeffs=call.group_coeffs)
+    bound_s, bound_by = roofline_seconds(min_bytes, flops)
     cta = call.cta
     ptxas = ptxas_stats(build.ptxas_report(call.module.source))
     digest = source_digest(call.module.source)
@@ -612,7 +660,7 @@ def block_row(ph, torch, stencil3d) -> dict:
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
+        "bound_ms": bound_s * 1e3,
         "bound_by": bound_by,
         "library_ms": None,
         "launches_per_step": ph["launches"] / (ph["steps"] or 1),
@@ -624,7 +672,7 @@ def block_row(ph, torch, stencil3d) -> dict:
         **ptxas,
         "gen_flops_per_point": call.flops_per_point(),
         "staged_bytes_per_point": call.staged_bytes_per_point(),
-        "min_bytes": in_bytes + out_bytes,
+        "min_bytes": min_bytes,
         "source_sha256": digest,
     }
 
@@ -634,7 +682,8 @@ def stream_row(ph, torch, stream3d) -> dict:
     arguments the path gives it (captured from one more run), and its
     times per step: each call's time times its launches in the path, over
     the path's steps."""
-    from repro_torch.core.ir import count_flops
+    from repro_torch.analysis.stencil_roofline import (kernel_traffic,
+                                                       roofline_seconds)
     from repro_torch.kernels import build
 
     p, ex, grid = ph["p"], ph["ex"], ph["grid"]
@@ -658,8 +707,7 @@ def stream_row(ph, torch, stream3d) -> dict:
         stream3d.StreamCall.__call__ = launch
     torch.cuda.synchronize()
     steps = ph["steps"] or 1
-    pts = int(grid[0] * grid[1] * grid[2])
-    err = rel = ms = plain_ms = in_bytes = out_bytes = flops = 0.0
+    err = rel = ms = plain_ms = min_bytes = flops = 0.0
     calls = []
     for call in ex.kernels:
         n, (padded, svec, pc, origin, ipad) = captured[id(call)]
@@ -684,18 +732,15 @@ def stream_row(ph, torch, stream3d) -> dict:
         c_ms = time_ms(kernel, inner=20, queued=True)
         # each region input's grid points read once and each stored field
         # written once a sweep; operations: every op and update a stage
-        c_in = (len(call.group_inputs) * pts * call.itemsize
-                + sum(grid[call.coeff_axis[c]] * call.itemsize
-                      for c in call.group_coeffs))
-        c_out = len(call.group_outputs) * pts * call.itemsize
-        c_flops = pts * call.T * (
-            sum(count_flops(op.expr) for op in call.ops)
-            + sum(count_flops(e) for e in (call.update_exprs or {}).values()))
+        c_bytes, c_flops = kernel_traffic(
+            p, grid, call.group_inputs, call.group_outputs,
+            [op.expr for op in call.ops]
+            + list((call.update_exprs or {}).values()),
+            call.itemsize, coeffs=call.group_coeffs, times=call.T)
         err, rel = max(err, c_err), max(rel, c_rel)
         ms += c_ms * n / steps
         plain_ms += c_plain * n / steps
-        in_bytes += c_in * n / steps
-        out_bytes += c_out * n / steps
+        min_bytes += c_bytes * n / steps
         flops += c_flops * n / steps
         cta = call.cta
         ptxas = ptxas_by_entry(build.ptxas_report(call.module.source)).get(
@@ -732,7 +777,9 @@ def stream_row(ph, torch, stream3d) -> dict:
     if rel > ph["tol"]:
         raise SystemExit(f"{ph['name']}: a sweep kernel disagrees with its "
                          "plain version")
-    bound_ms, bound_by = bound(in_bytes, out_bytes, flops)
+    bound_s, bound_by = roofline_seconds(min_bytes, flops)
+    digest = source_digest(ex.kernels[0].module.source)
+    log(f"{ph['name']}: generated source sha256 {digest}")
     return {
         "name": f"stream3d.build_stream_call[{ph['name']} "
                 f"{'x'.join(map(str, grid))} {ph['dtype']}]",
@@ -743,14 +790,155 @@ def stream_row(ph, torch, stream3d) -> dict:
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
+        "bound_ms": bound_s * 1e3,
         "bound_by": bound_by,
         "library_ms": None,
         "launches_per_step": ph["launches"] / steps,
         "max_rel_err": rel,
-        "min_bytes_per_step": in_bytes + out_bytes,
+        "min_bytes_per_step": min_bytes,
+        "source_sha256": digest,
         "calls": calls,
     }
+
+
+def tuner_phase(seed, torch) -> list:
+    """The measured plan search at full size, each problem with a plan
+    cache in a fresh temporary file: ``pw_advection`` at 512x256x256
+    (fused ``steps=10`` with the update: loop mode) and
+    ``tracer_advection`` at 256x256x128 (single step).  Every measured
+    candidate's executables run again on seeded inputs and are held
+    against ``torch_fused``; the winner is no slower than the
+    ``auto_plan`` seed; a second ``strategy="tuned"`` compile through the
+    file is a cache hit with no timed run; the tuned and ``auto_plan``
+    executables are timed in turns.  Returns one record a problem."""
+    import tempfile
+
+    from repro_torch import compile_program
+    from repro_torch.apps import (pw_advection, pw_advection_update,
+                                  tracer_advection)
+    from repro_torch.core import PlanCache, TuneConfig, tune_plan
+    from repro_torch.interop import inputs_from_numpy
+    from repro_torch.kernels import stencil3d, stream3d
+    from repro_torch.obs import global_metrics
+
+    problems = [("pw_advection", pw_advection, PW_GRID, PW_STEPS,
+                 pw_advection_update(0.1)),
+                ("tracer_advection", tracer_advection, TRACER_GRID, None,
+                 None)]
+    records = []
+    timed = global_metrics().counter("tune.timed_runs")
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, app, grid, steps, update in problems:
+            p = app("zero")
+            path = str(Path(tmp) / f"{name}.json")
+            cfg = TuneConfig(max_measured=8, repeats=3,
+                             **({"steps": steps} if steps else {}))
+            stencil3d.launches = stream3d.launches = 0
+            res = tune_plan(p, grid, update=update, config=cfg,
+                            cache=PlanCache(path), device="cuda")
+            torch.cuda.synchronize()
+            tune_launches = {"block": stencil3d.launches,
+                             "stream": stream3d.launches}
+            rec = res.record
+            log(f"tune {name} {'x'.join(map(str, grid))}: "
+                f"{rec['candidates']} candidates, {rec['measured']} measured,"
+                f" {rec['tune_seconds']:.1f} s ({rec['build_seconds']:.1f} s "
+                f"of it nvcc, one build_many); launches {tune_launches}")
+            base = res.baseline
+            fused = steps is not None
+            cands = []
+            for c in res.measured:
+                eff = c.plan.stream if c.plan.stream is not None else c.plan
+                cands.append({
+                    "label": c.label, "schedule": c.plan.schedule,
+                    "groups": len(c.plan.groups), "block": list(c.plan.block),
+                    "time_tile": int(eff.time_tile),
+                    "plane_tile": int(eff.plane_tile),
+                    "carry_write": c.carry_write,
+                    "modeled_us": c.modeled_s * 1e6,
+                    "us_single": c.us_single, "us_fused": c.us_fused,
+                    "us_fused_per_step": (c.us_fused / steps if fused
+                                          else None),
+                    "roofline_fraction": c.roofline_fraction})
+                log(f"  {c.label}: modeled {c.modeled_s * 1e6:.1f} us/step, "
+                    f"single {c.us_single:.1f} us"
+                    + (f", fused x{steps} {c.us_fused:.1f} us "
+                       f"({c.us_fused / steps:.1f} a step)" if fused else "")
+                    + f", roofline fraction {c.roofline_fraction:.3f}")
+            winner = res.measured[0]
+            log(f"tune {name}: winner {winner.label} score "
+                f"{winner.score():.1f} us against auto_plan {base.score():.1f}"
+                f" us")
+            if winner.score() > base.score():
+                raise SystemExit(f"tune {name}: the winner is slower than "
+                                 "the auto_plan seed")
+            if tune_launches["block"] < 1 or tune_launches["stream"] < 1:
+                raise SystemExit(f"tune {name}: a generated kernel was not "
+                                 "launched")
+
+            # every measured candidate against torch_fused on seeded inputs
+            f, s, c = make_inputs(p, grid, seed)
+            inputs = inputs_from_numpy(f, s, c, "cuda", "float32")
+            modes = [(None, 1e-5)] + ([(steps, 1e-4)] if fused else [])
+            wants = {}
+            for n, _ in modes:
+                kw = {} if n is None else dict(steps=n, update=update)
+                wants[n] = compile_program(p, grid, backend="torch_fused",
+                                           **kw)(*inputs)
+            worst = 0.0
+            for c, row in zip(res.measured, cands):
+                for n, tol in modes:
+                    kw = {} if n is None else dict(
+                        steps=n, update=update, carry_write=c.carry_write)
+                    ex = compile_program(p, grid, plan=c.plan, **kw)
+                    stencil3d.launches = stream3d.launches = 0
+                    got = ex(*inputs)
+                    torch.cuda.synchronize()
+                    launched = stencil3d.launches + stream3d.launches
+                    err = max(rel_err(got[k], wants[n][k])
+                              for k in wants[n])
+                    del got
+                    row["err_single" if n is None else "err_fused"] = err
+                    worst = max(worst, err)
+                    if launched < 1 or err > tol:
+                        raise SystemExit(
+                            f"tune {name} {c.label} (steps {n}): {launched} "
+                            f"launches, max rel err {err:.3e} against "
+                            f"torch_fused (tol {tol})")
+            del wants
+            log(f"tune {name}: all {len(cands)} measured candidates match "
+                f"torch_fused (worst max rel err {worst:.3e})")
+
+            # the tuned compile through the file: a hit, no timed run
+            kw = {} if not fused else dict(steps=steps, update=update)
+            cache = PlanCache(path)
+            before = timed.value
+            ex_t = compile_program(p, grid, strategy="tuned",
+                                   plan_cache=cache, tune_config=cfg, **kw)
+            if cache.hits != 1 or cache.misses or timed.value != before:
+                raise SystemExit(f"tune {name}: the second tuned compile "
+                                 f"was no pure cache hit (hits {cache.hits},"
+                                 f" misses {cache.misses}, timed runs "
+                                 f"{timed.value - before})")
+            ex_a = compile_program(p, grid, **kw)
+            tuned_ms, auto_ms = time_in_turns(
+                [lambda: ex_t(*inputs), lambda: ex_a(*inputs)])
+            per = steps or 1
+            log(f"tune {name}: cache hit, 0 timed runs; in turns a step: "
+                f"tuned ({winner.label}) {tuned_ms / per:.4f} ms, auto_plan "
+                f"{auto_ms / per:.4f} ms")
+            del inputs, ex_t, ex_a
+            records.append({
+                "program": name, "grid": list(grid), "steps": steps,
+                "candidates": rec["candidates"], "measured": cands,
+                "winner": winner.label, "baseline_score_us": base.score(),
+                "winner_score_us": winner.score(),
+                "tune_seconds": rec["tune_seconds"],
+                "build_seconds": rec["build_seconds"],
+                "tune_launches": tune_launches,
+                "tuned_step_ms": tuned_ms / per,
+                "auto_step_ms": auto_ms / per})
+    return records
 
 
 def device_profile(fn, torch) -> dict:

@@ -1,5 +1,6 @@
-# Stencil-HMLS core on PyTorch: stencil IR, halo passes, the block-schedule
-# dataflow plan, the pure-torch lowerings and the CUDA kernel orchestrator.
+# Stencil-HMLS core on PyTorch: stencil IR, halo passes, the dataflow plan,
+# the pure-torch lowerings, the CUDA kernel orchestrator and the measured
+# plan search.
 from .frontend import (CoeffHandle, ExprHandle, FieldHandle, ProgramBuilder,
                        absolute, exp, log, maximum, minimum, sign, sqrt,
                        tanh, where)
@@ -10,3 +11,4 @@ from .pipeline import (CompiledStencil, CompileOptions, TileDemotionWarning,
 from .schedule import (DataflowPlan, StreamSpec, TimeLoopSpec, adapt_update,
                        auto_plan, plan_from_dict, plan_time_loop,
                        plan_to_dict, program_fingerprint, smem_cost)
+from .tune import PlanCache, TuneConfig, get_tuned_plan, tune_plan

@@ -39,7 +39,6 @@ _BACKENDS = ("cuda", "torch_fused", "torch_naive")
 #: ROADMAP items that port what this compile path still refuses
 _LATER = {
     "mesh": "ROADMAP A7 (distribution)",
-    "tuned": "ROADMAP A6 (roofline and tuner)",
 }
 
 
@@ -61,8 +60,16 @@ class CompileOptions:
     orchestration on the CPU (the ``"cuda"`` backend then uses each
     kernel's plain PyTorch version).
 
-    ``mesh=`` and ``strategy="tuned"`` raise ``NotImplementedError``
-    naming the ROADMAP item that ports them.
+    ``strategy="tuned"`` replaces the ``auto_plan`` heuristic with the
+    measured search of :mod:`repro_torch.core.tune` on ``device``:
+    ``plan_cache`` (:class:`~repro_torch.core.tune.PlanCache`) is consulted
+    first, and a miss measures the model-pruned candidates and stores the
+    winner; ``tune_config`` (:class:`~repro_torch.core.tune.TuneConfig`)
+    sets the search's knobs.  ``carry_write=None`` defers to the tuned
+    style (``"repad"`` under any other strategy).
+
+    ``mesh=`` raises ``NotImplementedError`` naming the ROADMAP item that
+    ports it.
     """
 
     backend: str = "cuda"
@@ -72,6 +79,8 @@ class CompileOptions:
     steps: int | None = None
     update: object = None
     carry_write: str | None = None
+    tune_config: object = None
+    plan_cache: object = None
     mesh: object = None
     mesh_axes: tuple | None = None
     boundary: object = None
@@ -217,14 +226,18 @@ def _compile(p: Program, grid, o: CompileOptions, tracer,
             "the fused loop: pass steps=N and update=")
     if o.mesh is not None or o.mesh_axes is not None:
         raise NotImplementedError(f"mesh= is not ported yet: {_LATER['mesh']}")
-    if o.strategy == "tuned":
-        raise NotImplementedError(
-            f"strategy='tuned' is not ported yet: {_LATER['tuned']}")
     device = resolve_device(o.device)
     if o.boundary is not None:
         p = p.with_boundary(o.boundary)
 
-    if plan is None:
+    tuned = None
+    if plan is None and o.strategy == "tuned":
+        from . import tune
+        tuned = tune.get_tuned_plan(p, grid, backend=backend, dtype=dtype,
+                                    update=update, config=o.tune_config,
+                                    cache=o.plan_cache, device=device)
+        plan, carry_write = tuned.plan, carry_write or tuned.carry_write
+    elif plan is None:
         plan = auto_plan(p, grid, backend=backend, dtype=dtype,
                          strategy=o.strategy, steps=steps,
                          schedule=o.schedule or "block",
@@ -291,11 +304,15 @@ def _compile(p: Program, grid, o: CompileOptions, tracer,
                plane_tile=int(eff.plane_tile), steps=steps,
                device=str(device))
         if o.plan is None:
+            rec = tuned.record if tuned is not None else {}
             tracer.emit(PlanChosen(
                 program=p.name, backend=backend, schedule=plan.schedule,
-                strategy=o.strategy, label="auto_plan",
+                strategy=o.strategy, label=rec.get("label", "auto_plan"),
                 time_tile=int(eff.time_tile),
-                plane_tile=int(eff.plane_tile)))
+                plane_tile=int(eff.plane_tile),
+                modeled_us=rec.get("modeled_us"),
+                measured_us=rec.get("us_fused") or rec.get("us_single"),
+                roofline_fraction=rec.get("roofline_fraction")))
     return CompiledStencil(program=p, plan=plan, grid=grid, _fn=fn,
                            device=device, time_spec=time_spec,
                            kernels=list(getattr(fn, "calls", [])))

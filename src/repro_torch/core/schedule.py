@@ -993,23 +993,24 @@ def sweep_chunk(n0: int, n_tiles: int, ctas_per_sm: int, extra: int) -> int:
     return -(-n0 // n)
 
 
-def pick_block(p: Program, groups: list, grid: Sequence[int], dtype: str,
-               smem_budget: int) -> tuple:
-    """The block kernel's tile.  Its plane tile is the one among
-    :data:`OUTER_TILES` x :data:`LANE_TILES` (the axis before the
-    contiguous one, and the contiguous one; clipped to the grid) whose
-    CTAs (:func:`plan_block_cta`) fit ``smem_budget`` and that keeps the
-    most threads resident per SM (at :data:`BLOCK_REGS` registers a
-    thread), then at least two CTAs an SM (one CTA's
-    barriers leave the SM to the other), then stages the fewest bytes per grid
-    point, then generates the fewest operations per point, then is the
-    largest.  On a 3-D program ``block[0]`` is the chunk of axis 0 one CTA
-    sweeps (:func:`sweep_chunk`, with the groups' deepest warm-up)."""
+def feasible_blocks(p: Program, groups: list, grid: Sequence[int],
+                    dtype: str, smem_budget: int) -> list:
+    """Every block kernel tile whose CTAs fit ``smem_budget``, best first
+    (the order :func:`pick_block` ranks by, ties in enumeration order).
+    Plane tiles range over :data:`OUTER_TILES` x :data:`LANE_TILES` (the
+    axis before the contiguous one, and the contiguous one; clipped to the
+    grid), ranked by the threads resident per SM (at :data:`BLOCK_REGS`
+    registers a thread), then at least two CTAs an SM (one CTA's barriers
+    leave the SM to the other), then the fewest bytes staged per grid
+    point, then the fewest operations generated per point, then the
+    largest tile.  On a 3-D program ``block[0]`` is the chunk of axis 0
+    one CTA sweeps (:func:`sweep_chunk`, with the groups' deepest
+    warm-up).  Raises when no tile fits."""
     grid = tuple(int(g) for g in grid)
     sweep = len(grid) == 3
     axes = [sorted({min(t, g) for t in OUTER_TILES}) for g in grid[-2:-1]]
     axes.append(sorted({min(t, grid[-1]) for t in LANE_TILES}))
-    best, best_key, smallest = None, None, None
+    ranked, smallest = [], None
     for tile in itertools.product(*axes):
         blk = (1,) * sweep + tile
         ctas = [plan_block_cta(p, grp, blk, dtype) for grp in groups]
@@ -1026,15 +1027,21 @@ def pick_block(p: Program, groups: list, grid: Sequence[int], dtype: str,
                                max(c.warmup for c in ctas)),) + tile
             ctas = [dataclasses.replace(c, tile=blk) for c in ctas]
         staged, ops = np.sum([c.traffic(grid) for c in ctas], axis=0)
-        key = (threads, min(per_sm, 2), -staged, -ops,
-               int(np.prod(tile)))
-        if best_key is None or key > best_key:
-            best, best_key = blk, key
-    if best is None:
+        key = (threads, min(per_sm, 2), -staged, -ops, int(np.prod(tile)))
+        ranked.append((key, tuple(int(b) for b in blk)))
+    if not ranked:
         raise ValueError(
             f"no tile of {p.name!r} fits {smem_budget} B of shared memory "
             f"(smallest plane tile {smallest[0]} needs {smallest[1]} B)")
-    return tuple(int(b) for b in best)
+    # a stable sort: equal keys keep their enumeration order
+    ranked.sort(key=lambda kb: kb[0], reverse=True)
+    return [blk for _, blk in ranked]
+
+
+def pick_block(p: Program, groups: list, grid: Sequence[int], dtype: str,
+               smem_budget: int) -> tuple:
+    """The block kernel's tile: the first of :func:`feasible_blocks`."""
+    return feasible_blocks(p, groups, grid, dtype, smem_budget)[0]
 
 
 def auto_plan(p: Program, grid: Sequence[int], *, backend: str = "cuda",

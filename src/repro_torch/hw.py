@@ -30,6 +30,7 @@ class ChipSpec:
     l2_bytes: int
     peak_f32_flops: float       # FLOP/s, CUDA cores
     peak_bf16_flops: float      # FLOP/s, dense bf16 on the tensor cores
+    power_watts: float          # board power limit the peaks assume (W)
 
 
 H100 = ChipSpec(
@@ -46,6 +47,7 @@ H100 = ChipSpec(
     l2_bytes=50 * 1024**2,
     peak_f32_flops=67e12,
     peak_bf16_flops=989e12,
+    power_watts=700.0,
 )
 
 # field storage dtypes the planner and cost models understand

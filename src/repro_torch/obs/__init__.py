@@ -1,7 +1,11 @@
 """repro_torch.obs — tracing and metrics, copied from the reference
 package (pure Python): nested spans, typed events and a metrics registry
-that the compile path emits into.  Off by default."""
+that the compile path emits into, off by default; and the achieved
+roofline (:mod:`repro_torch.obs.achieved`): measured time as a fraction
+of the H100 plan model's prediction."""
 
+from .achieved import (AchievedResult, achieved_fraction, best_of,
+                       fraction_for, measure_achieved, model_call_seconds)
 from .events import (CacheHit, CacheMiss, ChainDemoted, ExecutorEvicted,
                      PlanChosen, PlaneDemoted)
 from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
@@ -15,4 +19,6 @@ __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "global_metrics",
     "NULL", "TRACE_ENV", "NullTracer", "Tracer", "current_tracer",
     "resolve_tracer", "set_tracer",
+    "AchievedResult", "achieved_fraction", "best_of", "fraction_for",
+    "measure_achieved", "model_call_seconds",
 ]

@@ -234,6 +234,95 @@ def test_stream_kernels_take_16_byte_copies_on_the_card(boundary, dtype,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("app,fused", [(pw_advection, True),
+                                       (tracer_advection, False)],
+                         ids=["pw-loop", "tracer-single"])
+def test_tuned_candidates_match_torch_fused_on_the_card(app, fused):
+    """A tiny tune on the card that measures every candidate (each
+    strategy's top planner tiles, every sweep T x P, both carry styles;
+    all built by one build_many, timed by CUDA events): the search
+    launches both generated kernels, and every candidate's executables
+    (single step, and the fused loop with its carry style) match
+    ``torch_fused``."""
+    from repro_torch.core import PlanCache, TuneConfig, tune_plan
+    from repro_torch.kernels import stream3d
+
+    _needs_card()
+    p = app()
+    grid = (20, 18, 100)
+    update = ((pw_advection_update(0.1) if app is pw_advection
+               else tracer_advection_update()) if fused else None)
+    stencil3d.launches = stream3d.launches = 0
+    res = tune_plan(p, grid, update=update, cache=PlanCache(path=None),
+                    config=TuneConfig(steps=4, max_measured=1000,
+                                      repeats=1))
+    assert res.record["measured"] == res.record["candidates"]
+    assert stencil3d.launches > 0 and stream3d.launches > 0
+    assert res.record["device"] == torch.cuda.get_device_name()
+    assert res.measured[0].score() <= res.baseline.score()
+    f, s, c = _inputs(p, grid)
+    modes = [({}, 1e-5)] + ([(dict(steps=4, update=update), 1e-4)]
+                            if fused else [])
+    for kw, tol in modes:
+        want = compile_program(p, grid, backend="torch_fused", **kw)(f, s, c)
+        for cand in res.measured:
+            cw = dict(carry_write=cand.carry_write) if kw else {}
+            got = compile_program(p, grid, plan=cand.plan, **kw, **cw)(
+                f, s, c)
+            for k in want:
+                assert _rel_err(got[k], want[k]) <= tol, (cand.label, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("app,strategy", [(pw_advection, "auto"),
+                                          (tracer_advection, "auto"),
+                                          (tracer_advection, "per_field")])
+def test_every_planner_tile_on_the_card(app, strategy):
+    """Every tile the block planner ranks (``schedule.feasible_blocks``:
+    outer tiles 1 to 16, lane tiles 32, 64 and the ragged 100, each with
+    its chunk) on a grid whose chunks leave ragged last CTAs, single step
+    and a 3-step fused loop, against ``torch_fused``; all the sources
+    built by one build_many first."""
+    import dataclasses
+
+    from repro_torch.core.schedule import feasible_blocks
+    from repro_torch.kernels import build
+
+    _needs_card()
+    p = app()
+    grid = (130, 70, 100)
+    upd = (pw_advection_update(0.1) if app is pw_advection
+           else tracer_advection_update())
+    base = compile_program(p, grid, strategy=strategy).plan
+    blocks = feasible_blocks(p, base.groups, grid, "float32", 232_448)
+    assert {b[1] for b in blocks} >= {1, 2} and {b[2] for b in blocks} \
+        >= {32, 64, 100}
+    exes = []
+    for blk in blocks:
+        plan = dataclasses.replace(base, block=blk,
+                                   groups=[list(g) for g in base.groups])
+        exes.append((blk, {}, compile_program(p, grid, plan=plan)))
+        exes.append((blk, dict(steps=3, update=upd), compile_program(
+            p, grid, plan=plan, steps=3, update=upd,
+            carry_write="inplace")))
+    build.build_many([ex.kernels[0].module.source for _, _, ex in exes])
+    f, s, c = _inputs(p, grid)
+    wants = {}
+    for blk, kw, ex in exes:
+        key = tuple(kw)
+        if key not in wants:
+            wants[key] = compile_program(p, grid, backend="torch_fused",
+                                         **kw)(f, s, c)
+        before = stencil3d.launches
+        got = ex(f, s, c)
+        torch.cuda.synchronize()
+        assert stencil3d.launches > before
+        for k in wants[key]:
+            assert _rel_err(got[k], wants[key][k]) <= (1e-4 if kw
+                                                       else 1e-5), (blk, k)
+
+
+@pytest.mark.cuda
 def test_stream_float64_raises_on_the_card():
     _needs_card()
     p = pw_advection()

@@ -210,11 +210,23 @@ def test_entry_points_default_to_the_card():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(mesh=object()), "A7"),
-    (dict(strategy="tuned"), "A6"),
 ])
 def test_unported_options_raise_naming_the_roadmap_item(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         compile_program(pw_advection(), (8, 8, 32), device="cpu", **kw)
+
+
+def test_tuned_strategy_compiles_on_the_cpu(tmp_path):
+    """``strategy="tuned"`` searches on the CPU (plain versions, host
+    clock) and stores its winner where ``plan_cache`` says."""
+    from repro_torch.core import PlanCache, TuneConfig
+
+    path = tmp_path / "plans.json"
+    ex = compile_program(pw_advection(), (8, 8, 32), device="cpu",
+                         strategy="tuned",
+                         tune_config=TuneConfig(max_measured=2, repeats=1),
+                         plan_cache=PlanCache(str(path)))
+    assert ex.plan.backend == "cuda" and path.exists()
 
 
 def test_unknown_option_and_backend_are_rejected():

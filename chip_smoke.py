@@ -25,6 +25,18 @@ Stream schedule (``schedule="stream"``, generated CUDA sweep kernels):
    zero fused ``steps=4``, periodic single step (eight regions);
 6. ``pw_advection`` in bfloat16 at 256x256x128, a zero single step.
 
+Stencil serving (``repro_torch.serve.StencilEngine``, after the tuner
+phase): requests of 8M points, from ``--seed``, served in batches of 4
+(each generated kernel launches once a step for the batch): pw fused x10
+(16 requests to the 256x256x128 bucket, 8 to 192x192x96), pw periodic
+fused x10 (4), tracer single steps (8), and a stream engine asked for
+time_tile 2 (4 pw requests; the chain demotes to 1).  A warm pass must
+compile no executor and build no kernel; every answer is held against its
+exact grid's ``compile_program``; on each bucket a batch of up to 4
+against batches of 1 (bit-equal, as many launches) and its batched kernel
+against its batched plain version, timed; requests a second and p50/p99
+for each phase, and pw fused with ``max_batch`` 1 in turns.
+
 LM serving (the hand-written CUDA sliding-window attention kernels:
 ``swa_mma.cu`` on the tensor cores for bfloat16, ``swa.cu`` for float32):
 
@@ -129,6 +141,16 @@ BF16_GRID = (256, 256, 128)
 SMALL_GRID = (20, 18, 100)
 PW_STEPS, TRACER_STEPS = 10, 4
 
+# the serving phase's request grids, drawn per axis from these inclusive
+# ranges; with a program's reach added each set rounds to one bucket
+# (hw.BUCKET_LANE 32): pw (reach 1 a side) to 256x256x128, the paper's 8M
+# grid, and to 192x192x96; tracer (reach 4) to 256x256x128 (from 217: 216
+# + 8 would round to 224)
+SERVE_PW_BIG = ((224, 254), (224, 254), (100, 126))
+SERVE_PW_SMALL = ((160, 190), (160, 190), (64, 94))
+SERVE_TRACER = ((217, 248), (217, 248), (96, 120))
+SERVE_BATCH, SERVE_WINDOW_S, SERVE_STEPS = 4, 0.005, 10
+
 LM_ARCH = "h2o_danube_1_8b"
 LM_BATCH, LM_PROMPT, LM_NEW = 2, 8192, 16
 LM_E2E_DEPTH, LM_E2E_SPLIT = 4, 7168     # prefill 7168, decode 1024
@@ -232,19 +254,25 @@ def ptxas_stats(report: str) -> dict:
 
 
 def ptxas_by_entry(report: str) -> dict:
-    """Registers and spill bytes of each kernel of a ``-Xptxas -v`` log
-    with several, by entry (``g0``, ``g1``, ...): the most that any
-    function compiled for the entry reports."""
+    """Registers and spill bytes of each generated kernel of a ``-Xptxas
+    -v`` log, by entry (``g0``, ``g1``, ...): the registers of its
+    one-element instantiation (``registers``, what a single request runs)
+    and of its batched one (``registers_batched``), and the most spill
+    bytes either reports."""
     out = {}
     for chunk in report.split("Compiling entry function '")[1:]:
-        m = re.match(r"_Z\d+(g\d+)_kernel", chunk)
+        m = re.match(r"_Z\d+(g\d+)_kernelILb([01])E", chunk)
         if m:
-            st = ptxas_stats(chunk)
-            spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes "
-                                r"spill loads", chunk)
-            st["spill_stores"] = max([int(a) for a, _ in spills] + [0])
-            st["spill_loads"] = max([int(b) for _, b in spills] + [0])
-            out[m.group(1)] = st
+            st = out.setdefault(m.group(1), {
+                "registers": None, "registers_batched": None,
+                "spill_stores": 0, "spill_loads": 0})
+            regs = re.findall(r"Used (\d+) registers", chunk)
+            key = "registers_batched" if m.group(2) == "1" else "registers"
+            st[key] = int(regs[-1]) if regs else None
+            for a, b in re.findall(r"(\d+) bytes spill stores, (\d+) bytes "
+                                   r"spill loads", chunk):
+                st["spill_stores"] = max(st["spill_stores"], int(a))
+                st["spill_loads"] = max(st["spill_loads"], int(b))
     return out
 
 
@@ -555,6 +583,11 @@ def main() -> int:
     tuner = tuner_phase(args.seed, torch)
     torch.cuda.empty_cache()
 
+    # ------------------------------------------------ stencil serving path
+    serve_rows, serve = serve_phase(args.seed, torch, card)
+    rows += serve_rows
+    torch.cuda.empty_cache()
+
     # --------------------------------------------------- LM serving path
     lm_rows, lm = lm_phase(args.seed, torch, swa)
     rows += lm_rows
@@ -565,7 +598,8 @@ def main() -> int:
     result = {"card": card, "card_properties": card_props,
               "torch": torch.__version__, "cuda": torch.version.cuda,
               "seed": args.seed, "kernels": rows, "paths": path_rows,
-              "tuner": tuner, "lm": lm, "seconds": smoke_s}
+              "tuner": tuner, "serve": serve, "lm": lm,
+              "seconds": smoke_s}
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=1))
@@ -584,6 +618,7 @@ def block_row(ph, torch, stencil3d) -> dict:
     from repro_torch.analysis.stencil_roofline import (kernel_traffic,
                                                        roofline_seconds)
     from repro_torch.core import boundary as bc
+    from repro_torch.core.lower_kernel import scalar_vector
     from repro_torch.kernels import build
 
     p, ex, grid = ph["p"], ph["ex"], ph["grid"]
@@ -610,7 +645,9 @@ def block_row(ph, torch, stencil3d) -> dict:
                           call.pad_hi[call.coeff_axis[c]],
                           bc.coeff_mode(p)).contiguous()
           for c in call.group_coeffs}
-    svec = [float(scalars[k]) for k in p.scalars]
+    # the scalar rows the kernel reads, on the card once (a list of
+    # numbers would cross to the card at every timed launch)
+    svec = scalar_vector(p, scalars, "cuda")
 
     def kernel():
         return call(padded, svec, pc, input_pad=ipad)
@@ -640,13 +677,15 @@ def block_row(ph, torch, stencil3d) -> dict:
         coeffs=call.group_coeffs)
     bound_s, bound_by = roofline_seconds(min_bytes, flops)
     cta = call.cta
-    ptxas = ptxas_stats(build.ptxas_report(call.module.source))
+    ptxas = ptxas_by_entry(build.ptxas_report(call.module.source)).get(
+        call.entry, ptxas_stats(""))
     digest = source_digest(call.module.source)
     log(f"{ph['name']}: generated source sha256 {digest}")
     log(f"{ph['name']}: CTA chunk {cta.tile[0]} tile {cta.tile[1:]}, "
         f"{call.threads[0] * call.threads[1]} threads, {call.smem_bytes} B "
         f"shared memory, {cta.ctas_per_sm} CTAs an SM planned; ptxas "
-        f"{ptxas['registers']} registers, spill stores "
+        f"{ptxas['registers']} registers ({ptxas.get('registers_batched')} "
+        "batched), spill stores "
         f"{ptxas['spill_stores']} B, loads {ptxas['spill_loads']} B; "
         f"{call.flops_per_point():.1f} generated operations and "
         f"{call.staged_bytes_per_point():.1f} staged bytes a point")
@@ -766,7 +805,8 @@ def stream_row(ph, torch, stream3d) -> dict:
             f"planned, {call.P} planes in flight, "
             f"{call.barriers_per_plane():g} barriers a plane, "
             f"{call.staged_bytes_per_point():.1f} staged bytes a point; "
-            f"ptxas {ptxas['registers']} registers, spill stores "
+            f"ptxas {ptxas['registers']} registers "
+            f"({ptxas.get('registers_batched')} batched), spill stores "
             f"{ptxas['spill_stores']} B, loads {ptxas['spill_loads']} B")
         if ptxas["registers"] is None:
             raise SystemExit(f"{ph['name']}: no ptxas report for "
@@ -939,6 +979,313 @@ def tuner_phase(seed, torch) -> list:
                 "tuned_step_ms": tuned_ms / per,
                 "auto_step_ms": auto_ms / per})
     return records
+
+
+def serve_traffic(seed) -> dict:
+    """The serving phase's requests, from ``seed`` with numpy: per phase
+    the engine's compile knobs, the requests and the tolerance of an answer
+    against the port's own compile of its exact grid.  Scalars differ per
+    request (scaled by 0.5-1.5), so a batch's elements read their own."""
+    import numpy as np
+
+    from repro_torch.apps import (pw_advection, pw_advection_update,
+                                  tracer_advection)
+    from repro_torch.serve import StencilRequest
+
+    rng = np.random.default_rng(seed + 18)
+
+    def reqs(app, boundary, ranges, n, steps):
+        out = []
+        for _ in range(n):
+            grid = tuple(int(rng.integers(lo, hi + 1)) for lo, hi in ranges)
+            p = app(boundary)
+            f, sc, c = make_inputs(p, grid, int(rng.integers(1 << 30)))
+            sc = {k: np.float32(v * rng.uniform(0.5, 1.5))
+                  for k, v in sc.items()}
+            kw = ({} if steps is None else dict(
+                steps=steps, update=pw_advection_update(0.1),
+                update_key="pw_advection_update(0.1)"))
+            out.append(StencilRequest(program=p, fields=f, scalars=sc,
+                                      coeffs=c, **kw))
+        return out
+
+    big = reqs(pw_advection, "zero", SERVE_PW_BIG, 16, SERVE_STEPS)
+    return {
+        "pw_fused": dict(engine={}, tol=1e-4, reqs=big + reqs(
+            pw_advection, "zero", SERVE_PW_SMALL, 8, SERVE_STEPS)),
+        "pw_periodic": dict(engine={}, tol=1e-4, reqs=reqs(
+            pw_advection, "periodic", SERVE_PW_BIG, 4, SERVE_STEPS)),
+        "tracer_step": dict(engine={}, tol=1e-5, reqs=reqs(
+            tracer_advection, "zero", SERVE_TRACER, 8, None)),
+        "pw_stream": dict(engine=dict(schedule="stream", time_tile=2),
+                          tol=1e-4, reqs=big[:4]),
+    }
+
+
+def serve_pass(eng, reqs, torch):
+    """All of ``reqs`` submitted at once and answered; (results, seconds
+    from the first submit to the last answer)."""
+    t0 = time.perf_counter()
+    res = eng.map(reqs, timeout=600)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def serve_phase(seed, torch, card) -> tuple:
+    """The stencil serving engine at the paper's 8M grid
+    (``repro_torch.serve.StencilEngine``, ``max_batch`` 4, a 5 ms window):
+    pw fused x10 (16 requests to the 256x256x128 bucket, 8 to 192x192x96),
+    pw periodic fused x10 (4), tracer single steps (8), and a stream engine
+    asked for time_tile 2 (4 pw fused requests; the bucket's update rule
+    is not plane-local, so the chain demotes to 1).  Each phase: a warm-up
+    pass (executor compiles, kernel builds), then the measured pass with
+    the launch counts zeroed before it and read after it, which must build
+    no kernel and compile no executor.  Every answer is held against the
+    port's own ``compile_program`` of its exact grid on the card
+    (``torch_fused``; the first request also ``cuda``); on each bucket a
+    batch of up to 4 is bit-equal to batches of 1 and makes as many
+    launches as one; each bucket's batched kernel is held against its
+    batched plain version and timed (queued), the first bucket's giving
+    the phase's kernel row.  pw fused is also served with ``max_batch`` 1,
+    in turns with the batched engine.  Returns (kernel rows, record)."""
+    from repro_torch import compile_program
+    from repro_torch.analysis.stencil_roofline import (kernel_traffic,
+                                                       roofline_seconds)
+    from repro_torch.kernels import build, stencil3d, stream3d
+    from repro_torch.serve import StencilEngine
+
+    t_phase = time.perf_counter()
+    traffic = serve_traffic(seed)
+    # the first request of each phase compiled on its exact grid with the
+    # generated kernels; their sources built together
+    direct = {}
+    for name, ph in traffic.items():
+        r = ph["reqs"][0]
+        kw = ({} if r.steps is None else
+              dict(steps=r.steps, update=r.update))
+        direct[name] = compile_program(r.program, r.grid(),
+                                       schedule=ph["engine"].get("schedule"),
+                                       **kw)
+    build.build_many([ex.kernels[0].module.source
+                      for ex in direct.values()])
+    rows, record = [], {"card": card, "batch": SERVE_BATCH,
+                        "window_s": SERVE_WINDOW_S, "phases": {}}
+    for name, ph in traffic.items():
+        reqs, tol = ph["reqs"], ph["tol"]
+        eng = StencilEngine(max_batch=SERVE_BATCH, window_s=SERVE_WINDOW_S,
+                            **ph["engine"])
+        try:
+            t0 = time.perf_counter()
+            serve_pass(eng, reqs, torch)                   # warm-up
+            warm_s = time.perf_counter() - t0
+            st = eng.stats
+            before = {k: getattr(st, k) for k in (
+                "compiles", "traces", "batches", "padded_slots",
+                "exec_hits", "exec_misses", "completed")}
+            runs = build.runs
+            st.reset_latencies()
+            stencil3d.launches = stream3d.launches = 0
+            res, wall = serve_pass(eng, reqs, torch)
+            launched = {"block": stencil3d.launches,
+                        "stream": stream3d.launches}
+            moved = {k: getattr(st, k) - v for k, v in before.items()}
+            rec = {"requests": len(reqs), "warmup_s": warm_s,
+                   "seconds": wall, "req_per_s": len(reqs) / wall,
+                   "p50_ms": st.p50_ms(), "p99_ms": st.p99_ms(),
+                   "batches": moved["batches"],
+                   "padded_slots": moved["padded_slots"],
+                   "exec_hits": moved["exec_hits"],
+                   "exec_misses": moved["exec_misses"],
+                   "warm_compiles": moved["compiles"],
+                   "warm_kernel_sources": moved["traces"],
+                   "warm_nvcc_runs": build.runs - runs,
+                   "launches": launched}
+            kind = "stream" if ph["engine"].get("schedule") == "stream" \
+                else "block"
+            log(f"serve {name}: {len(reqs)} requests in {wall:.3f} s "
+                f"({rec['req_per_s']:.2f} req/s), p50 {rec['p50_ms']:.1f} ms,"
+                f" p99 {rec['p99_ms']:.1f} ms; {rec['batches']} batches, "
+                f"{rec['padded_slots']} padded slots, executor hits "
+                f"{rec['exec_hits']} misses {rec['exec_misses']}; warm: "
+                f"{rec['warm_compiles']} compiles, "
+                f"{rec['warm_kernel_sources']} kernel sources, "
+                f"{rec['warm_nvcc_runs']} nvcc runs; launches {launched} "
+                f"({card})")
+            if moved["compiles"] or moved["traces"] or build.runs != runs \
+                    or moved["exec_misses"]:
+                raise SystemExit(f"serve {name}: a warm request compiled an "
+                                 "executor or built a kernel")
+            if launched[kind] < 1:
+                raise SystemExit(f"serve {name}: no {kind} kernel launch")
+
+            # every answer against the port's compile of its exact grid
+            worst = 0.0
+            for i, (r, out) in enumerate(zip(reqs, res)):
+                kw = ({} if r.steps is None else
+                      dict(steps=r.steps, update=r.update))
+                wants = [compile_program(r.program, r.grid(),
+                                         backend="torch_fused", **kw)]
+                if i == 0:
+                    wants.append(direct[name])
+                for ex in wants:
+                    want = ex(r.fields, r.scalars, r.coeffs)
+                    err = max(rel_err(out.outputs[k], want[k]) for k in want)
+                    worst = max(worst, err)
+                    if err > tol or set(out.outputs) != set(want):
+                        raise SystemExit(
+                            f"serve {name} request {i} {r.grid()}: max rel "
+                            f"err {err:.3e} against {ex.plan.backend} on its "
+                            f"grid (tol {tol})")
+            rec["max_rel_err"] = worst
+            log(f"serve {name}: every answer vs compile_program on its exact "
+                f"grid (torch_fused; the first also cuda): max rel err "
+                f"{worst:.3e} (tol {tol})")
+
+            # each bucket's batch of up to 4 against batches of 1; the
+            # first bucket's kernel is the phase's row
+            by_bucket = {}
+            for r, out in zip(reqs, res):
+                by_bucket.setdefault(out.bucket.bucket, []).append(r)
+            rec["buckets"] = {}
+            for breqs in by_bucket.values():
+                key, f, sc, c = eng.batch_inputs(breqs[:SERVE_BATCH])
+                bex = eng.executor(key)
+                if kind == "stream":
+                    eff = bex.plan.stream.time_tile
+                    rec["time_tile"] = {"requested": 2, "effective": eff}
+                    log(f"serve {name}: time_tile 2 requested, effective "
+                        f"{eff}")
+                    if eff != 1:
+                        raise SystemExit(f"serve {name}: the chain did not "
+                                         "demote to time_tile 1")
+                row, bit = serve_batch_checks(
+                    name, bex, f, sc, c, tol, torch, stencil3d, stream3d,
+                    kernel_traffic, roofline_seconds)
+                rec["buckets"][bit.pop("bucket")] = bit
+                if not rows or rows[-1]["name"].split()[1] != name:
+                    row["launches"] = launched[kind]
+                    rows.append(row)
+
+            if name == "pw_fused":
+                one = StencilEngine(max_batch=1, window_s=SERVE_WINDOW_S)
+                try:
+                    serve_pass(one, reqs, torch)           # warm-up
+                    turns = {"batched": [], "max_batch_1": []}
+                    for _ in range(2):
+                        for k, e in (("batched", eng), ("max_batch_1", one)):
+                            turns[k].append(serve_pass(e, reqs, torch)[1])
+                finally:
+                    one.close()
+                rec["in_turns_req_per_s"] = {
+                    k: [len(reqs) / t for t in v] for k, v in turns.items()}
+                log(f"serve {name}: in turns, req/s batched "
+                    f"{rec['in_turns_req_per_s']['batched']}, max_batch 1 "
+                    f"{rec['in_turns_req_per_s']['max_batch_1']} ({card})")
+        finally:
+            eng.close()
+        record["phases"][name] = rec
+    record["seconds"] = time.perf_counter() - t_phase
+    log(f"serve phase: {record['seconds']:.1f} s")
+    return rows, record
+
+
+def serve_batch_checks(name, bex, fields, scalars, coeffs, tol, torch,
+                       stencil3d, stream3d, kernel_traffic,
+                       roofline_seconds) -> tuple:
+    """A bucket executor's batch against batches of one: bit-equal, and as
+    many launches; its first kernel, on the arguments the batch gives it,
+    against its batched plain version, timed (queued).  Returns (kernel
+    row without ``launches``, record)."""
+    B = next(iter(fields.values())).shape[0]
+    captured = {}
+    saved = (stencil3d.launch, stream3d.launch)
+
+    def capture(call, padded, sv, pc, origin, ipad):
+        if id(call) not in captured:
+            captured[id(call)] = (call, (
+                {k: t.clone() for k, t in padded.items()}, sv.clone(),
+                {k: t.clone() for k, t in pc.items()}, origin, ipad))
+        return saved[0](call, padded, sv, pc, origin, ipad)
+
+    stencil3d.launch = stream3d.launch = capture
+    try:
+        stencil3d.launches = stream3d.launches = 0
+        out = bex.batched(fields, scalars, coeffs)
+        torch.cuda.synchronize()
+    finally:
+        stencil3d.launch, stream3d.launch = saved
+    n_batch = stencil3d.launches + stream3d.launches
+    equal, n_one = True, set()
+    for i in range(B):
+        stencil3d.launches = stream3d.launches = 0
+        one = bex.batched({k: v[i:i + 1] for k, v in fields.items()},
+                          {k: v[i:i + 1] for k, v in scalars.items()},
+                          {k: v[i:i + 1] for k, v in coeffs.items()})
+        torch.cuda.synchronize()
+        n_one.add(stencil3d.launches + stream3d.launches)
+        equal &= all(torch.equal(out[k][i], one[k][0]) for k in out)
+    del out, one
+    log(f"serve {name}: a batch of {B} vs {B} batches of 1: bit-equal "
+        f"{equal}; launches {n_batch} vs {sorted(n_one)} each")
+    if not equal or n_one != {n_batch}:
+        raise SystemExit(f"serve {name}: a batch differs from batches of one "
+                         "or launches more")
+    call, args = next(iter(captured.values()))
+    padded, sv, pc, origin, ipad = args
+    ref = (stream3d.stream_call_reference if isinstance(call,
+                                                         stream3d.StreamCall)
+           else stencil3d.group_call_reference)
+
+    def kernel():
+        return call(padded, sv, pc, origin, ipad)
+
+    got = kernel()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    want = ref(call, padded, sv, pc, origin, ipad)
+    e1.record()
+    e1.synchronize()
+    plain_ms = e0.elapsed_time(e1)
+    err = max(float((got[k].float() - want[k].float()).abs().max())
+              for k in want)
+    rel = max(rel_err(got[k], want[k]) for k in want)
+    del got, want
+    if rel > tol:
+        raise SystemExit(f"serve {name}: the batched kernel disagrees with "
+                         f"its batched plain version ({rel:.3e} > {tol})")
+    ms = time_ms(kernel, inner=20, queued=True)
+    p = call.program
+    exprs = ([op.expr for op in call.ops]
+             + list((getattr(call, "update_exprs", None) or {}).values())
+             if isinstance(call, stream3d.StreamCall)
+             else [p.ops[i].expr for i in call.group])
+    nbytes, flops = kernel_traffic(p, call.grid_shape, call.group_inputs,
+                                   call.group_outputs, exprs, call.itemsize,
+                                   coeffs=call.group_coeffs,
+                                   times=getattr(call, "T", 1))
+    bound_s, bound_by = roofline_seconds(nbytes * B, flops * B)
+    bucket = "x".join(map(str, call.grid_shape))
+    mod = "stream3d.build_stream_call" if isinstance(
+        call, stream3d.StreamCall) else "stencil3d.build_group_call"
+    log(f"serve {name}: batched kernel B {B} at {bucket}: {ms:.4f} ms "
+        f"(queued; bound {bound_s * 1e3:.4f} ms by {bound_by}), plain "
+        f"{plain_ms:.1f} ms, vs plain max abs err {err:.3e}, max rel err "
+        f"{rel:.3e} (tol {tol})")
+    row = {"name": f"{mod}[serve {name} B{B} {bucket} float32]",
+           "route": "cuda",
+           "source": f"src/repro_torch/kernels/{mod.split('.')[0]}.py",
+           "replaces": (stream3d.REPLACES if mod.startswith("stream")
+                        else stencil3d.REPLACES),
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+           "library_ms": None, "batch": B, "bucket": bucket,
+           "max_rel_err": rel}
+    return row, {"batch": B, "bit_equal_to_batches_of_1": equal,
+                 "launches_batch": n_batch, "launches_batch_of_1": n_batch,
+                 "kernel_ms": ms, "kernel_bound_ms": bound_s * 1e3,
+                 "plain_ms": plain_ms, "max_rel_err_vs_plain": rel,
+                 "bucket": bucket}
 
 
 def device_profile(fn, torch) -> dict:

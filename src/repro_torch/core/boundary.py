@@ -69,12 +69,15 @@ def pad_field(x: torch.Tensor, lo: Sequence[int], hi: Sequence[int],
               ) -> torch.Tensor:
     """Pad ``x`` with halo slabs per ``boundary`` plus a zero alignment slab.
 
-    ``lo``/``hi`` are the per-axis halo widths; ``align_hi`` (optional) is
-    extra hi-side tile-alignment padding, always zero-filled — alignment
-    positions are never read by in-domain consumers, only cropped or
-    masked, so they need no wraparound values.
+    ``lo``/``hi`` are the per-axis halo widths of the last ``len(lo)`` axes
+    (axes before them, such as a serving batch's, are not padded);
+    ``align_hi`` (optional) is extra hi-side tile-alignment padding, always
+    zero-filled — alignment positions are never read by in-domain
+    consumers, only cropped or masked, so they need no wraparound values.
+    A periodic halo wraps each batch element on its own.
     """
-    ndim = x.ndim
+    ndim = len(lo)
+    lead = x.ndim - ndim
     align_hi = tuple(align_hi) if align_hi is not None else (0,) * ndim
     if boundary == "zero":
         return _zero_pad(x, [(int(lo[a]), int(hi[a]) + int(align_hi[a]))
@@ -85,21 +88,22 @@ def pad_field(x: torch.Tensor, lo: Sequence[int], hi: Sequence[int],
         l, h, al = int(lo[ax]), int(hi[ax]), int(align_hi[ax])
         if l == 0 and h == 0 and al == 0:
             continue
-        n = x.shape[ax]
+        dim = lead + ax
+        n = x.shape[dim]
         if l > n or h > n:
             raise ValueError(
                 f"periodic halo ({l},{h}) exceeds extent {n} on axis {ax}")
         pieces = []
         if l:
-            pieces.append(x.narrow(ax, n - l, l))
+            pieces.append(x.narrow(dim, n - l, l))
         pieces.append(x)
         if h:
-            pieces.append(x.narrow(ax, 0, h))
+            pieces.append(x.narrow(dim, 0, h))
         if al:
             shp = list(x.shape)
-            shp[ax] = al
+            shp[dim] = al
             pieces.append(x.new_zeros(shp))
-        x = torch.cat(pieces, dim=ax)
+        x = torch.cat(pieces, dim=dim)
     return x
 
 
@@ -123,7 +127,9 @@ def shift_field(x: torch.Tensor, offset: Sequence[int], boundary: str
 
 
 def pad_coeff(c: torch.Tensor, lo: int, hi: int, mode: str) -> torch.Tensor:
-    """Extend a replicated 1-D coefficient array by (lo, hi) per ``mode``.
+    """Extend a replicated 1-D coefficient array by (lo, hi) per ``mode``,
+    along its last axis (a serving batch's ``(B, n)`` arrays extend each
+    row).
 
     The wrap path gathers modular indices, so it stays correct even when
     the tile-alignment slab makes ``hi`` comparable to the array length.
@@ -135,5 +141,5 @@ def pad_coeff(c: torch.Tensor, lo: int, hi: int, mode: str) -> torch.Tensor:
         return _zero_pad(c, [(lo, hi)])
     if mode != "periodic":
         raise ValueError(f"unknown boundary {mode!r}")
-    n = c.shape[0]
-    return c[torch.arange(-lo, n + hi, device=c.device) % n]
+    n = c.shape[-1]
+    return c[..., torch.arange(-lo, n + hi, device=c.device) % n]

@@ -9,6 +9,12 @@ boundary are materialised in device memory and re-padded for the
 consuming group's windows.  All groups
 of one compiled program share one translation unit, built by one ``nvcc``
 call on first launch.
+
+Every executable these orchestrators return also runs a batch of requests
+(``run(..., batched=True)``; the serving engine's, through
+``pipeline.batched_executable``): fields ``(B, *grid)``, coefficients ``(B,
+n)``, scalars ``(B,)`` each.  Pads apply to the grid axes, and each kernel
+runs the whole batch in one launch.
 """
 
 from __future__ import annotations
@@ -28,7 +34,8 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 
 def _pad_coeffs(p: Program, calls, coeffs, dtype, device):
-    """Per-call padded coefficient arrays ('small data', paper step 8)."""
+    """Per-call padded coefficient arrays ('small data', paper step 8),
+    ``(n,)`` or, a row a batch element, ``(B, n)``."""
     cmode = bc.coeff_mode(p)
     out = []
     for call in calls:
@@ -67,10 +74,34 @@ def _run_groups(p: Program, calls, svec, pc_per_call, resolve_input,
     return outputs
 
 
-def _scalar_vec(p: Program, scalars) -> list:
-    """Runtime scalars as float32-rounded host floats, in program order."""
-    return [float(torch.as_tensor(scalars[s], dtype=torch.float32))
-            for s in p.scalars]
+def scalar_vector(p: Program, scalars, device, batched: bool = False
+                  ) -> torch.Tensor:
+    """Runtime scalars as the kernels read them, in program order: a
+    float32 ``(n_scalars,)`` tensor on ``device``, or ``(B, n_scalars)``
+    for a batch whose scalars are ``(B,)`` each."""
+    raw = [scalars[s] for s in p.scalars]
+    # values on the host cross to the card in one copy
+    where = device if any(isinstance(v, torch.Tensor) and v.device.type
+                          != "cpu" for v in raw) else "cpu"
+    vals = [torch.as_tensor(v, dtype=torch.float32, device=where)
+            for v in raw]
+    if not vals:
+        out = torch.zeros((0,), dtype=torch.float32)
+    elif batched:
+        out = torch.stack([v.reshape(-1) for v in vals], dim=1)
+    else:
+        out = torch.stack([v.reshape(()) for v in vals])
+    return out.to(device)
+
+
+def update_scalars(p: Program, scalars, batched: bool, device) -> dict:
+    """The scalars an update rule sees: as given for one request; for a
+    batch, a ``(B, 1, ..., 1)`` tensor each, which broadcasts against the
+    ``(B, *grid)`` fields."""
+    if not batched:
+        return scalars
+    return {s: torch.as_tensor(v, device=device).reshape(
+        (-1,) + (1,) * p.ndim) for s, v in scalars.items()}
 
 
 def _make_calls(p: Program, plan: DataflowPlan, grid_shape):
@@ -92,7 +123,7 @@ def lower_from_calls(p: Program, dtype, calls, device):
     """Single-step orchestrator over prebuilt kernel calls."""
 
     def run(fields: Mapping, scalars: Mapping | None = None,
-            coeffs: Mapping | None = None):
+            coeffs: Mapping | None = None, *, batched: bool = False):
         scalars = scalars or {}
         coeffs = coeffs or {}
         ext = {k: torch.as_tensor(v, dtype=dtype, device=device)
@@ -104,7 +135,8 @@ def lower_from_calls(p: Program, dtype, calls, device):
             return bc.pad_field(x, call.halo_lo, call.halo_hi, bnd[f],
                                 align_hi=call.align_hi).contiguous(), None
 
-        return _run_groups(p, calls, _scalar_vec(p, scalars),
+        return _run_groups(p, calls,
+                           scalar_vector(p, scalars, device, batched),
                            _pad_coeffs(p, calls, coeffs, dtype, device),
                            resolve)
 
@@ -173,19 +205,23 @@ def time_loop_from_calls(p: Program, dtype, grid_shape, spec: TimeLoopSpec,
                             bnd[f], align_hi=align).contiguous()
 
     def run(fields: Mapping, scalars: Mapping | None = None,
-            coeffs: Mapping | None = None):
+            coeffs: Mapping | None = None, *, batched: bool = False):
         scalars = scalars or {}
         coeffs = coeffs or {}
-        svec = _scalar_vec(p, scalars)
+        svec = scalar_vector(p, scalars, device, batched)
+        upd_scalars = update_scalars(p, scalars, batched, device)
         pc_per_call = _pad_coeffs(p, calls, coeffs, dtype, device)
         pc_epilogue = (_pad_coeffs(p, epilogue, coeffs, dtype, device)
                        if epilogue else None)
         carry = {f: refill(f, torch.as_tensor(fields[f], dtype=dtype,
                                               device=device))
                  for f in spec.persistent}
+        # a batch's carries keep their leading axis whole
+        inner = {f: (slice(None),) * batched + interior[f]
+                 for f in spec.persistent}
 
         def advance(carry, calls_, pc_):
-            cur = {f: carry[f][interior[f]] for f in spec.persistent}
+            cur = {f: carry[f][inner[f]] for f in spec.persistent}
             if getattr(calls_[0], "returns_fields", False):
                 # a chained sweep: one call advances every field by its
                 # chain depth, updates included
@@ -205,15 +241,15 @@ def time_loop_from_calls(p: Program, dtype, grid_shape, spec: TimeLoopSpec,
 
                 outputs = _run_groups(p, calls_, svec, pc_, resolve)
                 new = dict(cur)
-                new.update(update(cur, outputs, scalars))
-            return write_back(carry, cur, new, interior, spec.carry_write,
+                new.update(update(cur, outputs, upd_scalars))
+            return write_back(carry, cur, new, inner, spec.carry_write,
                               bnd, refill)
 
         for _ in range(int(spec.steps) // chain):
             carry = advance(carry, calls, pc_per_call)
         if int(spec.steps) % chain:
             carry = advance(carry, epilogue, pc_epilogue)
-        return {f: carry[f][interior[f]] for f in spec.persistent}
+        return {f: carry[f][inner[f]] for f in spec.persistent}
 
     run.calls = list(calls) + list(epilogue or [])
     return run

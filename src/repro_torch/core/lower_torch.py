@@ -19,6 +19,7 @@ import torch
 from . import boundary as bc
 from .expr_eval import evaluate
 from .ir import Access, FieldRole, Program
+from .schedule import serving_domain
 
 
 def scalar_tensors(p: Program, scalars: Mapping, device) -> dict:
@@ -50,6 +51,7 @@ def lower(p: Program, mode: str = "fused", prepad: Mapping | None = None):
     prepadded = set(prepad or {})
     bnd = p.boundaries()
     cmode = bc.coeff_mode(p)
+    dom = serving_domain(p)
 
     def run(fields: Mapping[str, torch.Tensor],
             scalars: Mapping | None = None,
@@ -69,6 +71,20 @@ def lower(p: Program, mode: str = "fused", prepad: Mapping | None = None):
             interior = tuple(fields[fref].shape[ax]
                              - int(h[ax, 0]) - int(h[ax, 1])
                              for ax in range(p.ndim))
+
+        # a serving program's zero-boundary ops read as 0 outside its real
+        # domain (``schedule.serving_domain``)
+        inside = None
+        if dom is not None:
+            inside = torch.ones((), dtype=torch.bool,
+                                device=any_field.device)
+            for ax in range(p.ndim):
+                lo = dom[0][ax]
+                n = int(svals[p.scalars[dom[1][ax]]])
+                i = torch.arange(interior[ax], device=any_field.device)
+                shape = [1] * p.ndim
+                shape[ax] = interior[ax]
+                inside = inside & ((i >= lo) & (i < lo + n)).reshape(shape)
 
         def coeff(c):
             ax = p.coeffs[c.coeff]
@@ -96,6 +112,9 @@ def lower(p: Program, mode: str = "fused", prepad: Mapping | None = None):
                 res = torch.tensor(res, dtype=any_field.dtype,
                                    device=any_field.device)
             res = res.expand(interior)
+            if inside is not None and bnd[op.out] != "periodic":
+                res = torch.where(inside, res, torch.zeros((), dtype=res.dtype,
+                                                           device=res.device))
             env[op.out] = res
             if p.fields[op.out].role == FieldRole.OUTPUT:
                 outputs[op.out] = res

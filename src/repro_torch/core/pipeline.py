@@ -379,6 +379,36 @@ def _on_device(fn, p: Program, dtype: str, device):
     return run
 
 
+def batched_executable(ex: CompiledStencil):
+    """The batched form of ``ex``, the port's counterpart of the reference
+    engine's ``jax.jit(jax.vmap(ex._fn))``: ``fn(fields, scalars, coeffs)
+    -> dict`` over a batch of B requests on ``ex``'s grid, every field
+    ``(B, *grid)``, every scalar ``(B,)``, every coefficient ``(B, n)``;
+    the results are ``(B, *grid)``.
+
+    Backend ``"cuda"`` runs the batch natively: each generated kernel has
+    a batch axis on its launch grid, so a step costs one launch per kernel
+    whatever B is, and the update rule sees each scalar as ``(B, 1, ...,
+    1)``.  ``"torch_fused"`` and ``"torch_naive"`` run it unrolled, one
+    element after another, as the reference engine's ``fallback_unrolled``
+    does for a lowering without a batching rule.  Nothing falls back: an
+    error fails the call.
+    """
+    if ex.plan.backend == "cuda":
+        def run(fields, scalars, coeffs):
+            return ex._fn(dict(fields), dict(scalars), dict(coeffs),
+                          batched=True)
+    else:
+        def run(fields, scalars, coeffs):
+            n = next(iter(fields.values())).shape[0]
+            outs = [ex._fn({f: v[i] for f, v in fields.items()},
+                           {s: v[i] for s, v in scalars.items()},
+                           {c: v[i] for c, v in coeffs.items()})
+                    for i in range(n)]
+            return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+    return run
+
+
 def run_time_loop(ex: CompiledStencil, fields: dict, scalars: dict,
                   coeffs: dict, steps: int, update) -> dict:
     """Simple host-side time loop; ``update(fields, outputs) -> fields``."""

@@ -30,6 +30,7 @@ from typing import Sequence
 import numpy as np
 
 from .. import hw
+from ..kernels.build import toolchain
 from .ir import Access, CoeffRef, Const, Program, ScalarRef
 from .passes import _zeros, infer_halo, stage_split
 
@@ -209,6 +210,146 @@ def program_fingerprint(p: Program) -> str:
     parts += [f"coeff:{c}:{ax}" for c, ax in sorted(p.coeffs.items())]
     parts.append(f"scalars:{','.join(p.scalars)}")
     return hashlib.sha256("\n".join(parts).encode()).hexdigest()[:16]
+
+
+# --------------------------------------------------------------------------
+# Grid bucketing (the serving layer's shape quantisation)
+# --------------------------------------------------------------------------
+
+def program_reach(p: Program) -> np.ndarray:
+    """Transitive stencil reach of ``p`` as an ``(ndim, 2)`` array: how far
+    any output cell's value depends on input cells, through every
+    producer->consumer chain.  This is the halo a serving bucket must keep
+    between a request's true grid and the bucket edge so that no in-domain
+    read ever observes the bucket boundary."""
+    return np.array(infer_halo(p, range(len(p.ops))).input_halo)
+
+
+def quantize_extent(n: int, *, lane_axis: bool = False,
+                    lane: int = hw.BUCKET_LANE) -> int:
+    """Round one grid extent up to its bucket quantum.
+
+    Small extents round to the next power of two (few buckets, bounded
+    padding waste); extents at or beyond the quantum round to multiples of
+    ``lane`` on the contiguous axis (:data:`hw.BUCKET_LANE`, one 128-byte
+    line of float32) and of 32 elsewhere — so varied request grids land on
+    a small set of compiled shapes.  The reference's policy, with the
+    card's quantum in place of the TPU's 128 lanes; ``lane=`` takes any.
+    """
+    n = int(n)
+    if n < 1:
+        raise ValueError(f"extent must be >= 1, got {n}")
+    quantum = lane if lane_axis else 32
+    if n >= quantum:
+        return hw.align_up(n, quantum)
+    b = 1
+    while b < n:
+        b *= 2
+    return b
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketSpec:
+    """Placement of one request grid inside a quantised serving bucket.
+
+    The request's true ``grid`` sits at ``offset`` (the program's lo-side
+    reach) inside ``bucket``; the slab below the offset and everything past
+    ``offset + grid`` is boundary extension the serving layer fills (zeros
+    or wraparound) and re-normalises every fused step, so in-domain reads
+    never observe the bucket edge.
+    """
+
+    grid: tuple
+    bucket: tuple
+    offset: tuple
+
+    def interior(self) -> tuple:
+        """Slices selecting the true grid out of a bucket-shaped array."""
+        return tuple(slice(o, o + g) for o, g in zip(self.offset, self.grid))
+
+
+def bucket_for(p: Program, grid: Sequence[int], *,
+               lane: int = hw.BUCKET_LANE) -> BucketSpec:
+    """Quantised serving bucket for ``grid``: true extent plus the program's
+    lo/hi reach, rounded up per :func:`quantize_extent`.  Requests whose
+    grids share a bucket share one compiled executor."""
+    grid = tuple(int(g) for g in grid)
+    if len(grid) != p.ndim:
+        raise ValueError(f"grid rank {len(grid)} != program ndim {p.ndim}")
+    reach = program_reach(p)
+    bucket, offset = [], []
+    for a, g in enumerate(grid):
+        lo, hi = int(reach[a, 0]), int(reach[a, 1])
+        bucket.append(quantize_extent(g + lo + hi,
+                                      lane_axis=(a == p.ndim - 1), lane=lane))
+        offset.append(lo)
+    return BucketSpec(grid=grid, bucket=tuple(bucket), offset=tuple(offset))
+
+
+#: prefix of the per-axis real grid sizes a serving program carries as
+#: scalars (``serve.bucket.serving_program``)
+SIZE_SCALAR_PREFIX = "_srv_n"
+
+
+def serving_domain(p: Program):
+    """The real domain of a serving program inside its bucket, or ``None``
+    for any other program: ``(lo, idx)``, the domain on axis ``a`` being
+    ``[lo[a], lo[a] + n_a)`` with ``lo`` the program's low reach (where
+    :func:`bucket_for` places the grid) and ``n_a`` the runtime scalar
+    ``p.scalars[idx[a]]``.
+
+    The executables of such a program hold every zero-boundary op's value
+    to 0 outside that domain, per batch element, as the exact grid's
+    compile does outside the grid: the reference computes temps over the
+    whole bucket, so an op that reads in-domain cells from just outside
+    the domain gives the consumer a value where the exact grid gives 0
+    (tracer_advection's single step is off by about 5e-3 relative there;
+    pw_advection, whose ops read inputs only, is exact either way).
+    """
+    names = [f"{SIZE_SCALAR_PREFIX}{a}" for a in range(p.ndim)]
+    if not all(n in p.scalars for n in names):
+        return None
+    lo = tuple(int(v) for v in program_reach(p)[:, 0])
+    return lo, tuple(p.scalars.index(n) for n in names)
+
+
+def mesh_fingerprint(mesh, mesh_axes) -> str:
+    """Encoding of a mesh topology for cache keys: ``"none"`` (unsharded)
+    is the only topology the port serves until ROADMAP A7 (distribution)
+    ports meshes."""
+    if mesh is not None or mesh_axes is not None:
+        raise NotImplementedError(
+            "mesh= is not ported yet: ROADMAP A7 (distribution)")
+    return "none"
+
+
+def bucket_fingerprint(p: Program, bucket: Sequence[int], *,
+                       backend: str, dtype: str = "float32",
+                       schedule: str | None = None,
+                       steps: int | None = None,
+                       mesh=None, mesh_axes=None,
+                       plane_tile: int | None = None) -> str:
+    """Cache key of one serving-bucket executor: program semantics
+    (boundaries included, via :func:`program_fingerprint`), bucket shape,
+    backend and compile options, fused depth, requested sweep unroll width
+    (``plane_tile``), mesh topology (:func:`mesh_fingerprint`), the plan
+    schema version — a record written by another plan layout reads as a
+    miss — and the toolchain the kernels build with (torch and CUDA
+    versions, nvcc flags; the reference's ``interpret`` and JAX version
+    have no counterpart here)."""
+    return "|".join([
+        "serve",
+        program_fingerprint(p),
+        "bucket=" + "x".join(str(int(b)) for b in bucket),
+        f"backend={backend}",
+        f"dtype={dtype}",
+        f"schedule={schedule or 'plan'}",
+        f"steps={'single' if steps is None else int(steps)}",
+        f"plane_tile={'plan' if plane_tile is None else int(plane_tile)}",
+        f"mesh={mesh_fingerprint(mesh, mesh_axes)}",
+        f"schema={PLAN_SCHEMA_VERSION}",
+        *toolchain(),
+    ])
 
 
 # --------------------------------------------------------------------------

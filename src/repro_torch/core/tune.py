@@ -233,9 +233,7 @@ def cache_key(p: Program, grid: Sequence[int], backend: str,
         "grid=" + "x".join(str(int(g)) for g in grid),
         f"backend={backend}",
         f"device={device}",
-        f"torch={torch.__version__}",
-        f"cuda={torch.version.cuda}",
-        "nvcc=" + " ".join(build.NVCC_FLAGS),
+        *build.toolchain(),
         f"dtype={dtype}",
         f"mode={mode}",
     ])

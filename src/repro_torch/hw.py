@@ -52,3 +52,15 @@ H100 = ChipSpec(
 
 # field storage dtypes the planner and cost models understand
 DTYPE_BYTES = {"float32": 4, "bfloat16": 2, "float64": 8}
+
+#: the serving layer's bucket quantum on the contiguous (innermost) axis,
+#: in elements: 32 float32 values are one 128-byte line, the unit the card
+#: moves between L2 and device memory, and the smallest lane tile the block
+#: planner ranks (``schedule.LANE_TILES``), so a bucket's rows hold whole
+#: lines and whole warps
+BUCKET_LANE = 32
+
+
+def align_up(x: int, m: int) -> int:
+    """``x`` rounded up to a multiple of ``m``."""
+    return ((x + m - 1) // m) * m

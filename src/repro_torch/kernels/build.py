@@ -21,10 +21,15 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: dict = {}
+
+#: ``nvcc`` processes started (sources that were not cached yet)
+runs = 0
 
 
 def build_dir() -> Path:
@@ -48,8 +53,16 @@ def library_path(source: str, tag: str = "stencil") -> Path:
     return build_dir() / f"{tag}_{h.hexdigest()[:16]}.so"
 
 
+def toolchain() -> list:
+    """What a built kernel depends on besides its source, as key parts:
+    the torch and CUDA versions and the nvcc flags."""
+    return [f"torch={torch.__version__}", f"cuda={torch.version.cuda}",
+            "nvcc=" + " ".join(NVCC_FLAGS)]
+
+
 def _start(source: str, tag: str):
     """Write the source and start ``nvcc`` on it; None when cached."""
+    global runs
     so = library_path(source, tag)
     if so.exists():
         return None
@@ -57,6 +70,7 @@ def _start(source: str, tag: str):
     cu = so.with_suffix(".cu")
     cu.write_text(source)
     tmp = so.with_suffix(f".{os.getpid()}.tmp.so")
+    runs += 1
     proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(cu)],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)

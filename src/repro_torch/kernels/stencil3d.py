@@ -39,8 +39,21 @@ CTA cannot hold a 3-D block of every op in 227 KB, so the design sweeps
   (``schedule.BLOCK_REGS``).
 
 Inputs inside an oversized fused-loop carry (``input_pad``) are read
-through a base offset and the carry's strides; nothing is copied.  The C
-entry returns ``cudaGetLastError()`` and the wrapper raises if it is not 0.
+through a base offset and the carry's strides; nothing is copied.
+
+A batch of requests (the serving engine's; the reference runs it under
+``jax.vmap``, which gives the Pallas grid a batch axis) is one launch: the
+batch index is ``blockIdx.y``, every input, coefficient and output pointer
+advances by its own batch stride (64-bit), and each element's scalars come
+from a ``(batch, n_scalars)`` float32 array on the card, read once at the
+CTA's start.  The batch size is a runtime argument, so one build serves
+every batch; a single request is a batch of one.  The kernel is a template
+on whether the batch has more than one element: moving every pointer to
+its element takes registers that ptxas must find under the launch bounds,
+which slowed single requests by several per cent on the card, so the
+instantiation for one element leaves the pointers as they come.  The C
+entry returns ``cudaGetLastError()`` and the wrapper raises if it is not
+0.
 float32 and bfloat16 are compiled (bfloat16 rounds each op's result, as
 the reference does); float64 raises ``NotImplementedError`` on the card.
 
@@ -62,7 +75,8 @@ from ..core.expr_eval import evaluate
 from ..core.ir import (Access, BinOp, BinOpKind, Cmp, CmpKind, CoeffRef,
                        Const, ScalarRef, Select, UnOp, UnOpKind, Program)
 from ..core.passes import GroupHalo, infer_halo
-from ..core.schedule import COPY_BYTES, BlockCTA, plan_block_cta
+from ..core.schedule import (COPY_BYTES, BlockCTA, plan_block_cta,
+                             serving_domain)
 from . import build
 
 #: kernel launches made by :class:`GroupCall` (plain-version runs excluded)
@@ -193,6 +207,79 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+#: the most elements a batch may have (the launch grid's y extent)
+MAX_BATCH = 65535
+
+
+def batch_of(call, padded_inputs: dict, padded_coeffs: dict | None):
+    """The batch size of a kernel call's arguments: ``None`` when every
+    input has the program's rank (one request), else the leading extent
+    that every input, and every coefficient given per element as a
+    ``(batch, n)`` array, shares.  A 1-D coefficient serves every
+    element."""
+    sizes, ranks = set(), set()
+    for f in call.group_inputs:
+        x = padded_inputs[f]
+        if x.ndim not in (call.ndim, call.ndim + 1):
+            raise ValueError(f"input {f!r} has rank {x.ndim}; expected "
+                             f"{call.ndim}, or {call.ndim + 1} with a "
+                             "leading batch axis")
+        ranks.add(x.ndim)
+        if x.ndim > call.ndim:
+            sizes.add(int(x.shape[0]))
+    for c in call.group_coeffs:
+        t = (padded_coeffs or {})[c]
+        if t.ndim not in (1, 2):
+            raise ValueError(f"coefficient {c!r} has rank {t.ndim}; "
+                             "expected 1, or 2 with a leading batch axis")
+        if t.ndim == 2:
+            sizes.add(int(t.shape[0]))
+    if len(ranks) > 1 or len(sizes) > 1:
+        raise ValueError(f"the arguments disagree on the batch: ranks "
+                         f"{sorted(ranks)}, batch sizes {sorted(sizes)}")
+    return sizes.pop() if sizes else None
+
+
+def scalar_rows(scalars_vec, n: int, batch: int, device) -> torch.Tensor:
+    """A call's scalars as the kernels read them: a contiguous float32
+    ``(batch, n)`` tensor on ``device``.  ``scalars_vec`` is a sequence of
+    numbers in program order or a ``(m,)`` tensor (the same for every
+    element), or a ``(batch, m)`` tensor (a row an element); the first
+    ``n`` columns are taken."""
+    if isinstance(scalars_vec, torch.Tensor):
+        sv = scalars_vec.to(device=device, dtype=torch.float32)
+    else:
+        sv = torch.tensor([float(v) for v in (scalars_vec or [])],
+                          dtype=torch.float32, device=device)
+    if sv.ndim == 1:
+        sv = sv.unsqueeze(0).expand(batch, -1)
+    if sv.ndim != 2 or sv.shape[0] != batch or sv.shape[1] < n:
+        raise ValueError(f"expected {n} scalars for each of {batch} "
+                         f"elements, got shape {tuple(sv.shape)}")
+    return sv[:, :n].contiguous()
+
+
+def per_element(reference, call, padded_inputs: dict, scalars_vec=None,
+                padded_coeffs: dict | None = None, origin=None,
+                input_pad: dict | None = None) -> dict:
+    """``reference`` (a plain version taking one request's arguments) over
+    a batch: each element with its own inputs, coefficients and scalar
+    row, the results stacked along a leading axis.  Arguments without a
+    batch axis go straight through."""
+    padded_coeffs = padded_coeffs or {}
+    batch = batch_of(call, padded_inputs, padded_coeffs)
+    if batch is None:
+        return reference(call, padded_inputs, scalars_vec, padded_coeffs,
+                         origin, input_pad)
+    two_d = isinstance(scalars_vec, torch.Tensor) and scalars_vec.ndim == 2
+    outs = [reference(
+        call, {f: x[b] for f, x in padded_inputs.items()},
+        scalars_vec[b] if two_d else scalars_vec,
+        {c: t[b] if t.ndim == 2 else t for c, t in padded_coeffs.items()},
+        origin, input_pad) for b in range(batch)]
+    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
 def float_literal(v: float) -> str:
     """A float32 C++ literal of ``v`` (always ``f``-suffixed)."""
     x = float(np.float32(v))
@@ -212,6 +299,10 @@ class GroupCall:
     """One fuse group's kernel: callable(padded_inputs, scalars_vec,
     padded_coeffs, origin, input_pad) -> {output field: tensor}.
 
+    A leading batch axis on the inputs (and, where they differ per
+    element, on the coefficients, ``(B, n)``, and the scalars, ``(B,
+    n_scalars)``) runs a batch in one launch and gives outputs of shape
+    ``(B, *grid)`` (:func:`batch_of`).
     ``padded_inputs`` must be padded by ``pad_lo``/``pad_hi``; with
     ``input_pad[f]`` an input may be an oversized buffer carrying that
     (ndim, 2) padding, from which the group reads its window in place.
@@ -256,8 +347,12 @@ class GroupCall:
                               if op.out in set(gh.group_outputs)]
         self.margins = {p.ops[i].out: gh.margins[i] for i in self.group}
         # a periodic op's recomputed margins are exact (wraparound windows);
-        # a zero-boundary op's out-of-domain values must read as 0
-        self.masked = {op.out: bool(self.margins[op.out].any()
+        # a zero-boundary op's out-of-domain values must read as 0 — on a
+        # serving program's bucket at every point, since the real domain is
+        # a runtime extent inside it (``schedule.serving_domain``)
+        self.domain = serving_domain(p)
+        self.masked = {op.out: bool((self.margins[op.out].any()
+                                     or self.domain is not None)
                                     and p.fields[op.out].boundary != "periodic")
                        for op in ops}
         self.n_scalars = len(p.scalars)
@@ -288,98 +383,60 @@ class GroupCall:
                                         padded_coeffs, origin, input_pad)
         if ref.device.type != "cuda":
             raise ValueError(f"no kernel for device {ref.device}")
-        return self._launch(padded_inputs, scalars_vec, padded_coeffs or {},
-                            origin, input_pad or {})
+        return launch(self, padded_inputs, scalars_vec, padded_coeffs or {},
+                      origin, input_pad or {})
 
-    def _launch(self, padded_inputs, scalars_vec, padded_coeffs, origin,
-                input_pad) -> dict:
-        global launches
-        if self.dtype_name not in _CTYPE:
-            raise NotImplementedError(
-                f"the CUDA group kernel takes float32 or bfloat16, not "
-                f"{self.dtype_name}")
-        if self.module is None:
-            bind([self])
-        fn = self.module.function(self.entry)
-        device = padded_inputs[self.group_inputs[0]].device \
-            if self.group_inputs else padded_coeffs[self.group_coeffs[0]].device
-        outs = {f: torch.empty(self.grid_shape, dtype=self.dtype,
-                               device=device) for f in self.group_outputs}
-        args = self.kernel_args(padded_inputs, scalars_vec, padded_coeffs,
-                                origin, input_pad, outs)
-        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"CUDA group kernel {self.entry} of "
-                               f"{self.program.name!r} failed to launch: "
-                               f"cudaError {rc}")
-        launches += 1
-        return outs
-
-    def kernel_args(self, padded_inputs, scalars_vec, padded_coeffs, origin,
+    def kernel_args(self, padded_inputs, sv, padded_coeffs, origin,
                     input_pad, outs) -> list:
         """The kernel's arguments in :meth:`c_argtypes` order (without the
         stream), after checking every tensor's device, dtype, extent and
-        layout: a window pointer at its base offset inside each input,
-        with the input's strides; coefficient and output pointers; scalars;
-        the origin.  1-D and 2-D programs get unit outer axes."""
+        layout: a window pointer at its base offset inside each input's
+        first element, with the input's strides and its batch stride;
+        coefficient pointers with theirs (0 for a 1-D coefficient every
+        element shares); output pointers; the ``(B, n_scalars)`` float32
+        scalar rows ``sv``; the origin; the batch size B.  Inputs may come
+        without the batch axis when B is 1; ``outs`` are ``(B, *grid)``.
+        1-D and 2-D programs get unit outer axes."""
         ndim, lift = self.ndim, self._lift
-        device = next(iter(outs.values())).device
+        device, nb = _check_batch(self, sv, outs)
         args = []
         for f in self.group_inputs:
             x = padded_inputs[f]
             self._check(x, f, device)
-            ip = (input_pad or {}).get(f)
-            lo = [int(ip[a][0]) - self.halo_lo[a] if ip is not None else 0
-                  for a in range(ndim)]
-            for a in range(ndim):
-                if lo[a] < 0 or x.shape[a] < lo[a] + self.expect[a]:
-                    raise ValueError(
-                        f"input {f!r} of shape {tuple(x.shape)} does not "
-                        f"hold the window extent {self.expect} at offset "
-                        f"{tuple(lo)}")
-            if x.stride(-1) != 1:
-                raise ValueError(f"input {f!r} must be contiguous along "
-                                 "its last axis")
-            base = sum(lo[a] * x.stride(a) for a in range(ndim))
-            strides = [0] * lift + [x.stride(a) for a in range(ndim)]
+            x, lo = _window_origin(self, f, x, input_pad, nb)
+            base = sum(lo[a] * x.stride(1 + a) for a in range(ndim))
+            strides = [0] * lift + [x.stride(1 + a) for a in range(ndim)]
             ptr = x.data_ptr() + base * self.itemsize
+            sb = x.stride(0)
             args += [ptr, strides[0], strides[1],
-                     self._copy_bytes(x, ptr, strides, lo[-1])]
-        for c in self.group_coeffs:
-            t = padded_coeffs[c]
-            self._check(t, c, device)
-            need = self.expect[self.coeff_axis[c]]
-            if t.ndim != 1 or not t.is_contiguous() or t.shape[0] < need:
-                raise ValueError(f"coefficient {c!r} must be a contiguous "
-                                 f"1-D tensor of at least {need} values")
-            args.append(t.data_ptr())
+                     self._copy_bytes(x, ptr, strides[:2] + [sb] * (nb > 1),
+                                      lo[-1]), sb]
+        args += _coeff_args(self, padded_coeffs, device, nb)
         for f in self.group_outputs:
-            o = outs[f]
-            self._check(o, f, device)
-            if tuple(o.shape) != self.grid_shape or not o.is_contiguous():
-                raise ValueError(f"output {f!r} must be a contiguous "
-                                 f"{self.grid_shape} tensor")
-            args.append(o.data_ptr())
-        svec = list(scalars_vec or [])
-        if len(svec) < self.n_scalars:
-            raise ValueError(f"expected {self.n_scalars} scalars, got "
-                             f"{len(svec)}")
-        args += [float(s) for s in svec[:self.n_scalars]]
+            self._check(outs[f], f, device)
+            args.append(outs[f].data_ptr())
+        args.append(sv.data_ptr())
         org = [0] * ndim if origin is None else [int(o) for o in origin]
-        return args + [0] * lift + org
+        return args + [0] * lift + org + [nb]
 
     def _copy_bytes(self, x, ptr, strides, col) -> int:
         """Bytes one copy of an input's planes moves: 16, else 4, where the
-        window's base and outer strides are multiples of it and the copies
-        that round a row up to it stay inside the row (``col``: the
-        window's first column in ``x``); else one element."""
+        window's base and ``strides`` (the outer ones, and the batch
+        stride of a batch of several) are multiples of it, so every
+        element's rows start aligned, and the copies that round a row up
+        to it stay inside the row (``col``: the window's first column in
+        ``x``); else one element."""
         for q in (COPY_BYTES, 4):
             e = q // self.itemsize
             if e and ptr % q == 0 \
-                    and all(s * self.itemsize % q == 0 for s in strides[:2]) \
+                    and all(s * self.itemsize % q == 0 for s in strides) \
                     and col + -(-self.expect[-1] // e) * e <= x.shape[-1]:
                 return q
         return self.itemsize
+
+    def count_launch(self) -> None:
+        global launches
+        launches += 1
 
     def _check(self, t, name, device):
         if t.device != device:
@@ -390,13 +447,7 @@ class GroupCall:
 
     # ----------------------------------------------------------- emitting
     def c_argtypes(self) -> list:
-        n_in, n_c = len(self.group_inputs), len(self.group_coeffs)
-        return ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                 ctypes.c_int] * n_in
-                + [ctypes.c_void_p] * n_c
-                + [ctypes.c_void_p] * len(self.group_outputs)
-                + [ctypes.c_float] * self.n_scalars
-                + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        return c_argtypes(self)
 
     def kernel_params(self) -> list:
         return kernel_params(self)
@@ -417,6 +468,182 @@ class GroupCall:
         return self.cta.traffic(self.grid_shape)[0]
 
 
+# --------------------------------------------------------------------------
+# Launching (shared with the sweep kernel of ``stream3d``)
+# --------------------------------------------------------------------------
+
+def launch(call, padded_inputs: dict, scalars_vec, padded_coeffs: dict,
+           origin, input_pad: dict) -> dict:
+    """Launch ``call``'s kernel (a :class:`GroupCall` or a
+    ``stream3d.StreamCall``) once for the whole batch on the current
+    stream: outputs ``(B, *grid)``, or ``grid``-shaped without a batch
+    axis.  Raises if the launch fails; counts it in its module's
+    ``launches``."""
+    if call.dtype_name not in _CTYPE:
+        raise NotImplementedError(
+            f"the CUDA kernels take float32 or bfloat16, not "
+            f"{call.dtype_name}")
+    batch = batch_of(call, padded_inputs, padded_coeffs)
+    nb = 1 if batch is None else batch
+    if not 1 <= nb <= MAX_BATCH:
+        raise ValueError(f"a batch of {nb} elements; the kernels take 1 to "
+                         f"{MAX_BATCH}")
+    if call.module is None:
+        bind([call])
+    fn = call.module.function(call.entry)
+    device = (padded_inputs[call.group_inputs[0]] if call.group_inputs
+              else padded_coeffs[call.group_coeffs[0]]).device
+    outs = {f: torch.empty((nb,) + call.grid_shape, dtype=call.dtype,
+                           device=device) for f in call.group_outputs}
+    sv = scalar_rows(scalars_vec, call.n_scalars, nb, device)
+    args = call.kernel_args(padded_inputs, sv, padded_coeffs, origin,
+                            input_pad, outs)
+    rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {call.entry} of "
+                           f"{call.program.name!r} failed to launch: "
+                           f"cudaError {rc}")
+    call.count_launch()
+    return outs if batch is not None else {f: o[0] for f, o in outs.items()}
+
+
+def _check_batch(call, sv, outs) -> tuple:
+    """The device and batch size B of a launch, after checking the scalar
+    rows ``sv`` (contiguous float32 ``(B, n_scalars)``) and the outputs
+    (contiguous ``(B, *grid)``)."""
+    device = next(iter(outs.values())).device
+    nb = int(sv.shape[0]) if sv.ndim == 2 else -1
+    if sv.device != device or sv.dtype != torch.float32 \
+            or tuple(sv.shape) != (nb, call.n_scalars) \
+            or not sv.is_contiguous():
+        raise ValueError(f"scalars must be a contiguous float32 (B, "
+                         f"{call.n_scalars}) tensor on {device}, got "
+                         f"{sv.dtype} {tuple(sv.shape)} on {sv.device}")
+    for f, o in outs.items():
+        if tuple(o.shape) != (nb,) + call.grid_shape or \
+                not o.is_contiguous():
+            raise ValueError(f"output {f!r} must be a contiguous "
+                             f"{(nb,) + call.grid_shape} tensor")
+    return device, nb
+
+
+def _window_origin(call, f, x, input_pad, nb) -> tuple:
+    """Input ``x`` with its batch axis (added when B is 1 and it has none),
+    and its window's first index on each grid axis, after checking that
+    the window fits."""
+    if x.ndim == call.ndim:
+        x = x.unsqueeze(0)
+    if x.shape[0] != nb:
+        raise ValueError(f"input {f!r} has {x.shape[0]} batch elements, "
+                         f"expected {nb}")
+    ip = (input_pad or {}).get(f)
+    lo = [int(ip[a][0]) - call.halo_lo[a] if ip is not None else 0
+          for a in range(call.ndim)]
+    for a in range(call.ndim):
+        if lo[a] < 0 or x.shape[1 + a] < lo[a] + call.expect[a]:
+            raise ValueError(
+                f"input {f!r} of shape {tuple(x.shape)} does not hold the "
+                f"window extent {call.expect} at offset {tuple(lo)}")
+    if x.stride(-1) != 1:
+        raise ValueError(f"input {f!r} must be contiguous along its last "
+                         "axis")
+    return x, lo
+
+
+def _coeff_args(call, padded_coeffs, device, nb) -> list:
+    """Each coefficient's pointer and batch stride: a 1-D array every
+    element shares (stride 0), or ``(B, n)`` rows."""
+    args = []
+    for c in call.group_coeffs:
+        t = padded_coeffs[c]
+        call._check(t, c, device)
+        need = call.expect[call.coeff_axis[c]]
+        rows = t.ndim == 2
+        if (rows and t.shape[0] != nb) or t.shape[-1] < need \
+                or t.stride(-1) != 1:
+            raise ValueError(f"coefficient {c!r} must hold at least {need} "
+                             "contiguous values, one row a batch element "
+                             "where it has two axes")
+        args += [t.data_ptr(), t.stride(0) if rows else 0]
+    return args
+
+
+def c_argtypes(call) -> list:
+    """ctypes argument types of a kernel's launch entry (the two kernels
+    share the layout of :func:`kernel_params`)."""
+    n_in, n_c = len(call.group_inputs), len(call.group_coeffs)
+    return ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+             ctypes.c_int, ctypes.c_longlong] * n_in
+            + [ctypes.c_void_p, ctypes.c_longlong] * n_c
+            + [ctypes.c_void_p] * len(call.group_outputs)
+            + [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+
+def batch_prologue(call) -> list:
+    """The kernel's first lines: the batch element ``bz`` its CTA computes
+    (``blockIdx.y``), every pointer moved to that element in the
+    ``BATCHED`` instantiation (64-bit offsets: a batch of 8M-point grids
+    passes 2^31 elements), and the element's scalars read once into
+    ``s0``, ``s1``, ...; for a serving program its real extents ``dn0``,
+    ``dn1``, ..."""
+    n_out = int(np.prod(call.grid_shape))
+    L = ["  const int bz = BATCHED ? (int)blockIdx.y : 0;", "  (void)nb;",
+         "  if constexpr (BATCHED) {"]
+    L += [f"    in{k} += (long long)bz * in{k}_sb;"
+          for k in range(len(call.group_inputs))]
+    L += [f"    cf{k} += (long long)bz * cf{k}_sb;"
+          for k in range(len(call.group_coeffs))]
+    L += [f"    out{k} += (long long)bz * {n_out}LL;"
+          for k in range(len(call.group_outputs))]
+    L += ["  }"]
+    L += [f"  const float s{k} = sv[bz * {call.n_scalars} + {k}];  (void)s{k};"
+          for k in range(call.n_scalars)]
+    if call.domain is not None:
+        # a serving program's real extents, one element's (exact integers)
+        L += [f"  const int dn{a} = (int)s{k};"
+              for a, k in enumerate(call.domain[1])]
+    return L
+
+
+def kernel_head(name: str, params: list, threads: int, ctas_per_sm: int
+                ) -> list:
+    """The kernel's declaration: a template on ``BATCHED`` (more than one
+    batch element), held by the launch bounds to ``ctas_per_sm`` CTAs of
+    ``threads`` an SM."""
+    return ["template <bool BATCHED>",
+            f"__global__ void __launch_bounds__({threads}, {ctas_per_sm})",
+            f"{name}_kernel({', '.join(params)}) {{"]
+
+
+def launch_entry(name: str, params: list, ctas: int, threads: tuple,
+                 smem: int) -> list:
+    """The C entry of a kernel: ``ctas`` CTAs along x and the batch along
+    y, the one-element instantiation for a batch of one; dynamic shared
+    memory above 48 KB opted into once; returns ``cudaGetLastError()``."""
+    args = ", ".join(q.split()[-1] for q in params)
+    cfg = f"dim3({threads[0]}, {threads[1]}), {smem}, (cudaStream_t)stream"
+    return [
+        f'extern "C" int {name}_launch({", ".join(params)}, void* stream) {{',
+        "  static bool ready = false;",
+        f"  if (!ready && {smem} > 48 * 1024) {{",
+        f"    cudaError_t e = cudaFuncSetAttribute({name}_kernel<false>,",
+        f"        cudaFuncAttributeMaxDynamicSharedMemorySize, {smem});",
+        "    if (e == cudaSuccess)",
+        f"      e = cudaFuncSetAttribute({name}_kernel<true>,",
+        f"          cudaFuncAttributeMaxDynamicSharedMemorySize, {smem});",
+        "    if (e != cudaSuccess) return (int)e;",
+        "  }",
+        "  ready = true;",
+        "  if (nb == 1)",
+        f"    {name}_kernel<false><<<dim3({ctas}, 1), {cfg}>>>({args});",
+        "  else",
+        f"    {name}_kernel<true><<<dim3({ctas}, nb), {cfg}>>>({args});",
+        "  return (int)cudaGetLastError();",
+        "}",
+        "",
+    ]
+
+
 def build_group_call(p: Program, group: Sequence[int], block: Sequence[int],
                      grid_shape: Sequence[int], dtype=torch.float32,
                      global_extent: Sequence[int] | None = None) -> GroupCall:
@@ -435,8 +662,16 @@ def group_call_reference(call: GroupCall, padded_inputs: dict,
     """The group's function in plain PyTorch, on any device: the
     reference's per-tile evaluation with the whole padded output as one
     tile (overlapped tiling is exact, so the tile does not change a value).
-    Same arguments and geometry as the kernel, and the same rounding: a
-    bfloat16 group computes each op in float32 and rounds its result."""
+    Same arguments and geometry as the kernel, the batch axis included
+    (:func:`per_element`), and the same rounding: a bfloat16 group
+    computes each op in float32 and rounds its result."""
+    return per_element(_group_reference, call, padded_inputs, scalars_vec,
+                       padded_coeffs, origin, input_pad)
+
+
+def _group_reference(call: GroupCall, padded_inputs: dict, scalars_vec,
+                     padded_coeffs: dict, origin, input_pad) -> dict:
+    """:func:`group_call_reference` for one request."""
     p, ndim, dtype = call.program, call.ndim, call.dtype
     cdt = torch.float32 if dtype == torch.bfloat16 else dtype
     padded_coeffs = padded_coeffs or {}
@@ -454,7 +689,7 @@ def group_call_reference(call: GroupCall, padded_inputs: dict,
                              for a in range(ndim))].to(cdt)
     for c in call.group_coeffs:
         device = device or padded_coeffs[c].device
-    svec = list(scalars_vec or [])
+    svec = [] if scalars_vec is None else list(scalars_vec)
     scal = {s: torch.tensor(float(svec[i]), dtype=torch.float32,
                             device=device)
             for i, s in enumerate(p.scalars[:len(svec)])}
@@ -498,7 +733,11 @@ def group_call_reference(call: GroupCall, padded_inputs: dict,
             for ax in range(ndim):
                 coord = (org[ax] - int(m[ax, 0])
                          + torch.arange(ext[ax], device=device))
-                ok = (coord >= 0) & (coord < call.global_extent[ax])
+                lo, n = 0, call.global_extent[ax]
+                if call.domain is not None:
+                    lo = call.domain[0][ax]
+                    n = int(float(svec[call.domain[1][ax]]))
+                ok = (coord >= lo) & (coord < lo + n)
                 shape = [1] * ndim
                 shape[ax] = ext[ax]
                 mask = mask & ok.reshape(shape)
@@ -638,9 +877,17 @@ class _Emitter:
     def _masked(self, field: str, code: str, off: tuple) -> str:
         """``code`` as a zero-boundary op's value at ``off`` from the loop's
         point: 0 outside the global domain, checked on the axes along
-        which the loop's plane reaches past its tile."""
+        which the loop's plane reaches past its tile (a serving program's:
+        0 outside its element's real domain, on every axis)."""
         if not self.call.masked[field]:
             return code
+        dom = self.call.domain
+        if dom is not None:         # every axis, against the real extents
+            lo3 = (0,) * self.lift + dom[0]
+            cond = " && ".join(
+                f"(unsigned)(G{a} + ({off[a] - lo3[a]})) < "
+                f"(unsigned)dn{a - self.lift}" for a in range(self.lift, 3))
+            return f"(({cond}) ? {code} : 0.0f)"
         axes = [a for a in range(3) if any(self.loop.margins[a])]
         if not axes:
             return code
@@ -671,20 +918,24 @@ class _Emitter:
         return self._f(self.temp(out, (0, 0, j)))
 
 
-def kernel_params(call: GroupCall) -> list:
-    """The kernel's parameter declarations, in :meth:`GroupCall.c_argtypes`
-    order (without the launch entry's trailing stream)."""
-    T = _CTYPE[call.dtype_name]
+def kernel_params(call) -> list:
+    """A kernel's parameter declarations, in :func:`c_argtypes` order
+    (without the launch entry's trailing stream): each input with its two
+    outer strides, copy width and batch stride; each coefficient with its
+    batch stride; the outputs; the scalar rows; the origin; the batch
+    size (the block and the sweep kernel alike)."""
+    T = _CTYPE.get(call.dtype_name, "float")
     params = []
     for k in range(len(call.group_inputs)):
         params += [f"const {T}* __restrict__ in{k}", f"long long in{k}_s0",
-                   f"long long in{k}_s1", f"int in{k}_q"]
-    params += [f"const {T}* __restrict__ cf{k}"
-               for k in range(len(call.group_coeffs))]
+                   f"long long in{k}_s1", f"int in{k}_q",
+                   f"long long in{k}_sb"]
+    for k in range(len(call.group_coeffs)):
+        params += [f"const {T}* __restrict__ cf{k}", f"long long cf{k}_sb"]
     params += [f"{T}* __restrict__ out{k}"
                for k in range(len(call.group_outputs))]
-    params += [f"float s{k}" for k in range(call.n_scalars)]
-    params += ["int org0", "int org1", "int org2"]
+    params += ["const float* __restrict__ sv"]
+    params += ["int org0", "int org1", "int org2", "int nb"]
     return params
 
 
@@ -706,22 +957,21 @@ def _emit(call: GroupCall, name: str) -> str:
     rings = {out: j for j, out in enumerate(cta.rings)}
 
     params = kernel_params(call)
-    args = [q.split()[-1] for q in params]
     L = [f"// fuse group {call.group} of {call.program.name}: inputs "
          f"[{', '.join(call.group_inputs)}], outputs "
          f"[{', '.join(call.group_outputs)}]",
          f"// CTA: chunk {CH} planes (+{W} warm-up) of a ({TA},{TB}) tile, "
          f"{nt} threads, {len(cta.levels)} levels, {cta.smem_bytes} B "
-         "shared memory",
-         f"__global__ void __launch_bounds__({nt}, {cta.ctas_per_sm})",
-         f"{name}_kernel({', '.join(params)}) {{",
-         "  extern __shared__ __align__(16) unsigned char smem_raw[];"]
+         "shared memory"]
+    L += kernel_head(name, params, nt, cta.ctas_per_sm)
+    L += ["  extern __shared__ __align__(16) unsigned char smem_raw[];"]
     for k, r in enumerate(cta.inputs):
         L.append(f"  {T}* win{k} = reinterpret_cast<{T}*>(smem_raw + "
                  f"{r.offset});")
     for out, j in rings.items():
         L.append(f"  float* op{j} = reinterpret_cast<float*>(smem_raw + "
                  f"{cta.rings[out].offset});  // {out}")
+    L += batch_prologue(call)
     L += [
         "  const int bid = blockIdx.x;",
         f"  const int t2 = (bid % {tiles[2]}) * {TB};",
@@ -775,23 +1025,8 @@ def _emit(call: GroupCall, name: str) -> str:
             L += ["    " + x for x in _loop(call, loop, rings, outputs, N,
                                              nt, W)]
     L += ["  }", "}", ""]
-    smem = cta.smem_bytes
-    L += [
-        f'extern "C" int {name}_launch({", ".join(params)}, void* stream) {{',
-        "  static bool ready = false;",
-        f"  if (!ready && {smem} > 48 * 1024) {{",
-        f"    cudaError_t e = cudaFuncSetAttribute({name}_kernel,",
-        "        cudaFuncAttributeMaxDynamicSharedMemorySize,"
-        f" {smem});",
-        "    if (e != cudaSuccess) return (int)e;",
-        "  }",
-        "  ready = true;",
-        f"  {name}_kernel<<<{int(np.prod(tiles))}, dim3({tx}, {ty}), {smem},"
-        f" (cudaStream_t)stream>>>({', '.join(args)});",
-        "  return (int)cudaGetLastError();",
-        "}",
-        "",
-    ]
+    L += launch_entry(name, params, int(np.prod(tiles)), (tx, ty),
+                      cta.smem_bytes)
     return "\n".join(L)
 
 

@@ -60,9 +60,14 @@ while it computes.  The design:
   planes, T-fold for a chain), so the results do not depend on the
   chunking.
 
-The plane unroll is a compile-time unroll of the plane loop by P.
-float32 and bfloat16 are compiled (bfloat16 rounds each op's result and
-each updated field); float64 raises ``NotImplementedError`` on the card.
+The plane unroll is a compile-time unroll of the plane loop by P.  A batch
+of requests is one launch, as in the block kernel
+(``stencil3d.batch_prologue``): the batch index is ``blockIdx.y``, every
+pointer advances by its batch stride, and each element's scalars come from
+a ``(batch, n_scalars)`` array on the card; the batch size is a runtime
+argument of the one build.  float32 and bfloat16 are compiled (bfloat16
+rounds each op's result and each updated field); float64 raises
+``NotImplementedError`` on the card.
 The C entry returns ``cudaGetLastError()`` and the wrapper raises if it is
 not 0.  All inline PTX sits in ``stencil3d.BLOCK_HELPERS``' helper block,
 which the host emulation swaps for plain copies.
@@ -76,7 +81,6 @@ counts the launches.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Sequence
 
 import numpy as np
@@ -85,9 +89,13 @@ import torch
 from ..core.expr_eval import evaluate
 from ..core.ir import Access, CoeffRef, Program
 from ..core.schedule import (COPY_BYTES, StreamCTA, plan_stream_cta,
-                             stream_levels, stream_plane_ops,
-                             stream_stage_add, stream_update_fuses)
-from .stencil3d import _CTYPE, _DTYPE_NAMES, _Emitter, bind
+                             serving_domain, stream_levels,
+                             stream_plane_ops, stream_stage_add,
+                             stream_update_fuses)
+from .stencil3d import (_CTYPE, _DTYPE_NAMES, _Emitter, _check_batch,
+                        _coeff_args, _window_origin, batch_prologue,
+                        c_argtypes, kernel_head, kernel_params, launch,
+                        launch_entry, per_element)
 
 #: kernel launches made by :class:`StreamCall` (plain-version runs excluded)
 launches = 0
@@ -102,7 +110,9 @@ class StreamCall:
 
     ``padded_inputs`` must be padded by ``pad_lo``/``pad_hi``; with
     ``input_pad[f]`` an input may be an oversized buffer carrying that
-    (ndim, 2) padding, from which the sweep reads its window in place.
+    (ndim, 2) padding, from which the sweep reads its window in place.  A
+    leading batch axis runs a batch in one launch, as
+    :class:`~repro_torch.kernels.stencil3d.GroupCall` does.
     With ``update`` (the normalised fused-loop rule) and ``update_exprs``
     (the same rule traced to one IR expression per field) the call chains
     ``time_tile`` steps and returns the updated fields
@@ -146,6 +156,14 @@ class StreamCall:
                 f"plane_tile {P} exceeds the stream extent {n0}; "
                 "dataflow.plane_split_reason should have demoted it")
         self.T, self.P = T, P
+        # a serving program's real domain inside its bucket: zero-boundary
+        # ops read as 0 outside it, on every axis (``serving_domain``)
+        self.domain = serving_domain(p)
+        if self.domain is not None and T > 1:
+            raise NotImplementedError(
+                "a chained sweep of a serving program: the serving update "
+                "rule refreshes whole bucket axes, so the compile demotes "
+                "the chain to time_tile=1")
         # the TPU kernel's P-plane grid (the plain version replays it)
         self.n_out = -(-n0 // P)
         self.K = -(-span // P)
@@ -214,92 +232,53 @@ class StreamCall:
                                          padded_coeffs, origin, input_pad)
         if ref.device.type != "cuda":
             raise ValueError(f"no kernel for device {ref.device}")
-        return self._launch(padded_inputs, scalars_vec, padded_coeffs or {},
-                            origin, input_pad or {})
+        return launch(self, padded_inputs, scalars_vec, padded_coeffs or {},
+                      origin, input_pad or {})
 
-    def _launch(self, padded_inputs, scalars_vec, padded_coeffs, origin,
-                input_pad) -> dict:
+    def count_launch(self) -> None:
         global launches
-        if self.dtype_name not in _CTYPE:
-            raise NotImplementedError(
-                f"the CUDA sweep kernel takes float32 or bfloat16, not "
-                f"{self.dtype_name}")
-        if self.module is None:
-            bind([self])
-        fn = self.module.function(self.entry)
-        device = padded_inputs[self.group_inputs[0]].device
-        outs = {f: torch.empty(self.grid_shape, dtype=self.dtype,
-                               device=device) for f in self.group_outputs}
-        args = self.kernel_args(padded_inputs, scalars_vec, padded_coeffs,
-                                origin, input_pad, outs)
-        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"CUDA sweep kernel {self.entry} of "
-                               f"{self.program.name!r} failed to launch: "
-                               f"cudaError {rc}")
         launches += 1
-        return outs
 
-    def kernel_args(self, padded_inputs, scalars_vec, padded_coeffs, origin,
+    def kernel_args(self, padded_inputs, sv, padded_coeffs, origin,
                     input_pad, outs) -> list:
         """The kernel's arguments in :meth:`c_argtypes` order (without the
         stream), after checking every tensor: a pointer to the window's
-        origin inside each input with the input's two outer strides (a 2-D
-        program's unit axis gets stride 0); coefficient and output
-        pointers; scalars; the origin, lifted to three axes."""
+        origin inside each input's first element with the input's two outer
+        strides (a 2-D program's unit axis gets stride 0) and its batch
+        stride; coefficient pointers with their batch strides; output
+        pointers; the ``(B, n_scalars)`` scalar rows ``sv``; the origin,
+        lifted to three axes; the batch size B (as
+        ``stencil3d.GroupCall.kernel_args``)."""
         ndim = self.ndim
         lift = 3 - ndim
-        device = next(iter(outs.values())).device
+        device, nb = _check_batch(self, sv, outs)
         args = []
         for f in self.group_inputs:
             x = padded_inputs[f]
             self._check(x, f, device)
-            ip = (input_pad or {}).get(f)
-            lo = [int(ip[a][0]) - self.halo_lo[a] if ip is not None else 0
-                  for a in range(ndim)]
-            for a in range(ndim):
-                if lo[a] < 0 or x.shape[a] < lo[a] + self.expect[a]:
-                    raise ValueError(
-                        f"input {f!r} of shape {tuple(x.shape)} does not "
-                        f"hold the window extent {self.expect} at offset "
-                        f"{tuple(lo)}")
-            if x.stride(-1) != 1:
-                raise ValueError(f"input {f!r} must be contiguous along "
-                                 "its last axis")
-            base = sum(lo[a] * x.stride(a) for a in range(ndim))
-            s1 = x.stride(1) if ndim == 3 else 0
+            x, lo = _window_origin(self, f, x, input_pad, nb)
+            base = sum(lo[a] * x.stride(1 + a) for a in range(ndim))
+            s0, s1 = x.stride(1), (x.stride(2) if ndim == 3 else 0)
             ptr = x.data_ptr() + base * self.itemsize
-            args += [ptr, x.stride(0), s1,
-                     self._copy_bytes(x, ptr, (x.stride(0), s1), lo[-1])]
-        for c in self.group_coeffs:
-            t = padded_coeffs[c]
-            self._check(t, c, device)
-            need = self.expect[self.coeff_axis[c]]
-            if t.ndim != 1 or not t.is_contiguous() or t.shape[0] < need:
-                raise ValueError(f"coefficient {c!r} must be a contiguous "
-                                 f"1-D tensor of at least {need} values")
-            args.append(t.data_ptr())
+            sb = x.stride(0)
+            args += [ptr, s0, s1,
+                     self._copy_bytes(x, ptr, [s0, s1] + [sb] * (nb > 1),
+                                      lo[-1]), sb]
+        args += _coeff_args(self, padded_coeffs, device, nb)
         for f in self.group_outputs:
-            o = outs[f]
-            self._check(o, f, device)
-            if tuple(o.shape) != self.grid_shape or not o.is_contiguous():
-                raise ValueError(f"output {f!r} must be a contiguous "
-                                 f"{self.grid_shape} tensor")
-            args.append(o.data_ptr())
-        svec = list(scalars_vec or [])
-        if len(svec) < self.n_scalars:
-            raise ValueError(f"expected {self.n_scalars} scalars, got "
-                             f"{len(svec)}")
-        args += [float(s) for s in svec[:self.n_scalars]]
+            self._check(outs[f], f, device)
+            args.append(outs[f].data_ptr())
+        args.append(sv.data_ptr())
         org = [0] * ndim if origin is None else [int(o) for o in origin]
-        return args + org[:1] + [0] * lift + org[1:]
+        return args + org[:1] + [0] * lift + org[1:] + [nb]
 
     def _copy_bytes(self, x, ptr, strides, col) -> int:
         """Bytes one copy of an input's planes moves: 16, else 4, where the
-        window's base, its outer strides and the tile's first column are
-        multiples of it and the copies that round a row up to it stay
-        inside the row (``col``: the window's first column in ``x``); else
-        one element."""
+        window's base, ``strides`` (the outer ones, and the batch stride
+        of a batch of several) and the tile's first column are multiples
+        of it and the copies that round a row up to it stay inside the row
+        (``col``: the window's first column in ``x``); else one
+        element."""
         for q in (COPY_BYTES, 4):
             e = q // self.itemsize
             if e and ptr % q == 0 \
@@ -318,29 +297,11 @@ class StreamCall:
 
     # ----------------------------------------------------------- emitting
     def kernel_params(self) -> list:
-        """Parameter declarations, in :meth:`c_argtypes` order (without
-        the launch entry's trailing stream)."""
-        ct = _CTYPE.get(self.dtype_name, "float")
-        params = []
-        for k in range(len(self.group_inputs)):
-            params += [f"const {ct}* __restrict__ in{k}",
-                       f"long long in{k}_s0", f"long long in{k}_s1",
-                       f"int in{k}_q"]
-        params += [f"const {ct}* __restrict__ cf{k}"
-                   for k in range(len(self.group_coeffs))]
-        params += [f"{ct}* __restrict__ out{k}"
-                   for k in range(len(self.group_outputs))]
-        params += [f"float s{k}" for k in range(self.n_scalars)]
-        return params + ["int org0", "int org1", "int org2"]
+        """Parameter declarations (``stencil3d.kernel_params``)."""
+        return kernel_params(self)
 
     def c_argtypes(self) -> list:
-        n_in, n_c = len(self.group_inputs), len(self.group_coeffs)
-        return ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                 ctypes.c_int] * n_in
-                + [ctypes.c_void_p] * n_c
-                + [ctypes.c_void_p] * len(self.group_outputs)
-                + [ctypes.c_float] * self.n_scalars
-                + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        return c_argtypes(self)
 
     def source(self, name: str | None = None) -> str:
         """CUDA C++ of this region's sweep kernel and its C launch entry."""
@@ -372,9 +333,17 @@ def stream_call_reference(call: StreamCall, padded_inputs: dict,
     per step, temp rings that store zeros outside the domain, T chained
     stages with the update rule applied plane-wise between them, and the
     staging ring that realigns completed planes to P-plane output blocks.
-    Same arguments and geometry as the kernel, and the same rounding: a
-    bfloat16 call computes each op (and each update) in float32 and rounds
-    its result."""
+    Same arguments and geometry as the kernel, the batch axis included
+    (``stencil3d.per_element``), and the same rounding: a bfloat16 call
+    computes each op (and each update) in float32 and rounds its
+    result."""
+    return per_element(_stream_reference, call, padded_inputs, scalars_vec,
+                       padded_coeffs, origin, input_pad)
+
+
+def _stream_reference(call: StreamCall, padded_inputs: dict, scalars_vec,
+                      padded_coeffs: dict, origin, input_pad) -> dict:
+    """:func:`stream_call_reference` for one request."""
     p, ndim, dtype = call.program, call.ndim, call.dtype
     cdt = torch.float32 if dtype == torch.bfloat16 else dtype
     padded_coeffs = padded_coeffs or {}
@@ -398,11 +367,16 @@ def stream_call_reference(call: StreamCall, padded_inputs: dict,
     cvecs = {c: padded_coeffs[c].to(cdt) for c in call.group_coeffs}
     for c in call.group_coeffs:
         device = device or padded_coeffs[c].device
-    svec = list(scalars_vec or [])
+    svec = [] if scalars_vec is None else list(scalars_vec)
     sdict = {s: torch.tensor(float(svec[i]), dtype=torch.float32,
                              device=device)
              for i, s in enumerate(p.scalars[:len(svec)])}
     org = [0] * ndim if origin is None else [int(o) for o in origin]
+    # the domain of the masks: the global one, or a serving program's
+    dom = call.domain
+    dom_lo = dom[0] if dom is not None else (0,) * ndim
+    dom_n = ([int(float(svec[k])) for k in dom[1]] if dom is not None
+             else list(ge))
     ops, produced, margins = call.ops, call.produced, call.margins
     stage_margins = call.stage_margins
     depths, ring_depth = call.depths, call.rings
@@ -431,7 +405,7 @@ def stream_call_reference(call: StreamCall, padded_inputs: dict,
                 continue
             coord = org[a] - lo_off[a] + torch.arange(ext[a - 1],
                                                       device=device)
-            ok = (coord >= 0) & (coord < ge[a])
+            ok = (coord >= dom_lo[a]) & (coord < dom_lo[a] + dom_n[a])
             shape = [1] * (ndim - 1)
             shape[a - 1] = ext[a - 1]
             ok = ok.reshape(shape)
@@ -503,8 +477,19 @@ def stream_call_reference(call: StreamCall, padded_inputs: dict,
                     if not isinstance(res, torch.Tensor):
                         res = torch.tensor(res, device=device)
                     res = res.to(dtype).to(cdt).expand(ext)
-                    if m[1:].any() \
-                            and p.fields[op.out].boundary != "periodic":
+                    zero_bnd = p.fields[op.out].boundary != "periodic"
+                    if zero_bnd and dom is not None:
+                        cg = org[0] + c_plane
+                        mask = in_domain(ext, [None] + [
+                            int(m[a, 0]) for a in range(1, ndim)])
+                        if mask is None:
+                            mask = torch.ones((), dtype=torch.bool,
+                                              device=device)
+                        if not dom_lo[0] <= cg < dom_lo[0] + dom_n[0]:
+                            mask = torch.zeros((), dtype=torch.bool,
+                                               device=device)
+                        res = torch.where(mask, res, zeros(()))
+                    elif m[1:].any() and zero_bnd:
                         mask = in_domain(ext, [None] + [
                             int(m[a, 0]) if m[a].any() else None
                             for a in range(1, ndim)])
@@ -715,21 +700,20 @@ class _SweepEmitter:
         front = c.halo_lo[0] + c.lead
         P = c.P
         params = c.kernel_params()
-        args = [q.split()[-1] for q in params]
         L = [f"// sweep kernel of region {c.region.ops} of "
              f"{self.p.name}: inputs [{', '.join(c.group_inputs)}], "
              f"stores [{', '.join(c.group_outputs)}]",
              f"// time_tile {c.T}, plane_tile {P}, CTA tile ({TA},{TB}), "
              f"chunk {cta.chunk} planes (+{cta.warmup} warm-up), "
              f"{cta.ctas} CTAs ({cta.ctas_per_sm} an SM), "
-             f"{self.smem} B shared memory",
-             f"__global__ void __launch_bounds__({nt}, {cta.ctas_per_sm})",
-             f"{name}_kernel({', '.join(params)}) {{",
-             "  extern __shared__ __align__(16) unsigned char smem_raw[];"]
+             f"{self.smem} B shared memory"]
+        L += kernel_head(name, params, nt, cta.ctas_per_sm)
+        L += ["  extern __shared__ __align__(16) unsigned char smem_raw[];"]
         for key, (off, b) in self.buf.items():
             ty_ = ct if key[0] == "win" else "float"
             L.append(f"  {ty_}* {self.bname(key)} = reinterpret_cast<{ty_}*>"
                      f"(smem_raw + {off});")
+        L += batch_prologue(c)
         L += [
             "  const int bid = blockIdx.x;",
             f"  const int bB = (bid % {tiles[1]}) * {TB};",
@@ -798,23 +782,7 @@ class _SweepEmitter:
                 L += ["      " + x for x in self._stage(s, kp)]
             L.append("    }")
         L += ["  }", "}", ""]
-        L += [
-            f'extern "C" int {name}_launch({", ".join(params)}, '
-            "void* stream) {",
-            "  static bool ready = false;",
-            f"  if (!ready && {self.smem} > 48 * 1024) {{",
-            f"    cudaError_t e = cudaFuncSetAttribute({name}_kernel,",
-            "        cudaFuncAttributeMaxDynamicSharedMemorySize,"
-            f" {self.smem});",
-            "    if (e != cudaSuccess) return (int)e;",
-            "  }",
-            "  ready = true;",
-            f"  {name}_kernel<<<{cta.ctas}, dim3({tx}, {ty}), {self.smem},"
-            f" (cudaStream_t)stream>>>({', '.join(args)});",
-            "  return (int)cudaGetLastError();",
-            "}",
-            "",
-        ]
+        L += launch_entry(name, params, cta.ctas, (tx, ty), self.smem)
         return "\n".join(L)
 
     def bname(self, key) -> str:
@@ -850,6 +818,17 @@ class _SweepEmitter:
         lifted axes in ``axes_lo`` (``{"A"|"B": ...}``)."""
         ng = dict(zip("AB", self.NG))
         return " && ".join(f"G{a} >= 0 && G{a} < {ng[a]}" for a in axes_lo)
+
+    def _domain_mask(self) -> str:
+        """Condition that the point (plane ``qs``, position ``GA``/``GB``)
+        lies in a serving program's real domain, the element's extents
+        ``dn0``, ``dn1``, ... (``stencil3d.batch_prologue``)."""
+        c = self.call
+        lo = c.domain[0]
+        cond = [f"(unsigned)(org0 + qs - {lo[0]}) < (unsigned)dn0"]
+        cond += [f"(unsigned)(G{ax} - {lo[a]}) < (unsigned)dn{a}"
+                 for a, ax in zip(range(1, c.ndim), "AB"[3 - c.ndim:])]
+        return " && ".join(cond)
 
     def _stage(self, s: int, kp: int) -> list:
         """One chain stage at stage-0 plane ``cc`` (the ``kp``-th plane of
@@ -963,7 +942,10 @@ class _SweepEmitter:
             if self.bf16:
                 code = f"rnd_bf16({code})"
             m = c.stage_margins[s][op.out]
-            if m[1:].any() and self.p.fields[op.out].boundary != "periodic":
+            zero_bnd = self.p.fields[op.out].boundary != "periodic"
+            if zero_bnd and c.domain is not None:
+                code = f"(({self._domain_mask()}) ? {code} : 0.0f)"
+            elif m[1:].any() and zero_bnd:
                 axes = [ax for a, ax in zip(range(1, c.ndim),
                                             "AB"[3 - c.ndim:]) if m[a].any()]
                 code = f"(({self._mask(axes)}) ? {code} : 0.0f)"

@@ -153,10 +153,13 @@ def _stream_region_check(ex, p, grid, dtype, tol, copy_bytes=None):
             for c in call.group_coeffs}
         svec = [0.1] * len(p.scalars)
         if copy_bytes is not None:
-            outs = {f: torch.empty(grid, dtype=tdt, device="cuda")
+            outs = {f: torch.empty((1,) + grid, dtype=tdt, device="cuda")
                     for f in call.group_outputs}
-            args = call.kernel_args(padded, svec, pc, None, None, outs)
-            assert [args[4 * k + 3] for k in range(len(call.group_inputs))] \
+            sv = stencil3d.scalar_rows(svec, call.n_scalars, 1, "cuda")
+            args = call.kernel_args(padded, sv, pc, None, None, outs)
+            # each input's arguments: pointer, two strides, copy width,
+            # batch stride
+            assert [args[5 * k + 3] for k in range(len(call.group_inputs))] \
                 == [copy_bytes] * len(call.group_inputs), call.region.ops
         got = call(padded, svec, pc)
         want = stream_call_reference(call, padded, svec, pc)
@@ -330,6 +333,91 @@ def test_stream_float64_raises_on_the_card():
     ex = compile_program(p, grid, dtype="float64", schedule="stream")
     with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
         ex(*_inputs(p, grid))
+
+
+# --------------------------------------------------------------------------
+# the stencil serving engine
+# --------------------------------------------------------------------------
+
+def _served(app, grids, steps, seed=3, **engine):
+    """Requests on ``grids`` (one bucket) served by one engine in one
+    batch: (requests, results, what a warm repeat built: nvcc runs, kernel
+    sources, and the engine's executor compiles in all; the bucket's
+    executor with the batch's arguments)."""
+    from repro_torch.kernels import build
+    from repro_torch.serve import StencilEngine, StencilRequest
+
+    upd = (pw_advection_update(0.1) if app is pw_advection
+           else tracer_advection_update())
+    reqs = []
+    for i, g in enumerate(grids):
+        p = app()
+        f, s, c = _inputs(p, g, seed=seed + i)
+        s = {k: v * (1 + 0.2 * i) for k, v in s.items()}
+        kw = ({} if steps is None else
+              dict(steps=steps, update=upd, update_key=app.__name__))
+        reqs.append(StencilRequest(program=p, fields=f, scalars=s, coeffs=c,
+                                   **kw))
+    with StencilEngine(max_batch=len(grids), window_s=0.5, **engine) as eng:
+        res = eng.map(reqs, timeout=600)
+        runs, traces = build.runs, eng.stats.traces
+        eng.map(reqs, timeout=600)
+        warm = (build.runs - runs, eng.stats.traces - traces,
+                eng.stats.compiles)
+        key, fb, sb, cb = eng.batch_inputs(reqs)
+        bex = eng.executor(key)
+        batch = (bex, fb, sb, cb)
+    return reqs, res, warm, batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("app,steps,tol,grids", [
+    (pw_advection, 4, 1e-4, [(20, 18, 100), (19, 17, 98), (18, 20, 104)]),
+    (tracer_advection, None, 1e-5, [(20, 18, 100), (17, 19, 96)]),
+])
+def test_served_batch_matches_per_request_compile_on_the_card(app, steps,
+                                                              tol, grids):
+    """A served batch (one launch a kernel a step) against each request's
+    own ``compile_program`` on its exact grid on the card; a warm repeat
+    builds no kernel and compiles no executor."""
+    _needs_card()
+    reqs, res, warm, _ = _served(app, grids, steps)
+    assert {r.batch_size for r in res} == {len(grids)}
+    for r, out in zip(reqs, res):
+        kw = ({} if steps is None else dict(steps=steps, update=r.update))
+        want = compile_program(r.program, r.grid(), **kw)(
+            r.fields, r.scalars, r.coeffs)
+        for k in want:
+            assert out.outputs[k].device.type == "cuda"
+            assert _rel_err(out.outputs[k], want[k]) <= tol, k
+    assert warm == (0, 0, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["block", "stream"])
+def test_served_batch_is_bit_equal_to_batches_of_one(schedule):
+    """The same source at every batch size: a batch of 3 through a bucket's
+    executor equals 3 batches of 1 bit for bit, with as many launches."""
+    _needs_card()
+    from repro_torch.kernels import stream3d
+
+    _, _, _, (bex, f, s, c) = _served(
+        pw_advection, [(20, 18, 100), (19, 17, 98), (18, 20, 104)], 3,
+        schedule=schedule)
+    stencil3d.launches = stream3d.launches = 0
+    out = bex.batched(f, s, c)
+    torch.cuda.synchronize()
+    n = stencil3d.launches + stream3d.launches
+    assert n > 0
+    for i in range(3):
+        stencil3d.launches = stream3d.launches = 0
+        one = bex.batched({k: v[i:i + 1] for k, v in f.items()},
+                          {k: v[i:i + 1] for k, v in s.items()},
+                          {k: v[i:i + 1] for k, v in c.items()})
+        torch.cuda.synchronize()
+        assert stencil3d.launches + stream3d.launches == n
+        for k in out:
+            assert torch.equal(out[k][i], one[k][0]), (i, k)
 
 
 # --------------------------------------------------------------------------

@@ -124,16 +124,19 @@ def _emulated(call, queued=False):
     src += f"""
 extern "C" int emu_launch({', '.join(params)}, int nblocks, int tx, int ty,
                           int smem) {{
+  for (int z = 0; z < nb; ++z)
   for (int b = 0; b < nblocks; ++b) {{
     std::vector<unsigned char> sm(smem, 0xff);
     std::barrier<> bar(tx * ty);
     std::vector<std::thread> ts;
     for (int y = 0; y < ty; ++y)
       for (int x = 0; x < tx; ++x)
-        ts.emplace_back([&, x, y, b] {{
-          threadIdx = dim3(x, y); blockIdx = dim3(b); blockDim = dim3(tx, ty);
+        ts.emplace_back([&, x, y, b, z] {{
+          threadIdx = dim3(x, y); blockIdx = dim3(b, z);
+          blockDim = dim3(tx, ty);
           emu_bar = &bar; emu_smem = sm.data();
-          g0_kernel({names});
+          if (nb == 1) g0_kernel<false>({names});
+          else g0_kernel<true>({names});
         }});
     for (auto& t : ts) t.join();
   }}
@@ -166,16 +169,27 @@ extern "C" int emu_launch({', '.join(params)}, int nblocks, int tx, int ty,
     return fn
 
 
-def run_emulated(call, padded, svec, pcoeffs, origin=None, input_pad=None):
-    """The kernel launched as ``GroupCall._launch`` launches it (the same
-    argument marshalling), on CPU tensors, through the emulated entry."""
-    fn = _emulated(call)
-    outs = {f: torch.full(call.grid_shape, float("nan"), dtype=call.dtype)
-            for f in call.group_outputs}
-    args = call.kernel_args(padded, svec, pcoeffs, origin, input_pad, outs)
+def _emulated_launch(call, nblocks, padded, svec, pcoeffs, origin,
+                     input_pad, queued=False):
+    """The kernel launched as ``stencil3d.launch`` launches it (the same
+    argument marshalling, a batch axis or none), on CPU tensors, through
+    the emulated entry."""
+    fn = _emulated(call, queued)
+    batch = stencil3d.batch_of(call, padded, pcoeffs)
+    nb = 1 if batch is None else batch
+    outs = {f: torch.full((nb,) + call.grid_shape, float("nan"),
+                          dtype=call.dtype) for f in call.group_outputs}
+    sv = stencil3d.scalar_rows(svec, call.n_scalars, nb, "cpu")
+    args = call.kernel_args(padded, sv, pcoeffs, origin, input_pad, outs)
     tx, ty = call.threads
-    fn(*args, int(np.prod(call.tiles)), tx, ty, call.smem_bytes)
-    return outs
+    fn(*args, nblocks, tx, ty, call.smem_bytes)
+    return outs if batch is not None else {f: o[0] for f, o in outs.items()}
+
+
+def run_emulated(call, padded, svec, pcoeffs, origin=None, input_pad=None):
+    """The block kernel through the emulated entry."""
+    return _emulated_launch(call, int(np.prod(call.tiles)), padded, svec,
+                            pcoeffs, origin, input_pad)
 
 
 def _inputs(p, grid, dtype, seed=0):
@@ -390,8 +404,10 @@ def test_copy_sizes_follow_the_layout():
         # rows of ``width`` elements (the window's are 66)
         x = {k: torch.nn.functional.pad(v, (0, width - v.shape[-1]))
              for k, v in padded.items()}
-        outs = {o: torch.empty(grid, dtype=dtype) for o in call.group_outputs}
-        args = call.kernel_args(x, svec, pc, None, None, outs)
+        outs = {o: torch.empty((1,) + grid, dtype=dtype)
+                for o in call.group_outputs}
+        sv = stencil3d.scalar_rows(svec, call.n_scalars, 1, "cpu")
+        args = call.kernel_args(x, sv, pc, None, None, outs)
         assert args[3] == want, (dtype, width)
     # and each is taken by the sweep cases' carries: rows of 75 float32
     # elements (4 bytes), 70 and 75 bfloat16 ones (4 bytes, element-wise)
@@ -403,16 +419,10 @@ def test_copy_sizes_follow_the_layout():
 
 def run_stream_emulated(call, padded, svec, pcoeffs, origin=None,
                         input_pad=None, queued=False):
-    """The sweep kernel launched as ``StreamCall._launch`` launches it, on
-    CPU tensors, through the emulated entry (``queued``: its copies land
-    at their wait)."""
-    fn = _emulated(call, queued)
-    outs = {f: torch.full(call.grid_shape, float("nan"), dtype=call.dtype)
-            for f in call.group_outputs}
-    args = call.kernel_args(padded, svec, pcoeffs, origin, input_pad, outs)
-    tx, ty = call.threads
-    fn(*args, call.cta.ctas, tx, ty, call.smem_bytes)
-    return outs
+    """The sweep kernel through the emulated entry (``queued``: its copies
+    land at their wait)."""
+    return _emulated_launch(call, call.cta.ctas, padded, svec, pcoeffs,
+                            origin, input_pad, queued)
 
 
 def _stream_calls(app, boundary, grid, dtype=torch.float32, time_tile=1,
@@ -619,3 +629,117 @@ def test_generated_sweep_kernel_chain_with_the_update_in_its_own_loop(
         got = run_stream_emulated(call, padded, svec, pc, queued=queued)
         for f in want:
             torch.testing.assert_close(got[f], want[f], atol=0, rtol=0)
+
+
+# --------------------------------------------------------------------------
+# A batch of requests in one launch
+# --------------------------------------------------------------------------
+
+def _batch_of_three(call, one_element, extents):
+    """Three elements' kernel arguments stacked on a leading axis, each
+    from ``one_element(k) -> (padded, svec, pcoeffs)`` with its own
+    fields, coefficients and scalars (scalar rows scaled per element); a
+    serving program's size scalars are ``extents(k)``."""
+    els = [one_element(k) for k in range(3)]
+    padded = {f: torch.stack([e[0][f] for e in els]) for f in els[0][0]}
+    rows = [[v * (1.0 + 0.25 * k) for v in e[1]] for k, e in enumerate(els)]
+    if call.domain is not None:
+        rows = [r + list(extents(k)) for k, r in enumerate(rows)]
+    sv = torch.tensor(rows, dtype=torch.float32)
+    pc = {c: torch.stack([e[2][c] for e in els]) for c in els[0][2]}
+    return padded, sv, pc
+
+
+def _check_batch(call, run, batch, tol):
+    """The batched launch bit-equal to three launches of one element, and
+    within ``tol`` (relative to each field's max abs) of the batched plain
+    version."""
+    padded, sv, pc = batch
+    got = run(call, padded, sv, pc)
+    ref = (stream_call_reference if isinstance(call, StreamCall)
+           else stencil3d.group_call_reference)
+    want = ref(call, padded, sv, pc)
+    for b in range(3):
+        one = run(call, {f: x[b] for f, x in padded.items()}, sv[b],
+                  {c: t[b] for c, t in pc.items()})
+        for f in want:
+            assert got[f].shape == (3,) + call.grid_shape, f
+            assert torch.equal(got[f][b], one[f]), (b, f)
+    for f in want:
+        w, g = want[f].float(), got[f].float()
+        assert torch.isfinite(g).all(), f
+        assert float((g - w).abs().max()) <= tol * float(w.abs().max()), f
+
+
+def _serving_tracer():
+    """tracer_advection with the serving layer's size scalars: every
+    zero-boundary op is masked to each element's own real domain."""
+    from repro_torch.serve import serving_program
+
+    return serving_program(tracer_advection())
+
+
+@pytest.mark.parametrize("case", ["pw_zero", "pw_periodic_bf16",
+                                  "tracer_chunks", "tracer_serving"])
+def test_generated_kernel_runs_a_batch_of_three(case):
+    """The block kernel at B = 3, each element with its own fields,
+    coefficients and scalars (a serving program: its own real extents
+    too): bit-equal to three B = 1 launches of the same source, and equal
+    to the batched plain version (pw exactly, tracer to 1e-5, as in
+    :func:`test_generated_kernel_matches_plain_version`)."""
+    p, dtype, block, tol = {
+        "pw_zero": (pw_advection(), torch.float32, (2, 4, 32), 0.0),
+        "pw_periodic_bf16": (pw_advection("periodic"), torch.bfloat16,
+                             (2, 4, 32), 0.0),
+        "tracer_chunks": (tracer_advection(), torch.float32, (4, 4, 32),
+                          1e-5),
+        "tracer_serving": (_serving_tracer(), torch.float32, (4, 4, 32),
+                           1e-5),
+    }[case]
+    grid = (11, 6, 40)
+    call = stencil3d.build_group_call(p, auto_plan(p, grid).groups[0], block,
+                                      grid, dtype=dtype)
+
+    def element(k):
+        f, svec, c = _inputs(p, grid, dtype, seed=20 + k)
+        padded, pc = _pad_all(p, call, f, c)
+        return padded, svec[:2], pc
+
+    # real domains [4, 4 + n) inside the grid, cut on both sides of each axis
+    batch = _batch_of_three(call, element,
+                            lambda k: (3 + k, 1 + k, 30 - 3 * k))
+    _check_batch(call, lambda c, x, s, q: run_emulated(c, x, s, q), batch,
+                 tol)
+
+
+@pytest.mark.parametrize("queued", [False, True])
+@pytest.mark.parametrize("case", ["pw_chunks", "pw_chain", "tracer",
+                                  "tracer_serving"])
+def test_generated_sweep_kernel_runs_a_batch_of_three(case, queued):
+    """The sweep kernel at B = 3 (every region; a T=2 chain; a serving
+    program with its own real extents an element), each element with its
+    own fields, coefficients and scalars, with copies landing at once and
+    queued by their thread: bit-equal to three B = 1 launches, and equal
+    to the batched plain version (pw exactly, tracer to 1e-6, as in
+    :func:`test_generated_sweep_kernel_matches_plain_version`)."""
+    grid = (7, 6, 40)
+    if case == "tracer_serving":
+        p = _serving_tracer()
+        plan = auto_plan(p, grid, schedule="stream")
+        calls = [StreamCall(p, r, grid, tile=(2, 32), chunk=3)
+                 for r in lower_to_dataflow(p, plan, grid).regions]
+    else:
+        app, kw = {"pw_chunks": (pw_advection, dict(tile=(2, 32), chunk=3)),
+                   "pw_chain": (pw_advection, dict(time_tile=2)),
+                   "tracer": (tracer_advection, {})}[case]
+        p, calls = _stream_calls(app, "zero", grid, **kw)
+    tol = 0.0 if p.name == "pw_advection" else 1e-6
+    for call in calls:
+        def element(k, call=call):
+            return _stream_inputs(p, call, grid, torch.float32, seed=30 + k,
+                                  scale=0.1)
+
+        batch = _batch_of_three(call, element,
+                                lambda k: (2 + k, 1 + k, 30 - 3 * k))
+        _check_batch(call, lambda c, x, s, q: run_stream_emulated(
+            c, x, s, q, queued=queued), batch, tol)

@@ -19,6 +19,7 @@ from repro_torch.core.lower_stream import trace_update
 from repro_torch.core.schedule import (STREAM_REGS, adapt_update,
                                        auto_plan, stream_levels)
 from repro_torch.kernels import stencil3d
+from repro_torch.kernels.stencil3d import scalar_rows
 from repro_torch.kernels.stream3d import StreamCall
 
 # chip_smoke.py's stream paths: (app, boundary, grid, dtype, T, P)
@@ -148,8 +149,10 @@ def test_copy_sizes_follow_the_layout(dtype, width, want):
         x = bc.pad_field(x.to(dtype), call.pad_lo, call.pad_hi, "zero")
         padded[f] = torch.nn.functional.pad(
             x, (0, width - x.shape[-1])).contiguous()
-    outs = {o: torch.empty(grid, dtype=dtype) for o in call.group_outputs}
-    args = call.kernel_args(padded, [0.1, 0.1], {
+    outs = {o: torch.empty((1,) + grid, dtype=dtype)
+            for o in call.group_outputs}
+    sv = scalar_rows([0.1, 0.1], call.n_scalars, 1, "cpu")
+    args = call.kernel_args(padded, sv, {
         c: torch.zeros(80, dtype=dtype) for c in call.group_coeffs}, None,
         None, outs)
     assert args[3] == want

@@ -37,6 +37,24 @@ against batches of 1 (bit-equal, as many launches) and its batched kernel
 against its batched plain version, timed; requests a second and p50/p99
 for each phase, and pw fused with ``max_batch`` 1 in turns.
 
+Distribution (``compile_program(..., mesh=, mesh_axes=)``, after the
+serving phase): every shard of a mesh on ``cuda:0``, so both generated
+kernels run at non-zero shard origins on shard-local grids and every halo
+exchange runs on the one card (it measures the cost of sharding and of the
+device-local exchange, not NVLink).  pw 32M on a (2,2) mesh: a zero single
+step, periodic fused x10, and the stream schedule with the stream axis
+sharded at time_tile 2 (fused x10); tracer 8M on (2,2,2) fused x4 and
+periodic stream single step on (2,2); pw bf16 8M single step on (2,2);
+pw 32M on a (1,1,1) mesh, single step and fused x10, bit-equal to the
+local compile; ``strategy="tuned"`` under the (2,2) mesh (pw 32M fused
+x10, ``max_measured`` 4, each measured candidate against ``torch_fused``,
+the second compile a cache hit); and ``StencilEngine(mesh=(2,2))`` on 4
+pw fused x10 requests of the 256x256x128 bucket, each answer against its
+exact grid's local compile.  Each row is held against the local compile
+on the card, logs the sharded and local step in turns, the exchange ms
+and bytes a step and the launches a step (shards x kernels), and its
+first kernel at a non-zero origin against its plain version.
+
 LM serving (the hand-written CUDA sliding-window attention kernels:
 ``swa_mma.cu`` on the tensor cores for bfloat16, ``swa.cu`` for float32):
 
@@ -150,6 +168,12 @@ SERVE_PW_BIG = ((224, 254), (224, 254), (100, 126))
 SERVE_PW_SMALL = ((160, 190), (160, 190), (64, 94))
 SERVE_TRACER = ((217, 248), (217, 248), (96, 120))
 SERVE_BATCH, SERVE_WINDOW_S, SERVE_STEPS = 4, 0.005, 10
+# the mesh phase: shards stacked on cuda:0 over these meshes; the serve
+# row's requests round to the 256x256x128 bucket
+MESH_22 = ((2, 2), ("X", "Y"), ("X", "Y", None))
+MESH_222 = ((2, 2, 2), ("X", "Y", "Z"), ("X", "Y", "Z"))
+MESH_111 = ((1, 1, 1), ("X", "Y", "Z"), ("X", "Y", "Z"))
+MESH_TUNE_MEASURED = 4
 
 LM_ARCH = "h2o_danube_1_8b"
 LM_BATCH, LM_PROMPT, LM_NEW = 2, 8192, 16
@@ -588,6 +612,11 @@ def main() -> int:
     rows += serve_rows
     torch.cuda.empty_cache()
 
+    # ------------------------------------------- distribution over a mesh
+    mesh_rows, mesh = mesh_phase(args.seed, torch, card)
+    rows += mesh_rows
+    torch.cuda.empty_cache()
+
     # --------------------------------------------------- LM serving path
     lm_rows, lm = lm_phase(args.seed, torch, swa)
     rows += lm_rows
@@ -598,7 +627,7 @@ def main() -> int:
     result = {"card": card, "card_properties": card_props,
               "torch": torch.__version__, "cuda": torch.version.cuda,
               "seed": args.seed, "kernels": rows, "paths": path_rows,
-              "tuner": tuner, "serve": serve, "lm": lm,
+              "tuner": tuner, "serve": serve, "mesh": mesh, "lm": lm,
               "seconds": smoke_s}
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -1286,6 +1315,410 @@ def serve_batch_checks(name, bex, fields, scalars, coeffs, tol, torch,
                  "kernel_ms": ms, "kernel_bound_ms": bound_s * 1e3,
                  "plain_ms": plain_ms, "max_rel_err_vs_plain": rel,
                  "bucket": bucket}
+
+
+def mesh_paths(pw_advection, pw_advection_update, tracer_advection,
+               tracer_advection_update):
+    """The mesh phase's compile rows: the program, grid and dtype, the
+    mesh (shape, axis names, mesh_axes), the compile knobs and the
+    tolerance against the local compile (``bit`` for bit-equal)."""
+    pw_upd = pw_advection_update(0.1)
+    pw = dict(app=pw_advection, grid=PW_GRID, dtype="float32")
+    tr = dict(app=tracer_advection, grid=TRACER_GRID, dtype="float32")
+    fused = dict(steps=PW_STEPS, update=pw_upd)
+    return [
+        dict(name="mesh_pw_zero_step", boundary="zero", mesh=MESH_22,
+             kw={}, tol=1e-5, **pw),
+        dict(name="mesh_pw_periodic_fused10", boundary="periodic",
+             mesh=MESH_22, kw=fused, tol=1e-4, **pw),
+        dict(name="mesh_pw_stream_T2_fused10", boundary="zero",
+             mesh=MESH_22, kw=dict(fused, schedule="stream", time_tile=2),
+             tol=1e-4, **pw),
+        dict(name="mesh_tracer_zero_fused4", boundary="zero", mesh=MESH_222,
+             kw=dict(steps=TRACER_STEPS, update=tracer_advection_update()),
+             tol=1e-4, **tr),
+        dict(name="mesh_tracer_periodic_stream", boundary="periodic",
+             mesh=MESH_22, kw=dict(schedule="stream"), tol=1e-5, **tr),
+        dict(name="mesh_pw_bf16_step", boundary="zero", mesh=MESH_22,
+             kw={}, tol=2e-2, app=pw_advection, grid=BF16_GRID,
+             dtype="bfloat16"),
+        dict(name="mesh_degenerate_step", boundary="zero", mesh=MESH_111,
+             kw={}, tol="bit", **pw),
+        dict(name="mesh_degenerate_fused10", boundary="zero", mesh=MESH_111,
+             kw=fused, tol="bit", **pw),
+    ]
+
+
+def card_mesh(shape, names):
+    """A mesh of ``shape`` with every shard on ``cuda:0``."""
+    import numpy as np
+
+    from repro_torch.dist import make_auto_mesh
+    return make_auto_mesh(shape, names,
+                          devices=["cuda:0"] * int(np.prod(shape)))
+
+
+def mesh_run(torch, fn):
+    """One counted run of ``fn`` after an uncounted warm-up (the main
+    path: launch counts and the exchanged bytes zeroed just before, read
+    just after), with every kernel's first launch at a non-zero shard
+    origin captured (its arguments cloned) and each exchange timed by CUDA
+    events.  Returns (outputs, launches, exchanged bytes, exchange ms,
+    captured)."""
+    from repro_torch.core import distribute
+    from repro_torch.kernels import stencil3d, stream3d
+
+    fn()                                # warm-up: allocator, first launches
+    torch.cuda.synchronize()
+    captured, pairs = {}, []
+    saved = (stencil3d.launch, stream3d.launch, distribute._exchange)
+
+    def capture(call, padded, sv, pc, origin, ipad):
+        if id(call) not in captured and origin is not None and any(origin):
+            captured[id(call)] = (call, (
+                {k: t.clone() for k, t in padded.items()}, sv.clone(),
+                {k: t.clone() for k, t in pc.items()}, tuple(origin), ipad))
+        return saved[0](call, padded, sv, pc, origin, ipad)
+
+    def timed_exchange(*a, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = saved[2](*a, **kw)
+        e1.record()
+        pairs.append((e0, e1))
+        return out
+
+    stencil3d.launch = stream3d.launch = capture
+    distribute._exchange = timed_exchange
+    try:
+        stencil3d.launches = stream3d.launches = 0
+        distribute.exchanged_bytes = 0
+        out = fn()
+        torch.cuda.synchronize()
+        launches = stencil3d.launches + stream3d.launches
+        nbytes = distribute.exchanged_bytes
+    finally:
+        stencil3d.launch, stream3d.launch, distribute._exchange = saved
+    ex_ms = sum(a.elapsed_time(b) for a, b in pairs)
+    return out, launches, nbytes, ex_ms, captured
+
+
+def mesh_kernel_row(name, captured, launches, steps, tol, torch) -> dict:
+    """The first captured kernel (a launch at a non-zero shard origin)
+    against its plain version on the same arguments, timed (queued), its
+    bound from the shard-local grid it ran on."""
+    from repro_torch.analysis.stencil_roofline import (kernel_traffic,
+                                                       roofline_seconds)
+    from repro_torch.kernels import build, stencil3d, stream3d
+
+    call, (padded, sv, pc, origin, ipad) = next(iter(captured.values()))
+    stream = isinstance(call, stream3d.StreamCall)
+    ref = (stream3d.stream_call_reference if stream
+           else stencil3d.group_call_reference)
+
+    def kernel():
+        return call(padded, sv, pc, origin, ipad)
+
+    got = kernel()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    want = ref(call, padded, sv, pc, origin, ipad)
+    e1.record()
+    e1.synchronize()
+    plain_ms = e0.elapsed_time(e1)
+    err = max(float((got[k].float() - want[k].float()).abs().max())
+              for k in want)
+    rel = max(rel_err(got[k], want[k]) for k in want)
+    del got, want
+    if rel > (1e-5 if tol == "bit" else float(tol)):
+        raise SystemExit(f"{name}: the kernel at origin {origin} disagrees "
+                         f"with its plain version ({rel:.3e})")
+    ms = time_ms(kernel, inner=20, queued=True)
+    p = call.program
+    exprs = ([op.expr for op in call.ops]
+             + list((call.update_exprs or {}).values()) if stream
+             else [p.ops[i].expr for i in call.group])
+    B = next(iter(padded.values())).ndim - call.ndim
+    nb = next(iter(padded.values())).shape[0] if B else 1
+    nbytes, flops = kernel_traffic(p, call.grid_shape, call.group_inputs,
+                                   call.group_outputs, exprs, call.itemsize,
+                                   coeffs=call.group_coeffs,
+                                   times=getattr(call, "T", 1))
+    bound_s, bound_by = roofline_seconds(nbytes * nb, flops * nb)
+    local = "x".join(map(str, call.grid_shape))
+    mod = "stream3d.build_stream_call" if stream \
+        else "stencil3d.build_group_call"
+    ptxas = ptxas_by_entry(build.ptxas_report(call.module.source)).get(
+        call.entry, ptxas_stats(""))
+    log(f"{name}: kernel at origin {origin} on the {local} shard: "
+        f"{ms:.4f} ms (queued; bound {bound_s * 1e3:.4f} ms by {bound_by}),"
+        f" plain {plain_ms:.1f} ms, vs plain max abs err {err:.3e}, max rel"
+        f" err {rel:.3e}; ptxas {ptxas['registers']} registers "
+        f"({ptxas.get('registers_batched')} batched), spill stores "
+        f"{ptxas['spill_stores']} B, loads {ptxas['spill_loads']} B; source "
+        f"sha256 {source_digest(call.module.source)}")
+    if stream and (ptxas["spill_stores"] or ptxas["spill_loads"]):
+        raise SystemExit(f"{name}: ptxas spills in sweep kernel "
+                         f"{call.entry}")
+    return {"name": f"{mod}[{name} shard {local} "
+                    f"{str(call.dtype).removeprefix('torch.')}]",
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/{mod.split('.')[0]}.py",
+            "replaces": stream3d.REPLACES if stream else stencil3d.REPLACES,
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
+            "bound_by": bound_by, "library_ms": None,
+            "launches_per_step": launches / (steps or 1),
+            "origin": list(origin), "shard_grid": local,
+            "max_rel_err": rel, "batch": nb, **ptxas,
+            "source_sha256": source_digest(call.module.source)}
+
+
+def mesh_phase(seed, torch, card) -> tuple:
+    """Distribution over a mesh whose shards all sit on ``cuda:0`` (see
+    the module docstring).  Every row: the sharded executable's counted
+    run (launches, exchanged bytes, exchange ms by CUDA events), its
+    outputs against the local compile's on the card, both timed in turns,
+    and its first kernel at a non-zero origin against its plain version.
+    Returns (kernel rows, record)."""
+    import tempfile
+
+    from repro_torch import compile_program
+    from repro_torch.apps import (pw_advection, pw_advection_update,
+                                  tracer_advection, tracer_advection_update)
+    from repro_torch.core import PlanCache, TuneConfig, tune_plan
+    from repro_torch.interop import inputs_from_numpy
+    from repro_torch.kernels import build
+    from repro_torch.obs import global_metrics
+    from repro_torch.serve import StencilEngine
+
+    t_phase = time.perf_counter()
+    paths = mesh_paths(pw_advection, pw_advection_update, tracer_advection,
+                       tracer_advection_update)
+    # the serve row's requests, each with its exact grid's local compile
+    reqs = serve_traffic(seed)["pw_fused"]["reqs"][:SERVE_BATCH]
+    direct = [compile_program(r.program, r.grid(), steps=r.steps,
+                              update=r.update) for r in reqs]
+    for ph in paths:
+        ph["p"] = ph["app"](ph["boundary"])
+        shape, names, axes = ph["mesh"]
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            ph["ex"] = compile_program(ph["p"], ph["grid"], dtype=ph["dtype"],
+                                       mesh=card_mesh(shape, names),
+                                       mesh_axes=axes, **ph["kw"])
+            ph["local"] = compile_program(ph["p"], ph["grid"],
+                                          dtype=ph["dtype"], **ph["kw"])
+    sources = [k.module.source for ph in paths
+               for ex in (ph["ex"], ph["local"]) for k in ex.kernels]
+    sources += [k.module.source for ex in direct for k in ex.kernels]
+    t0 = time.perf_counter()
+    build.build_many(sources)
+    log(f"mesh phase: built {len(set(sources))} kernel sources in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rows, record = [], {"card": card, "rows": {}}
+    inputs = {}
+    for ph in paths:
+        name, ex, steps = ph["name"], ph["ex"], ph["kw"].get("steps")
+        ikey = (ph["p"].name, ph["grid"], ph["dtype"])
+        if ikey not in inputs:
+            f, s, c = make_inputs(ph["p"], ph["grid"], seed)
+            inputs[ikey] = inputs_from_numpy(f, s, c, "cuda", ph["dtype"])
+        args = inputs[ikey]
+        got, launches, nbytes, ex_ms, captured = mesh_run(
+            torch, lambda: ex(*args))
+        want = ph["local"](*args)
+        torch.cuda.synchronize()
+        if set(got) != set(want):
+            raise SystemExit(f"{name}: outputs {sorted(got)} != "
+                             f"{sorted(want)}")
+        for k in want:
+            if tuple(got[k].shape) != ph["grid"] or not bool(
+                    torch.isfinite(got[k].float()).all()):
+                raise SystemExit(f"{name}/{k}: bad shape or values")
+        err = max(rel_err(got[k], want[k]) for k in want)
+        bit = all(torch.equal(got[k], want[k]) for k in want)
+        del got, want
+        per = steps or 1
+        shards = ex.shard.local_grid
+        n_shards = 1
+        for ax in range(len(shards)):
+            n_shards *= ex.shard.axis_size(ax)
+        chain = (ex.plan.stream.time_tile
+                 if steps and ex.plan.stream is not None else 1)
+        # a chain (and its remainder) is one sweep a shard an iteration
+        want_launches = (n_shards * (per // chain + (1 if per % chain
+                                                     else 0))
+                         if chain > 1 else n_shards * len(ex.kernels) * per)
+        mesh_ms, local_ms = time_in_turns(
+            [lambda: ex(*args), lambda: ph["local"](*args)])
+        rec = {"grid": list(ph["grid"]), "dtype": ph["dtype"],
+               "mesh": list(ph["mesh"][0]), "mesh_axes": list(ph["mesh"][2]),
+               "shard_grid": list(shards), "schedule": ex.plan.schedule,
+               "time_tile": int(chain), "steps": steps,
+               "max_rel_err": err, "bit_equal": bit,
+               "step_ms": mesh_ms / per, "local_step_ms": local_ms / per,
+               "exchange_ms_per_step": ex_ms / per,
+               "exchange_bytes_per_step": nbytes / per,
+               "launches": launches, "launches_per_step": launches / per,
+               "shards_x_kernels": n_shards * len(ex.kernels)}
+        log(f"{name}: {ph['grid']} {ph['dtype']} mesh {ph['mesh'][0]} "
+            f"({ex.shard.describe()}), {ex.plan.schedule}"
+            f"{f' T={chain}' if chain > 1 else ''}, steps {per}: max rel "
+            f"err vs the local compile {err:.3e} (tol {ph['tol']}), "
+            f"bit-equal {bit}; in turns a step: sharded {mesh_ms / per:.4f}"
+            f" ms, local {local_ms / per:.4f} ms; exchange "
+            f"{ex_ms / per:.4f} ms and {nbytes / per / 2**20:.2f} MiB a "
+            f"step; launches {launches} ({launches / per:g} a step; "
+            f"{n_shards} shards x {len(ex.kernels)} kernels) ({card})")
+        if ph["tol"] == "bit" and not bit:
+            raise SystemExit(f"{name}: the degenerate mesh is not "
+                             "bit-equal to the local compile")
+        if ph["tol"] != "bit" and err > ph["tol"]:
+            raise SystemExit(f"{name}: disagrees with the local compile")
+        if launches != want_launches:
+            raise SystemExit(f"{name}: {launches} launches, expected "
+                             f"{want_launches}")
+        if n_shards > 1:
+            if not captured:
+                raise SystemExit(f"{name}: no kernel launched at a non-zero "
+                                 "origin")
+            row = mesh_kernel_row(name, captured, launches, steps, ph["tol"],
+                                  torch)
+            rec["kernel"] = {k: row[k] for k in ("name", "ms", "bound_ms",
+                                                  "plain_ms", "max_rel_err",
+                                                  "origin")}
+            rows.append(row)
+        record["rows"][name] = rec
+        del captured
+    del inputs, paths
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------- the plan search under a mesh
+    p = pw_advection("zero")
+    upd = pw_advection_update(0.1)
+    shape, names, axes = MESH_22
+    mesh = card_mesh(shape, names)
+    f, s, c = make_inputs(p, PW_GRID, seed)
+    args = inputs_from_numpy(f, s, c, "cuda", "float32")
+    timed = global_metrics().counter("tune.timed_runs")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "mesh_plans.json")
+        cfg = TuneConfig(max_measured=MESH_TUNE_MEASURED, steps=PW_STEPS,
+                         repeats=3)
+        t0 = time.perf_counter()
+        res = tune_plan(p, PW_GRID, update=upd, config=cfg,
+                        cache=PlanCache(path), mesh=mesh, mesh_axes=axes)
+        tune_s = time.perf_counter() - t0
+        want = {None: compile_program(p, PW_GRID, backend="torch_fused")(
+            *args), PW_STEPS: compile_program(
+            p, PW_GRID, backend="torch_fused", steps=PW_STEPS,
+            update=upd)(*args)}
+        cands, worst = [], 0.0
+        for cand in res.measured:
+            for n, tol in ((None, 1e-5), (PW_STEPS, 1e-4)):
+                kw = {} if n is None else dict(
+                    steps=n, update=upd, carry_write=cand.carry_write)
+                exc = compile_program(p, PW_GRID, plan=cand.plan, mesh=mesh,
+                                      mesh_axes=axes, **kw)
+                got, launched, _, _, _ = mesh_run(torch, lambda: exc(*args))
+                err = max(rel_err(got[k], want[n][k]) for k in want[n])
+                del got
+                worst = max(worst, err)
+                if launched < 1 or err > tol:
+                    raise SystemExit(f"mesh_tuned {cand.label} (steps {n}):"
+                                     f" {launched} launches, max rel err "
+                                     f"{err:.3e} against torch_fused")
+            cands.append({"label": cand.label,
+                          "us_fused_per_step": cand.us_fused / PW_STEPS,
+                          "modeled_us": cand.modeled_s * 1e6})
+        del want
+        cache = PlanCache(path)
+        before = timed.value
+        ex_t = compile_program(p, PW_GRID, strategy="tuned", mesh=mesh,
+                               mesh_axes=axes, steps=PW_STEPS, update=upd,
+                               plan_cache=cache, tune_config=cfg)
+        hit = cache.hits == 1 and not cache.misses \
+            and timed.value == before
+        ex_a = compile_program(p, PW_GRID, mesh=mesh, mesh_axes=axes,
+                               steps=PW_STEPS, update=upd)
+        tuned_ms, auto_ms = time_in_turns([lambda: ex_t(*args),
+                                           lambda: ex_a(*args)])
+    log(f"mesh_tuned: pw {PW_GRID} fused x{PW_STEPS} on mesh {shape}: "
+        f"{res.record['candidates']} candidates, {len(res.measured)} "
+        f"measured in {tune_s:.1f} s ({res.record['build_seconds']:.1f} s "
+        f"nvcc), winner {res.measured[0].label}; every measured candidate "
+        f"vs torch_fused worst max rel err {worst:.3e}; second compile a "
+        f"cache hit with 0 timed runs: {hit}; in turns a step: tuned "
+        f"{tuned_ms / PW_STEPS:.4f} ms, auto_plan {auto_ms / PW_STEPS:.4f} "
+        f"ms ({card})")
+    if not hit:
+        raise SystemExit("mesh_tuned: the second tuned compile was no pure "
+                         "cache hit")
+    if res.measured[0].score() > res.baseline.score():
+        raise SystemExit("mesh_tuned: the winner is slower than auto_plan")
+    record["rows"]["mesh_tuned"] = {
+        "candidates": res.record["candidates"], "measured": cands,
+        "winner": res.measured[0].label, "key_mesh": res.record["mesh"],
+        "tune_seconds": tune_s, "build_seconds": res.record["build_seconds"],
+        "max_rel_err": worst, "cache_hit": hit,
+        "tuned_step_ms": tuned_ms / PW_STEPS,
+        "auto_step_ms": auto_ms / PW_STEPS}
+    got, launches, _, _, captured = mesh_run(torch, lambda: ex_t(*args))
+    del got
+    row = mesh_kernel_row("mesh_tuned", captured, launches, PW_STEPS, 1e-4,
+                          torch)
+    rows.append(row)
+    del ex_t, ex_a, args, captured
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------ serving over the mesh
+    eng = StencilEngine(max_batch=SERVE_BATCH, window_s=SERVE_WINDOW_S,
+                        mesh=mesh, mesh_axes=axes)
+    try:
+        serve_pass(eng, reqs, torch)                        # warm-up
+        compiles = eng.stats.compiles
+        res_s, wall = serve_pass(eng, reqs, torch)
+        worst = 0.0
+        for r, out, ex in zip(reqs, res_s, direct):
+            want = ex(r.fields, r.scalars, r.coeffs)
+            err = max(rel_err(out.outputs[k], want[k]) for k in want)
+            worst = max(worst, err)
+            if err > 1e-4 or out.bucket.bucket != BF16_GRID:
+                raise SystemExit(f"mesh_serve {r.grid()}: max rel err "
+                                 f"{err:.3e} against its exact grid's "
+                                 f"compile (bucket {out.bucket.bucket})")
+        key, fb, sb, cb = eng.batch_inputs(reqs)
+        bex = eng.executor(key)
+        got, launches, nbytes, ex_ms, captured = mesh_run(
+            torch, lambda: bex.batched(fb, sb, cb))
+        del got
+    finally:
+        eng.close()
+    log(f"mesh_serve: {len(reqs)} pw fused x{SERVE_STEPS} requests on "
+        f"the {BF16_GRID} bucket over mesh {shape}: {wall:.3f} s "
+        f"({len(reqs) / wall:.2f} req/s), warm compiles "
+        f"{eng.stats.compiles - compiles}; every answer vs its exact grid's "
+        f"compile max rel err {worst:.3e} (tol 1e-4); the batch of "
+        f"{len(reqs)}: launches {launches} ({launches / SERVE_STEPS:g} a "
+        f"step), exchange {ex_ms / SERVE_STEPS:.4f} ms and "
+        f"{nbytes / SERVE_STEPS / 2**20:.2f} MiB a step ({card})")
+    if eng.stats.compiles != compiles:
+        raise SystemExit("mesh_serve: a warm request compiled an executor")
+    row = mesh_kernel_row("mesh_serve", captured, launches, SERVE_STEPS,
+                          1e-4, torch)
+    rows.append(row)
+    record["rows"]["mesh_serve"] = {
+        "requests": len(reqs), "seconds": wall,
+        "req_per_s": len(reqs) / wall, "max_rel_err": worst,
+        "launches_batch": launches,
+        "exchange_ms_per_step": ex_ms / SERVE_STEPS,
+        "exchange_bytes_per_step": nbytes / SERVE_STEPS}
+    record["seconds"] = time.perf_counter() - t_phase
+    log(f"mesh phase: {record['seconds']:.1f} s")
+    return rows, record
 
 
 def device_profile(fn, torch) -> dict:

@@ -1,6 +1,6 @@
 # Stencil-HMLS core on PyTorch: stencil IR, halo passes, the dataflow plan,
-# the pure-torch lowerings, the CUDA kernel orchestrator and the measured
-# plan search.
+# the pure-torch lowerings, the CUDA kernel orchestrator, the distributed
+# executor and the measured plan search.
 from .frontend import (CoeffHandle, ExprHandle, FieldHandle, ProgramBuilder,
                        absolute, exp, log, maximum, minimum, sign, sqrt,
                        tanh, where)
@@ -8,7 +8,8 @@ from .boundary import BOUNDARIES
 from .ir import Program
 from .pipeline import (CompiledStencil, CompileOptions, TileDemotionWarning,
                        batched_executable, compile_program, run_time_loop)
-from .schedule import (DataflowPlan, StreamSpec, TimeLoopSpec, adapt_update,
-                       auto_plan, plan_from_dict, plan_time_loop,
-                       plan_to_dict, program_fingerprint, smem_cost)
+from .schedule import (DataflowPlan, ShardSpec, StreamSpec, TimeLoopSpec,
+                       adapt_update, auto_plan, make_shard_spec,
+                       plan_from_dict, plan_time_loop, plan_to_dict,
+                       program_fingerprint, shard_local_grid, smem_cost)
 from .tune import PlanCache, TuneConfig, get_tuned_plan, tune_plan

@@ -143,3 +143,22 @@ def pad_coeff(c: torch.Tensor, lo: int, hi: int, mode: str) -> torch.Tensor:
         raise ValueError(f"unknown boundary {mode!r}")
     n = c.shape[-1]
     return c[..., torch.arange(-lo, n + hi, device=c.device) % n]
+
+
+def ring_perms(n: int, direction: int, periodic: bool) -> list:
+    """The ``(source, destination)`` shard pairs of a one-shard shift
+    along a mesh axis of ``n`` shards (the reference's ``ppermute``
+    permutation).
+
+    ``direction=+1`` sends each shard's slab to its right neighbour (fills
+    *lo* halos), ``-1`` to its left (fills *hi* halos).  Periodic closes
+    the ring; zero leaves the edge shard unreceiving, and its halo stays
+    zero-filled — the zero-halo convention at the global edge.
+    """
+    if direction not in (1, -1):
+        raise ValueError(f"direction must be +1/-1, got {direction}")
+    if periodic:
+        return [(i, (i + direction) % n) for i in range(n)]
+    if direction == 1:
+        return [(i, i + 1) for i in range(n - 1)]
+    return [(i + 1, i) for i in range(n - 1)]

@@ -35,7 +35,8 @@ def scalar_tensors(p: Program, scalars: Mapping, device) -> dict:
     return out
 
 
-def lower(p: Program, mode: str = "fused", prepad: Mapping | None = None):
+def lower(p: Program, mode: str = "fused", prepad: Mapping | None = None,
+          shift_fn=None, coeff_fn=None, origin=None):
     """Return fn(fields, scalars, coeffs) -> dict of output tensors.
 
     With ``prepad`` (field name -> (ndim, 2) halo widths) the external input
@@ -45,17 +46,48 @@ def lower(p: Program, mode: str = "fused", prepad: Mapping | None = None):
     access path the fused time loop uses for its carry-resident fields.
     Temps produced mid-program stay interior-shaped and keep the
     shift-on-access path, which honours each field's declared boundary.
+
+    ``shift_fn(x, offset, boundary)`` overrides the shift-on-access path
+    and ``coeff_fn(cref, coeffs)`` the coefficient read — the hooks the
+    distributed executor uses to route accesses across shards and to slice
+    replicated coefficient arrays at the shard origin.  ``origin`` (the
+    shard's global offset) places a serving program's domain mask in
+    global coordinates.
     """
+    steps = lower_steps(p, mode, prepad, shift_fn, coeff_fn, origin)
+
+    def run(fields: Mapping[str, torch.Tensor],
+            scalars: Mapping | None = None,
+            coeffs: Mapping[str, torch.Tensor] | None = None):
+        gen = steps(fields, scalars, coeffs)
+        while True:
+            try:
+                next(gen)
+            except StopIteration as stop:
+                return stop.value
+
+    return run
+
+
+def lower_steps(p: Program, mode: str = "fused",
+                prepad: Mapping | None = None, shift_fn=None, coeff_fn=None,
+                origin=None):
+    """:func:`lower` as a generator function: ``steps(fields, scalars,
+    coeffs)`` yields its environment (field name -> tensor) before each op
+    and returns the outputs.  The distributed executor advances one such
+    generator per shard in lock step, op by op, so a shard's shift hook
+    finds every shard's value of the field it reads."""
     if mode not in ("naive", "fused"):
         raise ValueError(mode)
     prepadded = set(prepad or {})
     bnd = p.boundaries()
     cmode = bc.coeff_mode(p)
     dom = serving_domain(p)
+    shift = shift_fn or bc.shift_field
 
-    def run(fields: Mapping[str, torch.Tensor],
-            scalars: Mapping | None = None,
-            coeffs: Mapping[str, torch.Tensor] | None = None):
+    def steps(fields: Mapping[str, torch.Tensor],
+              scalars: Mapping | None = None,
+              coeffs: Mapping[str, torch.Tensor] | None = None):
         scalars = scalars or {}
         coeffs = coeffs or {}
         env = dict(fields)
@@ -73,7 +105,7 @@ def lower(p: Program, mode: str = "fused", prepad: Mapping | None = None):
                              for ax in range(p.ndim))
 
         # a serving program's zero-boundary ops read as 0 outside its real
-        # domain (``schedule.serving_domain``)
+        # domain (``schedule.serving_domain``), in global coordinates
         inside = None
         if dom is not None:
             inside = torch.ones((), dtype=torch.bool,
@@ -82,11 +114,15 @@ def lower(p: Program, mode: str = "fused", prepad: Mapping | None = None):
                 lo = dom[0][ax]
                 n = int(svals[p.scalars[dom[1][ax]]])
                 i = torch.arange(interior[ax], device=any_field.device)
+                if origin is not None:
+                    i = i + int(origin[ax])
                 shape = [1] * p.ndim
                 shape[ax] = interior[ax]
                 inside = inside & ((i >= lo) & (i < lo + n)).reshape(shape)
 
         def coeff(c):
+            if coeff_fn is not None:
+                return coeff_fn(c, coeffs)
             ax = p.coeffs[c.coeff]
             v = bc.shift_field(coeffs[c.coeff], (c.offset,), cmode)
             shape = [1] * p.ndim
@@ -94,6 +130,7 @@ def lower(p: Program, mode: str = "fused", prepad: Mapping | None = None):
             return v.reshape(shape)
 
         for op in p.ops:
+            yield env
             memo = shared_memo if mode == "fused" else {}
 
             def access(a: Access):
@@ -104,7 +141,7 @@ def lower(p: Program, mode: str = "fused", prepad: Mapping | None = None):
                                      + interior[ax])
                                for ax in range(p.ndim))
                     return env[a.field][sl]
-                return bc.shift_field(env[a.field], a.offset, bnd[a.field])
+                return shift(env[a.field], a.offset, bnd[a.field])
 
             res = evaluate(op.expr, access, svals.__getitem__, memo,
                            coeff=coeff)
@@ -120,7 +157,7 @@ def lower(p: Program, mode: str = "fused", prepad: Mapping | None = None):
                 outputs[op.out] = res
         return outputs
 
-    return run
+    return steps
 
 
 def lower_time_loop(p: Program, mode: str, spec, update):

@@ -17,6 +17,11 @@ Entry points run on the card unless ``device="cpu"`` is passed (the tests
 do: the ``"cuda"`` backend then runs each kernel's plain PyTorch version
 through the same orchestrator).  With no card and no ``device="cpu"`` the
 compile raises; it never falls back to the CPU.
+
+``mesh=`` (a :class:`~repro_torch.dist.sharding.Mesh`) with ``mesh_axes=``
+runs the program SPMD over the mesh's devices
+(:mod:`repro_torch.core.distribute`): the planner prices the shard-local
+grid, and the executable takes and returns global tensors.
 """
 
 from __future__ import annotations
@@ -30,16 +35,14 @@ import torch
 from ..obs.events import ChainDemoted, PlanChosen
 from ..obs.metrics import global_metrics
 from ..obs.trace import resolve_tracer
-from . import dataflow, lower_kernel, lower_stream, lower_torch
+from . import dataflow, distribute, lower_kernel, lower_stream, lower_torch
 from .ir import Program
-from .schedule import DataflowPlan, TimeLoopSpec, auto_plan, plan_time_loop
+from .passes import infer_halo
+from .schedule import (DataflowPlan, ShardSpec, TimeLoopSpec, auto_plan,
+                       make_shard_spec, normalize_mesh_axes, plan_time_loop,
+                       shard_local_grid)
 
 _BACKENDS = ("cuda", "torch_fused", "torch_naive")
-
-#: ROADMAP items that port what this compile path still refuses
-_LATER = {
-    "mesh": "ROADMAP A7 (distribution)",
-}
 
 
 class TileDemotionWarning(UserWarning):
@@ -68,8 +71,11 @@ class CompileOptions:
     sets the search's knobs.  ``carry_write=None`` defers to the tuned
     style (``"repad"`` under any other strategy).
 
-    ``mesh=`` raises ``NotImplementedError`` naming the ROADMAP item that
-    ports it.
+    ``mesh=`` (:func:`repro_torch.dist.make_auto_mesh`) runs the compile
+    over a mesh of devices with ``mesh_axes`` (one mesh axis name or None
+    per grid axis; ``mesh.axis_names`` by default): the mesh's devices
+    decide where the executable runs, and a ``device`` that disagrees with
+    them raises.
     """
 
     backend: str = "cuda"
@@ -164,6 +170,8 @@ class CompiledStencil:
     time_spec: TimeLoopSpec | None = None
     # the group kernels the executable launches, in order (backend "cuda")
     kernels: list = dataclasses.field(default_factory=list)
+    # distributed layout (``mesh=``); None for a local compile
+    shard: ShardSpec | None = None
 
     def __call__(self, fields: Mapping, scalars: Mapping | None = None,
                  coeffs: Mapping | None = None) -> dict:
@@ -224,9 +232,19 @@ def _compile(p: Program, grid, o: CompileOptions, tracer,
             "time_tile > 1 pipelines T time steps through one stream "
             "sweep, which applies the update rule in-kernel — it needs "
             "the fused loop: pass steps=N and update=")
-    if o.mesh is not None or o.mesh_axes is not None:
-        raise NotImplementedError(f"mesh= is not ported yet: {_LATER['mesh']}")
-    device = resolve_device(o.device)
+    mesh, mesh_axes = o.mesh, o.mesh_axes
+    if mesh is not None:
+        if mesh_axes is None:
+            mesh_axes = tuple(mesh.axis_names)
+        mesh_axes = normalize_mesh_axes(mesh_axes, p.ndim)
+        # the planner prices CTAs against the per-shard local grid
+        plan_grid = shard_local_grid(grid, mesh, mesh_axes)
+        device = mesh_device(mesh, o.device)
+    elif mesh_axes is not None:
+        raise ValueError("mesh_axes requires mesh=")
+    else:
+        plan_grid = grid
+        device = resolve_device(o.device)
     if o.boundary is not None:
         p = p.with_boundary(o.boundary)
 
@@ -235,10 +253,11 @@ def _compile(p: Program, grid, o: CompileOptions, tracer,
         from . import tune
         tuned = tune.get_tuned_plan(p, grid, backend=backend, dtype=dtype,
                                     update=update, config=o.tune_config,
-                                    cache=o.plan_cache, device=device)
+                                    cache=o.plan_cache, device=device,
+                                    mesh=mesh, mesh_axes=mesh_axes)
         plan, carry_write = tuned.plan, carry_write or tuned.carry_write
     elif plan is None:
-        plan = auto_plan(p, grid, backend=backend, dtype=dtype,
+        plan = auto_plan(p, plan_grid, backend=backend, dtype=dtype,
                          strategy=o.strategy, steps=steps,
                          schedule=o.schedule or "block",
                          time_tile=int(time_tile or 1),
@@ -246,6 +265,8 @@ def _compile(p: Program, grid, o: CompileOptions, tracer,
     # the executable always gets its own copy, retargeted to the backend
     # and to any explicitly requested schedule or tile
     overrides = {"backend": backend}
+    if mesh is not None and plan.mesh_axes_for(p.ndim) != mesh_axes:
+        overrides["mesh_axes"] = mesh_axes
     if time_tile is not None:
         overrides["time_tile"] = int(time_tile)
     if plane_tile is not None:
@@ -257,7 +278,7 @@ def _compile(p: Program, grid, o: CompileOptions, tracer,
         if o.schedule == "block":
             overrides.setdefault("time_tile", 1)
             overrides.setdefault("plane_tile", 1)
-            overrides["block"] = auto_plan(p, grid, backend=backend,
+            overrides["block"] = auto_plan(p, plan_grid, backend=backend,
                                            dtype=plan.dtype).block
     plan = dataclasses.replace(plan, groups=[list(g) for g in plan.groups],
                                **overrides)
@@ -266,21 +287,43 @@ def _compile(p: Program, grid, o: CompileOptions, tracer,
 
     graph = None
     group_halos = None
+    stream_axis = None
     if plan.schedule == "stream":
         metrics.counter("compile.stream_lowerings").inc()
-        graph, plan = _legalise_stream(p, plan, grid, steps, update,
-                                       time_tile, plane_tile, tracer)
+        stream_axis = dataflow.STREAM_AXIS
+        # a mesh that cuts the sweep axis needs exact, chain-deepened ghost
+        # planes on the lo side; the dataflow graph carries them
+        stream_sharded = (mesh is not None
+                          and mesh_axes[stream_axis] is not None
+                          and int(mesh.shape[mesh_axes[stream_axis]]) > 1)
+        graph, plan = _legalise_stream(p, plan, plan_grid, steps, update,
+                                       time_tile, plane_tile, tracer,
+                                       stream_sharded)
         group_halos = graph.group_halos()
+
+    shard = None
+    if mesh is not None:
+        # one halo inference a kernel, shared by the shard spec and the
+        # carry sizing (stream plans made theirs above, ghost-exact and
+        # chain-deepened)
+        if group_halos is None:
+            group_halos = [infer_halo(p, grp) for grp in plan.groups]
+        shard = make_shard_spec(p, plan, grid, mesh, mesh_axes,
+                                group_halos=group_halos,
+                                stream_axis=stream_axis)
 
     time_spec = None
     if steps is not None:
         if update is None:
             raise ValueError("steps=N requires an update(fields, outputs) "
                              "rule to close the time loop")
-        time_spec = plan_time_loop(p, plan, grid, steps,
+        time_spec = plan_time_loop(p, plan, plan_grid, steps,
                                    carry_write=carry_write,
-                                   group_halos=group_halos)
-        if graph is not None:
+                                   group_halos=group_halos, shard=shard)
+        if mesh is not None:
+            fn = distribute.lower_sharded_time_loop(p, plan, grid, time_spec,
+                                                    update, mesh, graph=graph)
+        elif graph is not None:
             fn = lower_stream.lower_time_loop(p, plan, grid, time_spec,
                                               update, device, graph=graph)
         elif backend == "cuda":
@@ -291,6 +334,9 @@ def _compile(p: Program, grid, o: CompileOptions, tracer,
                 p, backend.removeprefix("torch_"), time_spec, update),
                 p, plan.dtype, device)
         metrics.counter("compile.fused_loops").inc()
+    elif mesh is not None:
+        fn = distribute.lower_sharded(p, plan, grid, shard, mesh,
+                                      graph=graph)
     elif graph is not None:
         fn = lower_stream.lower(p, plan, grid, device, graph=graph)
     elif backend == "cuda":
@@ -302,7 +348,8 @@ def _compile(p: Program, grid, o: CompileOptions, tracer,
         eff = plan.stream if plan.stream is not None else plan
         sp.set(schedule=plan.schedule, time_tile=int(eff.time_tile),
                plane_tile=int(eff.plane_tile), steps=steps,
-               device=str(device))
+               device=str(device),
+               mesh=None if mesh is None else dict(mesh.shape))
         if o.plan is None:
             rec = tuned.record if tuned is not None else {}
             tracer.emit(PlanChosen(
@@ -315,17 +362,40 @@ def _compile(p: Program, grid, o: CompileOptions, tracer,
                 roofline_fraction=rec.get("roofline_fraction")))
     return CompiledStencil(program=p, plan=plan, grid=grid, _fn=fn,
                            device=device, time_spec=time_spec,
-                           kernels=list(getattr(fn, "calls", [])))
+                           kernels=list(getattr(fn, "calls", [])),
+                           shard=shard)
+
+
+def mesh_device(mesh, device) -> torch.device:
+    """Where a compile over ``mesh`` runs: the mesh's first device, where
+    its outputs gather (every device of the mesh checked usable).  A
+    ``device`` other than that one raises: with ``mesh=`` the mesh decides
+    where the executable runs."""
+    devs = [torch.device(d) for d in dict.fromkeys(mesh.devices.flat)]
+    if device is not None:
+        want = torch.device(device)
+        if want.type != devs[0].type or (want.index is not None
+                                         and want.index != devs[0].index):
+            raise ValueError(
+                f"device={str(device)!r} disagrees with the mesh's devices "
+                f"{[str(x) for x in devs]}; with mesh= the mesh decides "
+                "where the executable runs")
+    for d in devs:
+        resolve_device(d)
+    return devs[0]
 
 
 def _legalise_stream(p: Program, plan: DataflowPlan, grid: tuple, steps,
-                     update, time_tile, plane_tile, tracer):
+                     update, time_tile, plane_tile, tracer,
+                     stream_sharded: bool = False):
     """Legalise a stream plan once: regions, window depths and rings, and
     the effective tiles, which the carry sizing, the plan's ``stream``
     record and the kernels all share.  A chain whose update rule cannot
     run in-kernel (not plane-local, or not traceable) demotes to
     ``time_tile=1`` with the same event as a legality demotion; an
-    explicitly requested tile that was demoted warns."""
+    explicitly requested tile that was demoted warns.  ``grid`` is the
+    shard-local grid under a mesh; ``stream_sharded`` deepens the lo-side
+    ghost planes for a mesh that cuts the sweep axis."""
     update_demote = None
     if plan.time_tile > 1 and steps is not None:
         if not getattr(update, "_plane_local", True):
@@ -346,7 +416,8 @@ def _legalise_stream(p: Program, plan: DataflowPlan, grid: tuple, steps,
                                          requested=int(plan.time_tile),
                                          effective=1, reason=update_demote))
             plan = dataclasses.replace(plan, time_tile=1)
-    graph = dataflow.lower_to_dataflow(p, plan, grid)
+    graph = dataflow.lower_to_dataflow(p, plan, grid,
+                                       stream_sharded=stream_sharded)
     plan = dataclasses.replace(plan, stream=graph.spec())
     if (time_tile is not None and int(time_tile) > 1
             and graph.time_tile < int(time_tile)):

@@ -148,6 +148,11 @@ class DataflowPlan:
                 f"it requires schedule='stream', got "
                 f"schedule={self.schedule!r}")
 
+    def mesh_axes_for(self, ndim: int) -> tuple:
+        """Mesh axis names normalised to ``ndim`` entries (None =
+        unsharded)."""
+        return normalize_mesh_axes(self.mesh_axes, ndim)
+
     def describe(self) -> str:
         g = ", ".join("{" + ",".join(map(str, grp)) + "}" for grp in self.groups)
         return (f"plan(groups=[{g}], block={self.block}, backend={self.backend}, "
@@ -314,13 +319,21 @@ def serving_domain(p: Program):
 
 
 def mesh_fingerprint(mesh, mesh_axes) -> str:
-    """Encoding of a mesh topology for cache keys: ``"none"`` (unsharded)
-    is the only topology the port serves until ROADMAP A7 (distribution)
-    ports meshes."""
-    if mesh is not None or mesh_axes is not None:
-        raise NotImplementedError(
-            "mesh= is not ported yet: ROADMAP A7 (distribution)")
-    return "none"
+    """Stable encoding of a mesh topology for cache keys.
+
+    Two topologies of the same device count (2x4 vs 4x2, or different
+    grid-axis assignments) shard different local blocks and move different
+    halos, so plans and executors compiled under one must never serve the
+    other: each grid axis as ``name:size`` (``-:1`` unsharded), as in the
+    reference, then the number of distinct devices the shards sit on, so
+    that a plan tuned with four shards on one card never serves four
+    cards.  ``"none"`` = unsharded (local)."""
+    if mesh is None:
+        return "none"
+    axes = tuple(mesh_axes if mesh_axes is not None else mesh.axis_names)
+    topo = ",".join(f"{a or '-'}:{1 if a is None else int(mesh.shape[a])}"
+                    for a in axes)
+    return f"{topo}/devices={len(set(mesh.devices.flat))}"
 
 
 def bucket_fingerprint(p: Program, bucket: Sequence[int], *,
@@ -405,6 +418,139 @@ def adapt_update(update):
 
 
 # --------------------------------------------------------------------------
+# Distributed layout (one mesh shard per sub-domain)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ShardSpec:
+    """Distributed layout of one compiled executable (paper step 9: one
+    memory bank per field; here one mesh shard per sub-domain).
+
+    Derived by :func:`make_shard_spec` from the plan's fuse groups: each
+    field's halo depth is the elementwise max over every consuming group's
+    window halo, so one carry-resident exchange per field per step serves
+    all groups (they read their own window geometry out of the exchanged
+    buffer).  The planner prices tiles against ``local_grid``, never the
+    global domain.
+    """
+
+    # mesh axis name per grid axis (None = unsharded axis)
+    mesh_axes: tuple
+    # mesh axis name -> number of shards along it
+    axis_sizes: dict
+    local_grid: tuple
+    global_grid: tuple
+    # field -> (ndim, 2) halo depth of the worst consuming fuse group
+    field_halo: dict
+    # the plan's stream axis (schedule="stream"; None for block plans).
+    # When this axis is itself sharded, the per-shard sweep needs exact,
+    # chain-deepened lo-side ghost planes (see dataflow.stream_halo) — the
+    # field halos above already price them.
+    stream_axis: int | None = None
+
+    def axis_size(self, ax: int) -> int:
+        name = self.mesh_axes[ax]
+        return 1 if name is None else int(self.axis_sizes[name])
+
+    @property
+    def stream_sharded(self) -> bool:
+        """True when the plan streams over an axis the mesh decomposes."""
+        return (self.stream_axis is not None
+                and self.axis_size(self.stream_axis) > 1)
+
+    def describe(self) -> str:
+        parts = []
+        for ax, name in enumerate(self.mesh_axes):
+            parts.append(f"{name or '-'}:{self.axis_size(ax)}")
+        stream = ("" if self.stream_axis is None
+                  else f", stream_axis={self.stream_axis}"
+                       f"{'/sharded' if self.stream_sharded else ''}")
+        return (f"shard(mesh=[{','.join(parts)}], local={self.local_grid}, "
+                f"global={self.global_grid}{stream})")
+
+
+def normalize_mesh_axes(mesh_axes: Sequence, ndim: int) -> tuple:
+    """Mesh axis names truncated/padded to ``ndim`` entries (None =
+    unsharded) — the one normalisation every layer (pipeline, tuner, shard
+    spec) uses."""
+    ma = tuple(mesh_axes or ())
+    return ma[:ndim] + (None,) * (ndim - len(ma))
+
+
+def shard_local_grid(global_grid: Sequence[int], mesh, mesh_axes: Sequence
+                     ) -> tuple:
+    """Per-shard sub-domain extents; validates mesh/grid divisibility."""
+    global_grid = tuple(int(g) for g in global_grid)
+    out = []
+    for ax, g in enumerate(global_grid):
+        name = mesh_axes[ax] if ax < len(mesh_axes) else None
+        n = 1 if name is None else int(mesh.shape[name])
+        if g % n:
+            raise ValueError(f"grid axis {ax} ({g}) not divisible by mesh "
+                             f"axis {name!r} ({n})")
+        out.append(g // n)
+    return tuple(out)
+
+
+def make_shard_spec(p: Program, plan: DataflowPlan, global_grid: Sequence[int],
+                    mesh, mesh_axes: Sequence,
+                    group_halos: list | None = None,
+                    stream_axis: int | None = None) -> ShardSpec:
+    """Build the :class:`ShardSpec` for ``plan`` over ``mesh``.
+
+    Halo exchange is single-hop (each shard talks to its immediate
+    neighbours), so a field's halo may not exceed the local extent of a
+    sharded axis — violations raise here, at plan time, naming the lever.
+    Pass ``group_halos`` (one :func:`infer_halo` result per fuse group, or
+    the stream graph's chain-accumulated region halos) to reuse halos the
+    caller already computed.  ``stream_axis`` records the plan's sweep
+    axis for stream plans: sharding it is supported — the ``group_halos``
+    must then carry the deepened ghost-plane reach, and a sweep (plus
+    temporal chain) too deep for the local block fails the single-hop
+    check here with the mesh/time_tile levers named.
+    """
+    ndim = p.ndim
+    mesh_axes = normalize_mesh_axes(mesh_axes, ndim)
+    named = [a for a in mesh_axes if a is not None]
+    if len(set(named)) != len(named):
+        raise ValueError(f"mesh axes {mesh_axes} name one mesh axis for two "
+                         "grid axes")
+    unknown = set(named) - set(mesh.axis_names)
+    if unknown:
+        raise ValueError(f"mesh axes {sorted(unknown)} are not axes of the "
+                         f"mesh {tuple(mesh.axis_names)}")
+    local_grid = shard_local_grid(global_grid, mesh, mesh_axes)
+    if group_halos is None:
+        group_halos = plan_group_halos(p, plan)
+    field_halo = {}
+    for gh in group_halos:
+        for f in gh.group_inputs:
+            cur = field_halo.get(f)
+            field_halo[f] = (np.array(gh.input_halo) if cur is None
+                             else np.maximum(cur, gh.input_halo))
+    axis_sizes = {str(k): int(v) for k, v in dict(mesh.shape).items()}
+    for ax, name in enumerate(mesh_axes):
+        if name is None or axis_sizes.get(str(name), 1) == 1:
+            continue
+        for f, h in field_halo.items():
+            if max(int(h[ax, 0]), int(h[ax, 1])) > local_grid[ax]:
+                lever = ("coarsen the mesh axis "
+                         f"{name!r} or enlarge the grid")
+                if ax == stream_axis:
+                    lever = (f"coarsen the mesh axis {name!r}, shallow the "
+                             "time_tile chain, or leave the stream axis "
+                             "unsharded")
+                raise ValueError(
+                    f"halo of field {f!r} on axis {ax} "
+                    f"({int(h[ax, 0])},{int(h[ax, 1])}) exceeds the local "
+                    f"extent {local_grid[ax]}; {lever}")
+    return ShardSpec(mesh_axes=mesh_axes, axis_sizes=axis_sizes,
+                     local_grid=local_grid,
+                     global_grid=tuple(int(g) for g in global_grid),
+                     field_halo=field_halo, stream_axis=stream_axis)
+
+
+# --------------------------------------------------------------------------
 # Fused time loop
 # --------------------------------------------------------------------------
 
@@ -428,8 +574,13 @@ class TimeLoopSpec:
     # halo slabs in a new buffer; "inplace" copies the new interior into the
     # existing buffer (zero-boundary fields; periodic ones always rebuild)
     carry_write: str = "repad"
-    # hi-side tile-alignment slab per axis, already folded into field_pad
+    # hi-side tile-alignment slab per axis, already folded into field_pad;
+    # kept apart so a halo refresh (periodic wrap, exchange) treats it as a
+    # plain zero slab
     align_hi: tuple = ()
+    # distributed layout when the loop runs over a mesh; None = local.
+    # With a shard, every extent in this spec is per shard (local_grid).
+    shard: ShardSpec | None = None
 
     def describe(self) -> str:
         bufs = ", ".join(f"{f}:{a}/{b}" for f, (a, b)
@@ -446,7 +597,8 @@ def clamp_block(block: Sequence[int], grid: Sequence[int]) -> tuple:
 
 def plan_time_loop(p: Program, plan: DataflowPlan, grid: Sequence[int],
                    steps: int, carry_write: str = "repad",
-                   group_halos: list | None = None) -> TimeLoopSpec:
+                   group_halos: list | None = None,
+                   shard: ShardSpec | None = None) -> TimeLoopSpec:
     """Size the carry buffers for a fused time loop.
 
     For the kernel backend a field's carry padding is the elementwise max of
@@ -457,6 +609,10 @@ def plan_time_loop(p: Program, plan: DataflowPlan, grid: Sequence[int],
     take their halos from the dataflow regions (:func:`plan_group_halos`).
     The torch backends share the same spec minus alignment, widened to
     every op's raw reach.
+
+    With ``shard``, ``grid`` must be the shard's *local* grid and the spec
+    describes the per-shard carry; the distributed executor refreshes the
+    halo slabs by exchange at the top of every step.
     """
     grid = tuple(int(g) for g in grid)
     ndim = p.ndim
@@ -511,7 +667,8 @@ def plan_time_loop(p: Program, plan: DataflowPlan, grid: Sequence[int],
     return TimeLoopSpec(steps=steps, persistent=persistent,
                         field_pad=field_pad, double_buffer=double_buffer,
                         group_offsets=group_offsets, carry_write=carry_write,
-                        align_hi=tuple(int(a) for a in align_hi))
+                        align_hi=tuple(int(a) for a in align_hi),
+                        shard=shard)
 
 
 # --------------------------------------------------------------------------
@@ -806,16 +963,19 @@ def smem_cost(p: Program, plan: DataflowPlan, grid: Sequence[int]) -> int:
                for grp in plan.groups)
 
 
-def plan_group_halos(p: Program, plan: DataflowPlan) -> list:
+def plan_group_halos(p: Program, plan: DataflowPlan,
+                     stream_sharded: bool = False) -> list:
     """One :class:`~repro_torch.core.passes.GroupHalo` per executed kernel
     of ``plan``: block-schedule fuse groups via :func:`infer_halo`, stream
     regions (post-legalisation, with shift-register stream-axis halos,
     chain-accumulated when ``time_tile > 1``) via the dataflow layer.
-    Carry sizing goes through here, so the padding always matches what the
-    lowered kernels read."""
+    ``stream_sharded`` deepens the stream-axis lo halos for a mesh that
+    decomposes the sweep axis.  Carry and shard sizing go through here, so
+    the padding always matches what the lowered kernels read."""
     if plan.schedule == "stream":
         from .dataflow import lower_to_dataflow
-        return lower_to_dataflow(p, plan).group_halos()
+        return lower_to_dataflow(
+            p, plan, stream_sharded=stream_sharded).group_halos()
     return [infer_halo(p, grp) for grp in plan.groups]
 
 

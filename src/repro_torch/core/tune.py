@@ -24,8 +24,8 @@ seed, and this module closes the loop on the card:
    rule, the fused ``steps=N`` loop;
 4. **persist** the winner in a JSON plan cache keyed by (program
    fingerprint, grid, backend, device, torch and CUDA versions, nvcc
-   flags, dtype, mode), so ``compile_program(..., strategy="tuned")`` is a
-   pure cache hit — zero timed runs — after the first tune.
+   flags, dtype, mode, mesh topology), so
+   ``compile_program(..., strategy="tuned")`` is a pure cache hit — zero timed runs — after the first tune.
 
 The ``auto_plan`` seed is always measured as the baseline candidate, so the
 tuned plan is never slower than the heuristic on the tuner's own
@@ -60,8 +60,9 @@ from ..obs.metrics import MetricsRegistry, global_metrics
 from ..obs.trace import current_tracer
 from .ir import Program
 from .schedule import (PLAN_SCHEMA_VERSION, DataflowPlan, auto_plan,
-                       feasible_blocks, plan_from_dict, plan_to_dict,
-                       program_fingerprint, smem_cost)
+                       feasible_blocks, mesh_fingerprint, normalize_mesh_axes,
+                       plan_from_dict, plan_to_dict, program_fingerprint,
+                       shard_local_grid, smem_cost)
 
 __all__ = [
     "TuneConfig", "PlanCache", "TuneResult", "cache_key", "device_name",
@@ -219,15 +220,26 @@ def device_name(device) -> str:
     return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
 
 
+def _mesh_tag(mesh, mesh_axes) -> str:
+    """Stable encoding of the mesh topology a plan was tuned under (the
+    shared :func:`~repro_torch.core.schedule.mesh_fingerprint`):
+    topologies of the same device count (2x4 vs 4x2, or different grid-axis
+    assignments) shard different local blocks and move different halos —
+    their tuned plans must not serve each other."""
+    return mesh_fingerprint(mesh, mesh_axes)
+
+
 def cache_key(p: Program, grid: Sequence[int], backend: str,
               device: str, dtype: str = "float32",
-              mode: str = "loop") -> str:
+              mode: str = "loop", mesh=None, mesh_axes=None) -> str:
     """Tuned plans transfer only between identical search problems: the
     program's semantics (boundaries included, via the fingerprint), grid,
     backend, the device's name (:func:`device_name`), the torch and CUDA
     versions and the nvcc flags the kernels build with, the requested
-    dtype, and the mode (``"loop"``: ranked by the fused ``steps=N``
-    measurement; ``"single"``: single step only)."""
+    dtype, the mode (``"loop"``: ranked by the fused ``steps=N``
+    measurement; ``"single"``: single step only) and the mesh topology —
+    a single-step winner must not serve a fused compile, nor a 2x2 winner
+    a 4x1 mesh."""
     return "|".join([
         program_fingerprint(p),
         "grid=" + "x".join(str(int(g)) for g in grid),
@@ -236,6 +248,7 @@ def cache_key(p: Program, grid: Sequence[int], backend: str,
         *build.toolchain(),
         f"dtype={dtype}",
         f"mode={mode}",
+        f"mesh={_mesh_tag(mesh, mesh_axes)}",
     ])
 
 
@@ -398,12 +411,14 @@ def _roofline_fraction(cand: _Candidate, steps: int | None) -> float | None:
 
 
 def _executables(p, grid, cand: _Candidate, update, cfg: TuneConfig,
-                 device) -> list:
+                 device, mesh=None, mesh_axes=None) -> list:
     """The candidate's single-step executable and, given ``update``, its
-    fused ``steps=N`` one."""
+    fused ``steps=N`` one (over ``mesh``: the real sharded executables,
+    halo exchange included)."""
     from .pipeline import CompileOptions, compile_program  # pipeline imports tune
     opts = CompileOptions(backend=cand.plan.backend, plan=cand.plan,
-                          device=device)
+                          device=None if mesh is not None else device,
+                          mesh=mesh, mesh_axes=mesh_axes)
     exes = [compile_program(p, grid, options=opts)]
     if update is not None:
         exes.append(compile_program(p, grid, options=dataclasses.replace(
@@ -419,7 +434,8 @@ def _executables(p, grid, cand: _Candidate, update, cfg: TuneConfig,
 def tune_plan(p: Program, grid, *, backend: str = "cuda",
               dtype: str = "float32", update=None,
               config: TuneConfig | None = None,
-              cache: PlanCache | None = None, device=None) -> TuneResult:
+              cache: PlanCache | None = None, device=None,
+              mesh=None, mesh_axes=None) -> TuneResult:
     """Search the plan space by measurement on ``device`` (the card by
     default) and persist the winner.
 
@@ -429,16 +445,22 @@ def tune_plan(p: Program, grid, *, backend: str = "cuda",
     is given, which is then what the winner is ranked by), and stores the
     winning record under :func:`cache_key`.  The record also keeps the
     tune's seconds and the share of them ``nvcc`` took.
+
+    With ``mesh``/``mesh_axes`` the search tunes a *sharded* plan:
+    candidates are generated, pruned and priced on the per-shard local
+    grid, every measurement runs the real sharded executable (halo
+    exchange included) on the mesh's devices, and the cache key carries
+    the mesh topology.
     """
     # deferred: repro_torch.analysis imports core modules, and this module
     # loads with the core package
     from ..analysis.stencil_roofline import model_plan
-    from .pipeline import resolve_device
     t_start = time.perf_counter()
-    dev = resolve_device(device)
     cfg = config or TuneConfig()
     cache = PlanCache() if cache is None else cache
     grid = tuple(int(g) for g in grid)
+    dev, mesh_axes, plan_grid = _tune_target(p, grid, device, mesh,
+                                             mesh_axes)
     timer0 = cfg.timer or (
         lambda fn: best_of(fn, dev, cfg.warmup, cfg.repeats))
 
@@ -452,17 +474,19 @@ def tune_plan(p: Program, grid, *, backend: str = "cuda",
     tracer = current_tracer()
     global_metrics().counter("tune.runs").inc()
 
-    cands = _candidates(p, grid, backend, dtype, cfg, with_loop)
+    cands = _candidates(p, plan_grid, backend, dtype, cfg, with_loop)
     baseline, rest = cands[0], cands[1:]
     # prune by shared memory, then rank by the model; the baseline pays
     # for neither filter
-    feasible = [c for c in rest if _fits(p, c.plan, grid, cfg.smem_budget)]
+    feasible = [c for c in rest
+                if _fits(p, c.plan, plan_grid, cfg.smem_budget)]
     for c in [baseline] + feasible:
-        c.modeled_s = model_plan(p, c.plan, grid)
+        c.modeled_s = model_plan(p, c.plan, plan_grid)
     feasible.sort(key=lambda c: c.modeled_s)
     survivors = [baseline] + feasible[:max(0, cfg.max_measured - 1)]
 
-    exes = [_executables(p, grid, c, update, cfg, dev) for c in survivors]
+    exes = [_executables(p, grid, c, update, cfg, dev, mesh, mesh_axes)
+            for c in survivors]
     build_s = 0.0
     if dev.type == "cuda":
         # every survivor's kernels at once, before the first timing
@@ -497,7 +521,8 @@ def tune_plan(p: Program, grid, *, backend: str = "cuda",
     eff = winner.plan.stream if winner.plan.stream is not None \
         else winner.plan
     key = cache_key(p, grid, backend, device_name(dev), dtype,
-                    "loop" if with_loop else "single")
+                    "loop" if with_loop else "single", mesh=mesh,
+                    mesh_axes=mesh_axes)
     record = {
         "plan": plan_to_dict(winner.plan),
         "carry_write": winner.carry_write,
@@ -513,6 +538,7 @@ def tune_plan(p: Program, grid, *, backend: str = "cuda",
         # modeled over measured time for the winner (repro_torch.obs.
         # achieved); on the CPU the model still prices the card
         "roofline_fraction": winner.roofline_fraction,
+        "mesh": _mesh_tag(mesh, mesh_axes),
         "steps": cfg.steps if with_loop else None,
         "candidates": len(cands),
         "measured": len(survivors),
@@ -542,7 +568,7 @@ def get_tuned_plan(p: Program, grid, *, backend: str = "cuda",
                    dtype: str = "float32", update=None,
                    config: TuneConfig | None = None,
                    cache: PlanCache | None = None,
-                   device=None) -> TuneResult:
+                   device=None, mesh=None, mesh_axes=None) -> TuneResult:
     """Cache-first entry point behind ``compile_program(strategy="tuned")``.
 
     A hit deserialises the stored plan and performs **zero** timed runs; a
@@ -550,12 +576,12 @@ def get_tuned_plan(p: Program, grid, *, backend: str = "cuda",
     encode the search effort: pass a config with ``force_retune=True`` to
     search again (and overwrite the entry) with other knobs.
     """
-    from .pipeline import resolve_device
-    dev = resolve_device(device)
+    grid = tuple(int(g) for g in grid)
+    dev, mesh_axes, _ = _tune_target(p, grid, device, mesh, mesh_axes)
     cache = PlanCache() if cache is None else cache
-    key = cache_key(p, tuple(int(g) for g in grid), backend,
-                    device_name(dev), dtype,
-                    "loop" if update is not None else "single")
+    key = cache_key(p, grid, backend, device_name(dev), dtype,
+                    "loop" if update is not None else "single", mesh=mesh,
+                    mesh_axes=mesh_axes)
     rec = None if (config is not None and config.force_retune) \
         else cache.lookup(key)
     tracer = current_tracer()
@@ -568,7 +594,22 @@ def get_tuned_plan(p: Program, grid, *, backend: str = "cuda",
     if tracer.enabled:
         tracer.emit(CacheMiss(cache="tuned_plan", key=key))
     return tune_plan(p, grid, backend=backend, dtype=dtype, update=update,
-                     config=config, cache=cache, device=dev)
+                     config=config, cache=cache, device=dev, mesh=mesh,
+                     mesh_axes=mesh_axes)
+
+
+def _tune_target(p: Program, grid: tuple, device, mesh, mesh_axes) -> tuple:
+    """``(device, mesh_axes, plan_grid)`` of a search: the device (the
+    mesh's first, under a mesh), the normalised mesh axes, and the grid
+    candidates are priced on (the shard-local one under a mesh)."""
+    from .pipeline import mesh_device, resolve_device
+    if mesh is None:
+        return resolve_device(device), mesh_axes, grid
+    if mesh_axes is None:
+        mesh_axes = tuple(mesh.axis_names)
+    mesh_axes = normalize_mesh_axes(mesh_axes, p.ndim)
+    return (mesh_device(mesh, device), mesh_axes,
+            shard_local_grid(grid, mesh, mesh_axes))
 
 
 # --------------------------------------------------------------------------

@@ -58,7 +58,12 @@ while it computes.  The design:
   (``schedule.sweep_chunk``); each chunk first recomputes ``warmup`` planes
   below its first output plane (the reference's sharded-sweep ghost
   planes, T-fold for a chain), so the results do not depend on the
-  chunking.
+  chunking.  A sweep over a sharded stream axis (``stream_sharded``: a
+  mesh cuts axis 0, so the planes below a shard's first plane lie in the
+  global domain) takes the reference's deeper lo-side input halo, and its
+  first chunk warms up below the shard's first plane like any other
+  chunk, reading planes before the padded input as zeros (they lie
+  outside what the shard's planes depend on).
 
 The plane unroll is a compile-time unroll of the plane loop by P.  A batch
 of requests is one launch, as in the block kernel
@@ -116,7 +121,8 @@ class StreamCall:
     With ``update`` (the normalised fused-loop rule) and ``update_exprs``
     (the same rule traced to one IR expression per field) the call chains
     ``time_tile`` steps and returns the updated fields
-    (``returns_fields``).  The geometry attributes are the TPU kernel's, so
+    (``returns_fields``).  ``stream_sharded`` marks a sweep over a stream
+    axis a mesh decomposes (the reference's flag of the same name).  The geometry attributes are the TPU kernel's, so
     the orchestrators in ``core.lower_kernel`` drive both kernels alike.
     ``tile``/``chunk`` override the planner's CTA (tests).
     """
@@ -125,7 +131,8 @@ class StreamCall:
                  dtype=torch.float32,
                  global_extent: Sequence[int] | None = None,
                  time_tile: int = 1, update=None, update_exprs=None,
-                 plane_tile: int = 1, tile=None, chunk=None):
+                 plane_tile: int = 1, tile=None, chunk=None,
+                 stream_sharded: bool = False):
         ndim = p.ndim
         gh = region.halo
         T = max(1, int(time_tile))
@@ -146,7 +153,13 @@ class StreamCall:
         hh = tuple(int(gh.input_halo[a, 1]) for a in range(ndim))
         self.hl, self.hh = hl, hh
         self.lead = lead = hh[0]
-        self.halo_lo = (hl[0],) + tuple(T * hl[a] for a in range(1, ndim))
+        # lo-side stream pad: shallow locally (warm-up planes below the
+        # domain are masked), chain-deepened exact ghost planes when the
+        # stream axis is sharded (``region.halo`` then comes from a graph
+        # lowered with the same flag)
+        self.stream_sharded = bool(stream_sharded)
+        self.halo_lo = ((T * hl[0] if self.stream_sharded else hl[0]),) \
+            + tuple(T * hl[a] for a in range(1, ndim))
         self.halo_hi = (T * lead,) + tuple(T * hh[a] for a in range(1, ndim))
         span = self.halo_lo[0] + self.halo_hi[0]
         self.n_steps = n0 + span
@@ -722,13 +735,23 @@ class _SweepEmitter:
             f"  const int c1 = min({c.grid_shape[0]}, c0 + {cta.chunk});",
             f"  const int vA = min({TA}, {NA} - bA), "
             f"vB = min({TB}, {NB} - bB);",
-            f"  const int cs = max(0, c0 - {cta.warmup});",
+            (f"  const int cs = c0 - {cta.warmup};" if c.stream_sharded
+             else f"  const int cs = max(0, c0 - {cta.warmup});"),
             f"  const int ce = c1 - 1 + {(c.T - 1) * c.lead};",
             "  const int tid = threadIdx.y * blockDim.x + threadIdx.x;",
             "  (void)vA; (void)vB;",
         ]
         nring = (self.smem - self.ring_off) // 4
-        if nring:
+        if c.stream_sharded:
+            # windows too: planes before the padded input read as zeros
+            L += ["  // shared memory starts as zeros: planes before the "
+                  "padded input are not fetched",
+                  "  { float* z = reinterpret_cast<float*>(smem_raw);",
+                  "#pragma unroll 1",
+                  f"    for (int i = tid; i < {self.smem // 4}; i += {nt}) "
+                  "z[i] = 0.0f; }",
+                  "  __syncthreads();"]
+        elif nring:
             L += ["  // rings start as zeros: planes before the sweep are "
                   "outside the domain",
                   f"  {{ float* z = reinterpret_cast<float*>(smem_raw + "
@@ -745,8 +768,10 @@ class _SweepEmitter:
             off, S, (WA, WB) = self.buffer(("win", f))
             stage = (f"(dst, src, in{k}_s1, vA + {c.T * self.span2[0]}, "
                      f"{WB}, 0, vB + {c.T * self.span2[1]}, t, {nt})")
+            guard = (f"q < 0 || q > ce + {front}" if c.stream_sharded
+                     else f"q > ce + {front}")
             L += [f"  auto fetch{k} = [&](int q, int t) {{  // {f}",
-                  f"    if (q > ce + {front}) return;",
+                  f"    if ({guard}) return;",
                   f"    {ct}* dst = win{k} + pmod(q, {S}) * {WA * WB};",
                   f"    const {ct}* src = in{k} + (long long)q * in{k}_s0"
                   f" + (long long)bA * in{k}_s1 + bB;"]

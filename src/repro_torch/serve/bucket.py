@@ -153,10 +153,11 @@ def make_refresh(p: Program, spec: BucketSpec):
     index an axis, in one indexing pass; zero fields keep the cells inside
     ``[off, off + n)`` on every axis, one mask for all of them.
 
-    ``origin`` (a shard's global offset) shifts the zero masks into global
-    coordinates; periodic fields reject it, since the gather is a
-    whole-axis permutation with no shard-local form.  The port serves
-    unsharded, so the engine never passes one.
+    Under a mesh the refresh sees each shard's *local* block, and
+    ``origin`` (the shard's global offset, which the distributed fused
+    loop passes) shifts the zero masks into global coordinates; periodic
+    fields reject it, since the gather is a whole-axis permutation with no
+    shard-local form (the engine refuses such requests first).
     """
     bnd = p.boundaries()
     names = size_scalar_names(p.ndim)
@@ -223,7 +224,7 @@ def wrap_update(p: Program, spec: BucketSpec, update):
         return refresh(new, scalars, origin)
 
     wrapped._takes_scalars = True
-    # a sharded time loop would feed the shard's global offset so the
+    # the sharded time loop feeds each shard's global offset so the
     # refresh masks in global coordinates
     wrapped._takes_origin = True
     # the refresh gathers across whole bucket axes — there is no plane-local

@@ -31,12 +31,19 @@ thread, which launches on its own current stream of the engine's device
 and waits for a batch to finish before it answers, so executors and stats
 need no locking of their own.  Answers are tensors on the engine's device.
 
+``mesh=`` with ``mesh_axes=`` serves every bucket through the
+distributed executor (:mod:`repro_torch.core.distribute`): executors are
+keyed by the mesh topology, answers gather on the mesh's first device, a
+fused loop's bucket refresh masks in global coordinates through each
+shard's origin, and fused serving of periodic fields under a sharded mesh
+is refused, as in the reference (the refresh's torus gather has no
+shard-local form).
+
 Where it differs from the reference: ``backend="cuda"`` is the default;
 ``device=None`` means the card and raises without one (``device="cpu"``
 runs the kernels' plain versions, for the tests); there is no
-``interpret``; ``mesh=`` raises, naming ROADMAP A7; and a batch whose
-launch fails fails its requests — it is never retried unrolled nor moved
-to the CPU.
+``interpret``; and a batch whose launch fails fails its requests — it is
+never retried unrolled nor moved to the CPU.
 """
 
 from __future__ import annotations
@@ -55,9 +62,11 @@ import torch
 from .. import hw
 from ..core.ir import Program
 from ..core.lower_kernel import DTYPES
-from ..core.pipeline import (CompileOptions, batched_executable,
-                             compile_program, resolve_device)
-from ..core.schedule import BucketSpec, bucket_fingerprint, bucket_for
+from ..core.pipeline import (CompileOptions, mesh_device,
+                             batched_executable, compile_program,
+                             resolve_device)
+from ..core.schedule import (BucketSpec, bucket_fingerprint, bucket_for,
+                             normalize_mesh_axes)
 from ..core.tune import PlanCache, make_serve_record, read_serve_record
 from ..obs.events import CacheHit, CacheMiss, ExecutorEvicted
 from ..obs.trace import current_tracer, resolve_tracer
@@ -196,10 +205,15 @@ class StencilEngine:
                         f"{name} passed both ways with different values: "
                         f"engine {name}={val!r} vs options.{name}={oval!r}")
             setattr(self, name, val)
-        if self.mesh is not None or self.mesh_axes is not None:
-            raise NotImplementedError(
-                "mesh= is not ported yet: ROADMAP A7 (distribution)")
-        self.device = resolve_device(self.device)
+        if self.mesh is not None and self.mesh_axes is None:
+            raise ValueError("mesh= requires mesh_axes= (one entry per grid "
+                             "axis; None leaves an axis unsharded)")
+        if self.mesh is not None:
+            # the mesh decides where the executors run; answers gather on
+            # its first device
+            self.device = mesh_device(self.mesh, self.device)
+        else:
+            self.device = resolve_device(self.device)
         self.max_batch = int(max_batch)
         self.window_s = float(window_s)
         self.max_executors = (None if max_executors is None
@@ -271,6 +285,18 @@ class StencilEngine:
         p = req.program
         if req.boundary is not None:
             p = p.with_boundary(req.boundary)
+        if req.steps is not None and self.mesh is not None:
+            ma = normalize_mesh_axes(self.mesh_axes, p.ndim)
+            if any(a is not None and int(self.mesh.shape[a]) > 1
+                   for a in ma):
+                per = sorted(f for f in p.input_fields()
+                             if p.boundaries().get(f) == "periodic")
+                if per:
+                    raise ValueError(
+                        f"fused serving of periodic fields {per} under "
+                        "mesh= is not supported: the bucket refresh is a "
+                        "global torus gather with no shard-local form; "
+                        "serve them unsharded or use boundary='zero'")
         sp = serving_program(p)
         missing = set(sp.input_fields()) - set(req.fields)
         if missing:
@@ -286,7 +312,9 @@ class StencilEngine:
         key = "|".join([
             bucket_fingerprint(sp, spec.bucket, backend=self.backend,
                                dtype=self.dtype, schedule=self.schedule,
-                               steps=req.steps, plane_tile=self.plane_tile),
+                               steps=req.steps, mesh=self.mesh,
+                               mesh_axes=self.mesh_axes,
+                               plane_tile=self.plane_tile),
             f"time_tile={self.time_tile or 'plan'}",
             f"update={ukey}",
         ])
@@ -423,7 +451,8 @@ class StencilEngine:
                     strategy=self.strategy, steps=req.steps, update=update,
                     carry_write=carry_write, schedule=self.schedule,
                     time_tile=self.time_tile, plane_tile=self.plane_tile,
-                    plan_cache=self.plan_cache, device=self.device))
+                    plan_cache=self.plan_cache, device=self.device,
+                    mesh=self.mesh, mesh_axes=self.mesh_axes))
             self.stats.compiles += 1
             # each translation unit the compile bound is one kernel build
             self.stats.traces += len({id(c.module) for c in ex.kernels

@@ -421,6 +421,91 @@ def test_served_batch_is_bit_equal_to_batches_of_one(schedule):
 
 
 # --------------------------------------------------------------------------
+# the distributed executor: shards stacked on one card
+# --------------------------------------------------------------------------
+
+def _card_mesh(shape, names):
+    from repro_torch.dist import make_auto_mesh
+    return make_auto_mesh(shape, names,
+                          devices=["cuda:0"] * int(np.prod(shape)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("app,boundary,schedule,time_tile,steps,tol", [
+    (pw_advection, "zero", "block", None, None, 1e-5),
+    (pw_advection, "periodic", "block", None, 5, 1e-4),
+    (tracer_advection, "zero", "block", None, 3, 1e-4),
+    (pw_advection, "zero", "stream", None, None, 1e-5),
+    (pw_advection, "zero", "stream", 2, 5, 1e-4),
+    (tracer_advection, "zero", "stream", None, 2, 1e-4),
+])
+def test_mesh_on_one_card_matches_the_local_compile(app, boundary, schedule,
+                                                    time_tile, steps, tol):
+    """A (2,2) mesh of four shards on ``cuda:0`` (the stream axis cut, so
+    the sweeps take the sharded ghost planes and a T=2 chain runs a
+    remainder) against the local compile on the card: both generated
+    kernels launch once a shard a kernel, at every shard origin."""
+    _needs_card()
+    from repro_torch.kernels import stream3d
+    p = app(boundary)
+    grid = (24, 20, 64)
+    f, s, c = _inputs(p, grid)
+    kw = dict(schedule=schedule, time_tile=time_tile)
+    if steps:
+        upd = (pw_advection_update(0.1) if app is pw_advection
+               else tracer_advection_update())
+        kw.update(steps=steps, update=upd)
+    want = compile_program(p, grid, **kw)(f, s, c)
+    ex = compile_program(p, grid, mesh=_card_mesh((2, 2), ("X", "Y")),
+                         mesh_axes=("X", "Y", None), **kw)
+    stencil3d.launches = stream3d.launches = 0
+    got = ex(f, s, c)
+    torch.cuda.synchronize()
+    n = stencil3d.launches + stream3d.launches
+    per = -(-(steps or 1) // (time_tile or 1)) if schedule == "stream" \
+        else (steps or 1)
+    assert n >= 4 * per and n % 4 == 0
+    for k in want:
+        assert got[k].device.type == "cuda"
+        assert _rel_err(got[k], want[k]) <= tol, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule,time_tile,steps", [
+    ("block", None, None), ("block", None, 4), ("stream", 2, 5)])
+def test_degenerate_mesh_is_bit_equal_on_the_card(schedule, time_tile,
+                                                  steps):
+    _needs_card()
+    p = pw_advection()
+    grid = (24, 20, 64)
+    f, s, c = _inputs(p, grid)
+    kw = dict(schedule=schedule, time_tile=time_tile)
+    if steps:
+        kw.update(steps=steps, update=pw_advection_update(0.1))
+    want = compile_program(p, grid, **kw)(f, s, c)
+    got = compile_program(p, grid, mesh=_card_mesh((1, 1, 1),
+                                                   ("X", "Y", "Z")),
+                          **kw)(f, s, c)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+def test_make_auto_mesh_takes_one_card_a_shard():
+    """Four shards need four cards: on fewer it raises rather than stack
+    shards on one card or move them to the CPU."""
+    _needs_card()
+    from repro_torch.dist import make_auto_mesh
+    n = torch.cuda.device_count()
+    if n >= 4:
+        mesh = make_auto_mesh((2, 2), ("X", "Y"))
+        assert len(set(mesh.devices.flat)) == 4
+    else:
+        with pytest.raises(RuntimeError, match="needs 4 CUDA devices"):
+            make_auto_mesh((2, 2), ("X", "Y"))
+
+
+# --------------------------------------------------------------------------
 # sliding-window attention and the LM serving path
 # --------------------------------------------------------------------------
 

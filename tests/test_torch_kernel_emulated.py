@@ -530,6 +530,68 @@ def test_generated_sweep_kernel_with_queued_copies_matches_plain_version(
                       chunk, queued=True)
 
 
+# app, boundary, time_tile, tile, chunk, origin on axis 0 of a global
+# extent of three shards: the first, a middle and the last shard, a chain
+# with its T-fold ghost planes, and chunks whose warm-up reaches below the
+# shard's first plane (and below its padded input)
+SHARDED_SWEEP_CASES = [
+    (pw_advection, "zero", 1, None, None, 7),
+    (pw_advection, "zero", 1, (2, 32), 3, 0),
+    (pw_advection, "zero", 2, (4, 32), 2, 7),
+    (pw_advection, "zero", 2, None, None, 14),
+    (pw_advection, "periodic", 1, (4, 32), 3, 7),
+    (tracer_advection, "zero", 1, (2, 32), 3, 7),
+    (tracer_advection, "zero", 1, None, None, 14),
+]
+
+
+@pytest.mark.parametrize("app,boundary,time_tile,tile,chunk,origin",
+                         SHARDED_SWEEP_CASES)
+@pytest.mark.parametrize("queued", [False, True])
+def test_generated_sweep_kernel_over_a_sharded_stream_axis(
+        app, boundary, time_tile, tile, chunk, origin, queued):
+    """A shard's sweep when a mesh cuts the stream axis
+    (``stream_sharded``): the input carries the deeper lo-side ghost
+    planes, the planes below the shard's first plane lie in the global
+    domain, and every chunk warms up below its first plane, the first
+    one reading planes before the padded input as zeros.  Kernel vs plain
+    version at the plain sweep's tolerances (pw exact, tracer 1e-6)."""
+    grid = (7, 6, 40)
+    p = app(boundary)
+    plan = auto_plan(p, grid, schedule="stream", time_tile=time_tile)
+    graph = lower_to_dataflow(p, plan, grid, stream_sharded=True)
+    tol = 0.0 if p.name == "pw_advection" else 1e-6
+    for k, r in enumerate(graph.regions):
+        kw = {}
+        if time_tile > 1:
+            upd = adapt_update(pw_advection_update(0.1))
+            outs = [p.ops[i].out for i in r.ops]
+            exprs, why = trace_update(p, upd, r.halo.group_inputs, outs)
+            assert why is None, why
+            kw = dict(time_tile=time_tile, update=upd, update_exprs=exprs)
+        call = StreamCall(p, r, grid, global_extent=(21, 6, 40), tile=tile,
+                          chunk=chunk, stream_sharded=True, **kw)
+        assert call.halo_lo[0] == time_tile * int(r.halo.input_halo[0, 0])
+        _, svec, pc = _stream_inputs(p, call, grid, torch.float32, seed=k)
+        # the ghost planes hold a neighbour's data: random, like the rest
+        rng = np.random.default_rng(k)
+        padded = {}
+        for f in call.group_inputs:
+            x = torch.as_tensor(rng.normal(size=call.expect)
+                                .astype(np.float32)) * 0.1
+            padded[f] = ((x > 0).float() if f == "msk" else
+                         x.abs() + 1.0 if f == "e3t" else x)
+        org = (origin, 0, 0)
+        want = stream_call_reference(call, padded, svec, pc, origin=org)
+        got = run_stream_emulated(call, padded, svec, pc, origin=org,
+                                  queued=queued)
+        for f in want:
+            w, g = want[f].float(), got[f].float()
+            assert torch.isfinite(g).all(), (k, f)
+            assert float((g - w).abs().max()) <= tol * float(
+                w.abs().max()), (k, f)
+
+
 def _coeff_program(ndim):
     """A ring temp read one plane back and a coefficient along the stream
     axis read at offsets -1, 0, +1 (3-D: also one along axis 1)."""

@@ -73,9 +73,12 @@ def test_port_imports_and_compiles_without_jax():
 def test_port_sources_import_neither_jax_nor_the_reference():
     """(b) Static check over every port file and chip_smoke.py."""
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    # the serving package is scanned with the rest
+    # the serving and mesh packages are scanned with the rest
     assert {"bucket.py", "engine.py", "stats.py", "__init__.py"} <= {
         f.name for f in files if f.parent.name == "serve"}
+    assert {"sharding.py", "__init__.py"} <= {
+        f.name for f in files if f.parent.name == "dist"}
+    assert "distribute.py" in {f.name for f in files}
     files.append(ROOT / "chip_smoke.py")
     pat = re.compile(r"^\s*(?:import|from)\s+(jax|repro)(?:\.|\s|$)", re.M)
     for f in files:
@@ -211,12 +214,18 @@ def test_entry_points_default_to_the_card():
         compile_program(pw_advection(), (8, 8, 32))
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(mesh=object()), "A7"),
-])
-def test_unported_options_raise_naming_the_roadmap_item(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        compile_program(pw_advection(), (8, 8, 32), device="cpu", **kw)
+def test_mesh_entry_points_never_fall_back_to_the_cpu():
+    """A mesh whose shards sit on the card raises without one, and
+    ``make_auto_mesh`` without ``devices=`` takes cards only; neither
+    places a shard on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the mesh's devices are usable")
+    from repro_torch.dist import make_auto_mesh
+    mesh = make_auto_mesh((2, 2), ("X", "Y"), devices=["cuda:0"] * 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        compile_program(pw_advection(), (8, 8, 32), mesh=mesh)
+    with pytest.raises(RuntimeError, match="CUDA devices, found 0"):
+        make_auto_mesh((1,), ("X",))
 
 
 def test_tuned_strategy_compiles_on_the_cpu(tmp_path):

@@ -460,10 +460,141 @@ def test_engine_accepts_compile_options():
                       autostart=False)
 
 
-def test_mesh_raises_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A7"):
-        StencilEngine(mesh=object(), mesh_axes=("X", None, None),
-                      device="cpu", autostart=False)
+MESH_REFERENCE = r"""
+import sys
+import numpy as np
+import jax
+from repro.apps.advection import pw_advection, pw_advection_update
+from repro.dist.sharding import make_auto_mesh
+from repro.serve import StencilEngine, StencilRequest
+
+assert jax.device_count() == 4
+d = np.load(sys.argv[1])
+mesh = make_auto_mesh((2, 2), ("X", "Y"))
+out = {}
+with StencilEngine(backend="pallas", interpret=True, window_s=0.0,
+                   lane=int(d["lane"]), mesh=mesh,
+                   mesh_axes=("X", "Y", None)) as eng:
+    for name, boundary, steps in (("fused", "zero", 3),
+                                  ("single", "periodic", None)):
+        part = lambda kind: {k.split("/")[2]: d[k] for k in d.files
+                             if k.startswith(f"{name}/{kind}/")}
+        kw = ({} if steps is None else
+              dict(steps=steps, update=pw_advection_update(0.01),
+                   update_key="pw/dt=0.01"))
+        res = eng.run(StencilRequest(
+            program=pw_advection(boundary), fields=part("f"),
+            scalars={k: float(v) for k, v in part("s").items()},
+            coeffs=part("c"), **kw), timeout=600)
+        for k, v in res.outputs.items():
+            out[f"{name}/{k}"] = np.asarray(v)
+np.savez(sys.argv[2], **out)
+print("REF_OK")
+"""
+
+
+def cpu_mesh(shape, names):
+    from repro_torch.dist import make_auto_mesh
+    return make_auto_mesh(shape, names,
+                          devices=["cpu"] * int(np.prod(shape)))
+
+
+def test_mesh_engine_matches_reference_engine_under_its_mesh(tmp_path):
+    """``StencilEngine(mesh=(2,2))`` on CPU devices against the reference's
+    engine under its own (2,2) mesh (``shard_map``, four host devices, the
+    Pallas kernels in interpret mode): a pw fused request (the bucket
+    refresh at each shard's origin) and a periodic single apply, one
+    bucket (16, 16, 32) cut into (8, 8, 32) shards, at 1e-5."""
+    import os
+    import subprocess
+    import sys
+    grid = (14, 14, 30)
+    reqs = {"fused": port_request(grid, "zero", seed=21),
+            "single": port_request(grid, "periodic", seed=22, steps=None)}
+    arrays = {"lane": np.int64(hw.BUCKET_LANE)}
+    for name, r in reqs.items():
+        for kind, part in (("f", r.fields), ("s", r.scalars),
+                           ("c", r.coeffs)):
+            for k, v in part.items():
+                arrays[f"{name}/{kind}/{k}"] = np.asarray(v, np.float32)
+    np.savez(tmp_path / "in.npz", **arrays)
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               PYTHONPATH=os.path.join(os.path.dirname(
+                   os.path.dirname(os.path.abspath(__file__))), "src"))
+    r = subprocess.run([sys.executable, "-c", MESH_REFERENCE,
+                        str(tmp_path / "in.npz"), str(tmp_path / "out.npz")],
+                       env=env, capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0 and "REF_OK" in r.stdout, r.stderr[-4000:]
+    want = np.load(tmp_path / "out.npz")
+    with engine(mesh=cpu_mesh((2, 2), ("X", "Y")),
+                mesh_axes=("X", "Y", None)) as eng:
+        for name, req in reqs.items():
+            got = eng.run(req, timeout=300)
+            assert got.bucket.bucket == (16, 16, 32)
+            ex = eng.executor(got.key)
+            assert "mesh=X:2,Y:2,-:1/devices=1" in got.key
+            assert ex.plan.mesh_axes == ("X", "Y", None)
+            for k, v in got.outputs.items():
+                np.testing.assert_allclose(v.numpy(), want[f"{name}/{k}"],
+                                           **TOL, err_msg=f"{name}/{k}")
+
+
+@pytest.mark.parametrize("steps", [None, 2])
+def test_tracer_served_on_a_sharded_mesh_as_on_its_exact_grid(steps):
+    """On a (2,2) mesh every shard masks tracer's zero-boundary temps to
+    the request's real domain in global coordinates (the kernels through
+    their origin), so the served answer is still its exact grid's: the
+    port's local compile of that grid and the reference's, at 1e-5."""
+    p = tracer_advection()
+    grid = (13, 11, 25)
+    f, s, c = make_data(p, grid, seed=9)
+    upd = (None if steps is None else
+           (lambda fl, out: dict(fl, t=out["ta"])))
+    kw = ({} if steps is None else
+          dict(steps=steps, update=upd, update_key="tracer"))
+    with engine(mesh=cpu_mesh((2, 2), ("X", "Y")),
+                mesh_axes=("X", "Y", None)) as eng:
+        got = eng.run(StencilRequest(program=p, fields=f, scalars=s,
+                                     coeffs=c, **kw), timeout=300)
+    assert got.bucket.bucket == (32, 32, 64)
+    ckw = {} if steps is None else dict(steps=steps, update=upd)
+    assert_outputs(got.outputs, compile_program(
+        p, grid, device="cpu", backend="torch_naive", **ckw)(f, s, c))
+    assert_outputs(got.outputs, ref_compile(ref_tracer(), grid,
+                                            backend="jnp_naive",
+                                            **ckw)(f, s, c))
+
+
+def test_mesh_engine_refuses_periodic_fused_serving():
+    """As in the reference: the bucket refresh of a periodic field is a
+    torus gather with no shard-local form, so fused serving of periodic
+    fields under a sharded mesh is refused at submit; single applies and
+    unsharded meshes serve."""
+    eng = engine(mesh=cpu_mesh((2, 1), ("X", "Y")),
+                 mesh_axes=("X", "Y", None), autostart=False)
+    with pytest.raises(ValueError, match="periodic fields"):
+        eng.describe(port_request((14, 14, 30), "periodic"))
+    eng.describe(port_request((14, 14, 30), "periodic", steps=None))
+    eng.describe(port_request((14, 14, 30), "zero"))
+    one = engine(mesh=cpu_mesh((1, 1), ("X", "Y")),
+                 mesh_axes=("X", "Y", None), autostart=False)
+    one.describe(port_request((14, 14, 30), "periodic"))
+
+
+def test_mesh_engine_needs_mesh_axes_and_keys_executors_by_topology():
+    with pytest.raises(ValueError, match="mesh_axes"):
+        StencilEngine(mesh=cpu_mesh((2, 2), ("X", "Y")), device="cpu",
+                      autostart=False)
+    req = port_request((14, 14, 30))
+    keys = {engine(autostart=False).describe(req)[2]}
+    for shape, axes in (((2, 2), ("X", "Y", None)), ((4, 1), ("X", "Y", None)),
+                        ((2, 2), ("Y", "X", None))):
+        eng = engine(mesh=cpu_mesh(shape, ("X", "Y")), mesh_axes=axes,
+                     autostart=False)
+        assert eng.device == torch.device("cpu")
+        keys.add(eng.describe(req)[2])
+    assert len(keys) == 4
 
 
 def test_engine_defaults_to_the_card():

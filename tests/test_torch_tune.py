@@ -547,3 +547,65 @@ def test_tuned_compile_traces_the_search_and_its_choice():
     compile_program(pw_advection(), GRID, trace=tr2, **kw)
     assert len(tr2.events("CacheHit")) == 1 and not tr2.spans("tune")
     assert tr2.events("PlanChosen")[0]["args"]["label"] == rec["label"]
+
+
+# ------------------------------------------------------------- mesh keying
+
+def _cpu_mesh(shape, names):
+    from repro_torch.dist import make_auto_mesh
+    return make_auto_mesh(shape, names,
+                          devices=["cpu"] * int(np.prod(shape)))
+
+
+def test_tuned_compile_under_a_mesh_is_keyed_by_its_topology(tmp_path):
+    """``strategy="tuned"`` under a (2,2) mesh of CPU devices: candidates
+    priced on the (4, 4, 16) shard-local grid, every measurement the real
+    sharded executable, the winner stored under a key carrying the mesh
+    topology; a second compile is a pure cache hit, and a (4,1) mesh of
+    the same four devices misses and searches again.  The tuned sharded
+    loop matches the local loop at the reference's 1e-5."""
+    p = pw_advection()
+    path = str(tmp_path / "plans.json")
+    update = pw_advection_update(0.1)
+    axes = ("X", "Y", None)
+    f, s, c = app_data("pw_advection", GRID)
+
+    def tuned(mesh):
+        timer, calls = make_fake_timer()
+        cache = PlanCache(path=path)
+        ex = compile_program(p, GRID, strategy="tuned", steps=2,
+                             update=update, mesh=mesh, mesh_axes=axes,
+                             tune_config=TuneConfig(steps=2, max_measured=3,
+                                                    timer=timer),
+                             plan_cache=cache)
+        return ex, calls["n"], cache
+
+    ex, n, cache = tuned(_cpu_mesh((2, 2), ("X", "Y")))
+    assert n > 0 and cache.misses == 1
+    assert ex.shard.local_grid == (4, 4, 16)
+    keys = list(json.loads(open(path).read())["entries"])
+    assert len(keys) == 1 and keys[0].endswith("|mesh=X:2,Y:2,-:1/devices=1")
+    rec = json.loads(open(path).read())["entries"][keys[0]]
+    assert rec["mesh"] == "X:2,Y:2,-:1/devices=1"
+    ex2, n2, cache2 = tuned(_cpu_mesh((2, 2), ("X", "Y")))
+    assert n2 == 0 and cache2.hits == 1
+    assert plan_to_dict(ex2.plan) == plan_to_dict(ex.plan)
+    _, n3, cache3 = tuned(_cpu_mesh((4, 1), ("X", "Y")))
+    assert n3 > 0 and cache3.misses == 1
+    assert len(json.loads(open(path).read())["entries"]) == 2
+    want = compile_program(p, GRID, device="cpu", steps=2,
+                           update=update)(f, s, c)
+    got = ex(f, s, c)
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), want[k].numpy(),
+                                   atol=1e-5, rtol=1e-5)
+
+
+def test_cache_key_carries_the_mesh():
+    base = dict(p=pw_advection(), grid=GRID, backend="cuda", device=H100)
+    local = cache_key(**base)
+    assert local.endswith("|mesh=none")
+    m = _cpu_mesh((2, 2), ("X", "Y"))
+    a = cache_key(**base, mesh=m, mesh_axes=("X", "Y", None))
+    b = cache_key(**base, mesh=m, mesh_axes=("Y", "X", None))
+    assert len({local, a, b}) == 3

@@ -76,6 +76,22 @@ LM serving (the hand-written CUDA sliding-window attention kernels:
    kernel is off the serving path; its row (0 launches on the path) keeps
    its time.
 
+LM training (after the serving phase; the backward kernel
+``swa_bwd.cu`` under ``kernels.swa.SlidingWindowAttention``):
+
+8. the backward against ``swa_plain_backward`` on layer 0's shapes (B 1,
+   S 8192, H 32, KV 8, D 80, w 4096; bf16 at 2e-2, float32 at 1e-4 of each
+   gradient's max abs), timed in turns with autograd through SDPA with the
+   band mask; H2O-Danube-1.8B at full width and depth trained by
+   ``repro_torch.train.Trainer`` for three steps on one 8192-token
+   sequence of ``SyntheticLM(seed=--seed)``, remat on, checkpoints off:
+   each step's loss, grad norm, CUDA-event time, tokens/s and SWA launches
+   (48 forward, 24 backward, counted from 0 around each step), peak
+   memory, the last step under ``torch.profiler``; the smoke config's
+   loss and gradients on the card (the kernels) against the CPU path in
+   float32; and a smoke trainer that fails at step 5, resumes from its
+   step-4 checkpoint and must match an uninterrupted run.
+
 Each block path's kernel row also keeps its CTA (chunk, tile, threads,
 shared memory, CTAs an SM, levels), what ptxas reported for it (registers,
 spill bytes), its generated operations and staged bytes a grid point, and
@@ -179,6 +195,12 @@ LM_ARCH = "h2o_danube_1_8b"
 LM_BATCH, LM_PROMPT, LM_NEW = 2, 8192, 16
 LM_E2E_DEPTH, LM_E2E_SPLIT = 4, 7168     # prefill 7168, decode 1024
 SWA_HEAD_DIMS = (40, 64, 80, 128, 256)
+# the training phase: full-width Danube on one 8192-token sequence (every
+# layer past its window), three steps under remat; the smoke config (head
+# dim 16) for the card-vs-CPU gradients and the resumed trainer
+TRAIN_SEQ, TRAIN_STEPS = 8192, 3
+TRAIN_SMOKE_SEQ, TRAIN_SMOKE_STEPS, TRAIN_FAIL_AT = 64, 8, 5
+TRAIN_HEAD_DIMS = (80, 16)
 # (B, S, H, KV, D, window): the head dims, GQA, a window >= S, a last query
 # tile that is not full, a head dim that is not a multiple of 16, D 256
 # with a ragged last tile
@@ -481,8 +503,13 @@ def main() -> int:
                                             backend="torch_fused", **kw)
     sources = [ph["ex"].kernels[0].module.source for ph in paths]
     swa_sources = [swa.kernel_source(getattr(torch, dt), d)
-                   for dt in ("float32", "bfloat16") for d in SWA_HEAD_DIMS]
-    tags = ["stencil"] * len(sources) + ["swa"] * len(swa_sources)
+                   for dt in ("float32", "bfloat16")
+                   for d in sorted(set(SWA_HEAD_DIMS + TRAIN_HEAD_DIMS))]
+    bwd_sources = [swa.backward_source(getattr(torch, dt), d)
+                   for dt in ("float32", "bfloat16") for d in TRAIN_HEAD_DIMS]
+    tags = (["stencil"] * len(sources) + ["swa"] * len(swa_sources)
+            + ["swa_bwd"] * len(bwd_sources))
+    swa_sources += bwd_sources
     build.build_many(sources + swa_sources, tag=tags)
     log(f"built {len(set(sources + swa_sources))} kernel libraries in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -621,6 +648,11 @@ def main() -> int:
     lm_rows, lm = lm_phase(args.seed, torch, swa)
     rows += lm_rows
     lm["swa_ptxas"] = swa_ptxas
+    torch.cuda.empty_cache()
+
+    # -------------------------------------------------- LM training path
+    train_rows, train = train_phase(args.seed, torch, swa)
+    rows += train_rows
 
     smoke_s = time.perf_counter() - t_smoke
     log(f"chip_smoke: {smoke_s:.1f} s in all")
@@ -628,7 +660,7 @@ def main() -> int:
               "torch": torch.__version__, "cuda": torch.version.cuda,
               "seed": args.seed, "kernels": rows, "paths": path_rows,
               "tuner": tuner, "serve": serve, "mesh": mesh, "lm": lm,
-              "seconds": smoke_s}
+              "train": train, "seconds": smoke_s}
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=1))
@@ -1725,7 +1757,8 @@ def device_profile(fn, torch) -> dict:
     """One run of ``fn`` under ``torch.profiler``: host ms (to the final
     synchronise), device ms (the kernels' time summed: one stream, so
     busy time), the idle share, kernel launches, and device ms by kernel
-    class (the SWA kernel, matrix products, the rest)."""
+    class (the SWA kernel, its backward, matrix products, the rest) and
+    of the eight kernels that took longest."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1734,8 +1767,8 @@ def device_profile(fn, torch) -> dict:
         fn()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3
-    by = {"swa": 0.0, "matmul": 0.0, "other": 0.0}
-    launches = 0
+    by = {"swa": 0.0, "swa_bwd": 0.0, "matmul": 0.0, "other": 0.0}
+    launches, kernels = 0, []
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -1743,15 +1776,19 @@ def device_profile(fn, torch) -> dict:
         if us is None:
             us = e.self_cuda_time_total
         name = e.key.lower()
-        cls = ("swa" if "swa_kernel" in name else "matmul"
+        cls = ("swa" if "swa_kernel" in name else "swa_bwd"
+               if "swa_bwd" in name else "matmul"
                if any(t in name for t in ("gemm", "nvjet", "cutlass", "sm90"))
                else "other")
         by[cls] += us / 1e3
         launches += e.count
+        kernels.append({"name": e.key[:120], "ms": us / 1e3,
+                        "launches": e.count, "class": cls})
     dev = sum(by.values())
     return {"host_ms": host_ms, "device_ms": dev,
             "idle_share": max(0.0, 1.0 - dev / host_ms),
-            "kernel_launches": launches, "device_ms_by": by}
+            "kernel_launches": launches, "device_ms_by": by,
+            "top_kernels": sorted(kernels, key=lambda k: -k["ms"])[:8]}
 
 
 def swa_flops(B, S, H, D, w):
@@ -2024,6 +2061,319 @@ def lm_phase(seed, torch, swa):
               "profile": prof,
               "e2e_depth": LM_E2E_DEPTH, "e2e_max_rel_err": e2e,
               "swa_shapes": shapes}
+    return rows, record
+
+
+def swa_backward_bound(B, S, H, KV, D, w, dtype):
+    """(bound ms, what bounds it) of the SWA gradient: q, k, v, o and dout
+    read and dq, dk, dv written once over 3.35 TB/s, against the
+    gradient's five products over the band (10·D operations a pair, 2.5
+    times the forward's 4·D) over the peak for the dtype (data sheet,
+    700 W)."""
+    import torch
+
+    from repro_torch import hw
+
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    peak = (hw.H100.peak_bf16_flops if dtype == torch.bfloat16
+            else hw.H100.peak_f32_flops)
+    t_bytes = B * S * (4 * H + 4 * KV) * D * itemsize / hw.H100.hbm_bandwidth
+    t_ops = 2.5 * swa_flops(B, S, H, D, w) / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def train_step_bound_ms(cfg, tokens: int) -> float:
+    """The least time of a training step at the bf16 peak (989 TFLOP/s,
+    700 W): 6·N·T for the matrix products (forward and backward), plus
+    three times the band's forward attention operations (4·D a pair a
+    head a layer: the forward and the gradient's two matrix products per
+    forward one)."""
+    from repro_torch import hw
+
+    ops = 6.0 * cfg.num_params() * tokens
+    ops += 3 * swa_flops(1, tokens, cfg.n_heads, cfg.d_head,
+                         cfg.window) * cfg.n_layers
+    return ops / hw.H100.peak_bf16_flops * 1e3
+
+
+def train_phase(seed, torch, swa):
+    """Training on the card: the SWA backward kernel against its plain
+    version on layer-0-shaped inputs (and timed in turns with autograd
+    through SDPA), full-width Danube trained three steps by
+    ``repro_torch.train.Trainer``, the smoke config's gradients on the card
+    against the CPU path, and a smoke trainer resumed from its checkpoint
+    against an uninterrupted run.  Returns (the backward's rows, bf16 then
+    float32; the training record)."""
+    import copy
+    import dataclasses
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.data import BatchSpec, SyntheticLM
+    from repro_torch.kernels import build, stencil3d, stream3d
+    from repro_torch.models import init_lm, lm_loss
+    from repro_torch.train import OptConfig, TrainConfig, Trainer
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(LM_ARCH)
+    H, KV, D, w = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.window
+    B, S = 1, TRAIN_SEQ
+    record = {"arch": LM_ARCH, "batch": B, "seq": S, "steps": TRAIN_STEPS,
+              "remat": True}
+
+    for dt in (torch.bfloat16, torch.float32):
+        report = build.ptxas_report(swa.backward_source(dt, D), "swa_bwd")
+        for chunk in report.split("Compiling entry function '")[1:]:
+            kernel = "dkdv" if "swa_bwd_dkdv" in chunk[:32] else "dq"
+            st = ptxas_stats(chunk)
+            record[f"ptxas_{kernel}_{str(dt).removeprefix('torch.')}"] = st
+            log(f"ptxas swa_bwd_{kernel} {dt} D {D}: {st['registers']} "
+                f"registers, spill stores {st['spill_stores']} B, spill "
+                f"loads {st['spill_loads']} B; "
+                f"{swa.backward_smem_bytes(D)} B of shared memory a CTA at "
+                "most")
+
+    # 1. the backward kernel on layer 0's shapes, against its plain
+    # version, and in turns with autograd through SDPA with the band mask
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    base = [torch.randn(shape, generator=gen, device="cuda")
+            for shape in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D),
+                          (B, S, H, D))]
+    i = torch.arange(S, device="cuda")
+    band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
+    G = H // KV
+    timed = {}
+    for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        q, k, v, do = (t.to(dt) for t in base)
+        o = swa.swa_cuda(q, k, v, window=w)
+        got = swa.swa_cuda_backward(q, k, v, o, do, window=w)
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        want = swa.swa_plain_backward(q, k, v, do, window=w)
+        e1.record()
+        e1.synchronize()
+        plain_ms = e0.elapsed_time(e1)
+        errs = {n: rel_err(a, b) for n, a, b in zip("qkv", got, want)}
+        abs_err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(got, want))
+        finite = all(bool(torch.isfinite(a.float()).all()) for a in got)
+        log(f"swa backward {dt} {(B, S, H, KV, D)} w {w}: kernel vs plain "
+            f"max rel err dq {errs['q']:.3e}, dk {errs['k']:.3e}, dv "
+            f"{errs['v']:.3e} (tol {tol}), max abs err {abs_err:.3e}")
+        if not finite or max(errs.values()) > tol:
+            raise SystemExit(f"the SWA backward kernel ({dt}) disagrees "
+                             "with its plain version")
+        del got, want
+        qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+        kt = k.repeat_interleave(G, 2).transpose(1, 2).contiguous(
+            ).requires_grad_(True)
+        vt = v.repeat_interleave(G, 2).transpose(1, 2).contiguous(
+            ).requires_grad_(True)
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band)
+        dot = do.transpose(1, 2)
+        ms, library_ms = time_in_turns([
+            lambda: swa.swa_cuda_backward(q, k, v, o, do, window=w),
+            lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                        retain_graph=True)], reps=3)
+        bound_ms, bound_by = swa_backward_bound(B, S, H, KV, D, w, dt)
+        timed[dt] = dict(ms=ms, library_ms=library_ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         max_abs_err=abs_err, max_rel_err=errs)
+        log(f"swa backward kernel {dt}: {ms:.4f} ms a call ({bound_ms / ms:.1%}"
+            f" of the bound {bound_ms:.4f} ms by {bound_by}), plain "
+            f"{plain_ms:.3f} ms, autograd through SDPA with the band mask "
+            f"{library_ms:.4f} ms (medians, in turns)")
+        del q, k, v, do, o, qt, kt, vt, out, dot
+        torch.cuda.empty_cache()
+    del base, band
+    record["backward"] = {str(dt).removeprefix("torch."): t
+                          for dt, t in timed.items()}
+
+    # 2. the main path: full-width Danube trained by the Trainer, the
+    # counts zeroed just before each step and read just after it
+    tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_train_")
+    tmp = tmp_dir.name
+    tcfg = TrainConfig(opt=OptConfig(lr=3e-4, warmup_steps=10,
+                                     total_steps=100),
+                       remat=True, ckpt_every=10**9,
+                       ckpt_dir=os.path.join(tmp, "full"), log_every=1,
+                       seed=seed)
+    data = SyntheticLM(BatchSpec(global_batch=B, seq_len=S,
+                                 vocab=cfg.vocab), seed=seed)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, tcfg, data)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    steps = []
+    inner = tr.step_fn
+
+    def counted(*a):
+        stencil3d.launches = stream3d.launches = 0
+        swa.launches = swa.backward_launches = 0
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = inner(*a)
+        e1.record()
+        steps.append({"events": (e0, e1), "forward": swa.launches,
+                      "backward": swa.backward_launches,
+                      "stencil": stencil3d.launches + stream3d.launches})
+        return out
+
+    tr.step_fn = counted
+    tr.run(TRAIN_STEPS - 1)
+    prof = device_profile(lambda: tr.run(1), torch)
+    hist = tr.history
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for st in steps:
+        e0, e1 = st.pop("events")
+        st["ms"] = e0.elapsed_time(e1)
+    bound_ms = train_step_bound_ms(cfg, B * S)
+    for h, st in zip(hist, steps):
+        log(f"train step {h['step']}: loss {h['loss']:.4f}, grad norm "
+            f"{h['grad_norm']:.4f}, lr {h['lr']:.3e}, {st['ms']:.1f} ms "
+            f"(CUDA events; host {h['time_s'] * 1e3:.1f} ms), "
+            f"{B * S / st['ms'] * 1e3:.0f} tokens/s; SWA launches forward "
+            f"{st['forward']}, backward {st['backward']}")
+    log(f"train: {cfg.name} B {B} S {S} remat, {cfg.num_params() / 1e9:.3f} "
+        f"B params, built in {init_s:.1f} s; peak memory {peak_gb:.2f} GB; "
+        f"step bound {bound_ms:.2f} ms (6·N·T + 3x the band's attention "
+        f"at 989 TFLOP/s); profile of the last step: host "
+        f"{prof['host_ms']:.1f} ms, device {prof['device_ms']:.1f} ms "
+        f"(idle {prof['idle_share']:.1%}), {prof['kernel_launches']} kernel "
+        f"launches; device ms: "
+        + ", ".join(f"{c} {v:.1f}" for c, v in prof["device_ms_by"].items()))
+    if len(hist) != TRAIN_STEPS or not all(
+            np.isfinite(h[k]) for h in hist for k in ("loss", "grad_norm")):
+        raise SystemExit(f"training gave {hist}")
+    if any(st["forward"] != 2 * cfg.n_layers or st["backward"] != cfg.n_layers
+           or st["stencil"] for st in steps):
+        raise SystemExit("a train step did not run the SWA forward kernel "
+                         "twice a layer (remat) and its backward once")
+    step_ms = statistics.median(st["ms"] for st in steps[1:])
+    record.update(history=hist, steps=steps, step_ms=step_ms,
+                  tokens_per_s=B * S / step_ms * 1e3, peak_memory_gb=peak_gb,
+                  step_bound_ms=bound_ms, bound_share=bound_ms / step_ms,
+                  init_s=init_s, profile=prof,
+                  launches_forward=sum(st["forward"] for st in steps),
+                  launches_backward=sum(st["backward"] for st in steps))
+    del tr, inner, counted
+    torch.cuda.empty_cache()
+
+    # 3a. the smoke config in float32: loss and every gradient on the card
+    # (the SWA kernels forward and backward) against the CPU path
+    scfg = dataclasses.replace(get_smoke(LM_ARCH), dtype="float32")
+    cpu_lm = init_lm(scfg, torch.Generator().manual_seed(seed),
+                     "cpu").requires_grad_(True)
+    card_lm = copy.deepcopy(cpu_lm).to("cuda")
+    batch = SyntheticLM(BatchSpec(2, TRAIN_SMOKE_SEQ, scfg.vocab),
+                        seed=seed).batch_at(0)
+    res = {}
+    for name, lm in (("cpu", cpu_lm), ("cuda", card_lm)):
+        swa.launches = swa.backward_launches = 0
+        t, lb = (torch.as_tensor(batch[k], device=name).long()
+                 for k in ("tokens", "labels"))
+        loss, _ = lm_loss(scfg, lm, t, lb)
+        named = dict(lm.named_parameters())
+        grads = torch.autograd.grad(loss, list(named.values()))
+        res[name] = (loss.item(), {k: g.cpu() for k, g in zip(named, grads)},
+                     swa.launches, swa.backward_launches)
+    grad_err = max(rel_err(res["cuda"][1][k], g)
+                   for k, g in res["cpu"][1].items())
+    loss_err = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    log(f"smoke {scfg.name} float32 S {TRAIN_SMOKE_SEQ}: card vs CPU loss "
+        f"rel err {loss_err:.3e} (tol 1e-5), worst gradient max rel err "
+        f"{grad_err:.3e} (tol 1e-4); card SWA launches forward "
+        f"{res['cuda'][2]}, backward {res['cuda'][3]}")
+    if loss_err > 1e-5 or grad_err > 1e-4 or res["cuda"][2:] != (
+            scfg.n_layers, scfg.n_layers) or res["cpu"][2:] != (0, 0):
+        raise SystemExit("the smoke config's gradients on the card disagree "
+                         "with the CPU path")
+    record["smoke_grads"] = {"loss_rel_err": loss_err,
+                             "grad_max_rel_err": grad_err}
+
+    # 3b. a smoke trainer on the card fails at TRAIN_FAIL_AT, resumes from
+    # its last checkpoint and matches an uninterrupted run
+    scfg = get_smoke(LM_ARCH)
+    sdata = SyntheticLM(BatchSpec(4, TRAIN_SMOKE_SEQ, scfg.vocab), seed=seed)
+    stcfg = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=2,
+                                      total_steps=50),
+                        ckpt_every=2, ckpt_dir=os.path.join(tmp, "resume"),
+                        log_every=10**9, seed=seed)
+    try:
+        Trainer(scfg, stcfg, sdata, fail_at_step=TRAIN_FAIL_AT).run(
+            TRAIN_SMOKE_STEPS)
+        raise SystemExit("the smoke trainer did not fail")
+    except RuntimeError as e:
+        if "simulated node failure" not in str(e):
+            raise
+    last = latest_step(stcfg.ckpt_dir)
+    resumed = Trainer(scfg, stcfg, sdata)
+    start = resumed.step
+    swa.launches = swa.backward_launches = 0
+    got = resumed.run(TRAIN_SMOKE_STEPS - start)
+    resumed_launches = (swa.launches, swa.backward_launches)
+    whole = Trainer(scfg, dataclasses.replace(
+        stcfg, ckpt_dir=os.path.join(tmp, "whole"), ckpt_every=10**9), sdata)
+    want = whole.run(TRAIN_SMOKE_STEPS)[start:]
+    loss_diff = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                    for a, b in zip(got, want))
+    param_err = max(rel_err(a, b) for a, b in zip(
+        resumed.state["params"].parameters(),
+        whole.state["params"].parameters()))
+    log(f"smoke trainer: failed at step {TRAIN_FAIL_AT}, latest checkpoint "
+        f"{last}, resumed at {start}; steps {[h['step'] for h in got]} vs "
+        f"the uninterrupted run: loss max rel diff {loss_diff:.3e}, final "
+        f"params max rel diff {param_err:.3e} (tol 1e-5); SWA launches "
+        f"resumed {resumed_launches}")
+    if last != TRAIN_FAIL_AT - TRAIN_FAIL_AT % 2 or start != last \
+            or [h["step"] for h in got] != [h["step"] for h in want] \
+            or loss_diff > 1e-5 or param_err > 1e-5 \
+            or min(resumed_launches) < 1:
+        raise SystemExit("the resumed smoke trainer does not match the "
+                         "uninterrupted run")
+    record["resume"] = {"failed_at": TRAIN_FAIL_AT, "resumed_at": start,
+                        "loss_max_rel_diff": loss_diff,
+                        "params_max_rel_diff": param_err}
+    tmp_dir.cleanup()
+
+    rows = []
+    for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        t = timed[dt]
+        rows.append({
+            "name": f"swa.swa_cuda_backward[{cfg.name} train B{B} S{S} "
+                    f"H{H} KV{KV} D{D} w{w} {tag}]",
+            "route": "cuda",
+            "source": str(swa.BACKWARD_SOURCE.relative_to(ROOT)),
+            "replaces": swa.REPLACES,
+            "launches": (record["launches_backward"]
+                         if dt == torch.bfloat16 else 0),
+            "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "max_rel_err": t["max_rel_err"],
+            "backward_of_replaces": True,
+            "on_training_path": dt == torch.bfloat16,
+            "smem_bytes": swa.backward_smem_bytes(D),
+        })
+    record["seconds"] = time.perf_counter() - t_phase
+    log(f"train phase: {record['seconds']:.1f} s")
     return rows, record
 
 

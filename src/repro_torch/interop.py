@@ -5,7 +5,11 @@ data.  :func:`plan_from_reference` reads a plan the JAX package wrote
 (``repro.core.schedule.plan_to_dict``) and :func:`inputs_from_numpy` turns
 numpy inputs — the form both packages accept — into tensors on a device.
 :func:`lm_params_from_reference` turns the reference LM's parameter tree
-into the port's modules, so both packages compute the same model.
+into the port's modules, so both packages compute the same model;
+:func:`opt_state_from_reference` does the same for its AdamW state, and
+:func:`lm_tree_to_reference` turns the port's per-layer tensors (params,
+grads, moments) back into the reference's stacked tree, so the two can be
+held against each other leaf by leaf.
 """
 
 from __future__ import annotations
@@ -73,19 +77,71 @@ def _flatten(tree: Mapping, prefix: str = "") -> dict:
     return out
 
 
+def _unstacked(tree: Mapping) -> dict:
+    """{port name: float32 tensor} of a reference LM-shaped tree: the
+    stacked ``blocks`` leaves split into ``blocks.<i>.…``."""
+    out = {}
+    for name, a in _flatten(tree).items():
+        if name.startswith("blocks."):
+            rest = name[len("blocks."):]
+            for i in range(a.shape[0]):
+                out[f"blocks.{i}.{rest}"] = torch.as_tensor(a[i])
+        else:
+            out[name] = torch.as_tensor(a)
+    return out
+
+
 def lm_params_from_reference(cfg, params: Mapping, device="cuda") -> LM:
     """The port's :class:`~repro_torch.models.transformer.LM` holding the
     reference ``init_lm`` tree ``params`` (numpy arrays; ``"blocks"``
     stacked on a leading layer axis), on ``device``, in
     ``cfg.param_dtype``."""
-    state = {}
-    for name, a in _flatten(params).items():
-        if name.startswith("blocks."):
-            rest = name[len("blocks."):]
-            for i in range(a.shape[0]):
-                state[f"blocks.{i}.{rest}"] = torch.as_tensor(a[i])
-        else:
-            state[name] = torch.as_tensor(a)
     lm = LM(cfg, device=torch.device(device))
-    lm.load_state_dict(state, strict=True)
+    lm.load_state_dict(_unstacked(params), strict=True)
     return lm
+
+
+def opt_state_from_reference(cfg, opt_state: Mapping, device="cuda") -> dict:
+    """The port's AdamW state (:func:`repro_torch.train.optimizer.
+    adamw_init`'s layout, moments keyed by parameter name) holding the
+    reference's ``{"mu", "nu", "count"}`` (numpy; blocks stacked), on
+    ``device``."""
+    dev = torch.device(device)
+    names = set(dict(LM(cfg, device="meta").named_parameters()))
+    out = {}
+    for key in ("mu", "nu"):
+        moments = _unstacked(opt_state[key])
+        if set(moments) != names:
+            raise ValueError(f"{key}: leaves {sorted(set(moments) ^ names)[:5]}"
+                             f" do not match {cfg.name}'s parameters")
+        out[key] = {k: t.to(dev) for k, t in moments.items()}
+    out["count"] = torch.tensor(int(np.asarray(opt_state["count"])),
+                                dtype=torch.int32, device=dev)
+    return out
+
+
+def lm_tree_to_reference(cfg, tensors: Mapping) -> dict:
+    """The reference's nested tree (numpy float32, ``"blocks"`` stacked on
+    a leading layer axis) of per-layer tensors keyed by the port's
+    parameter names — params, grads or moments."""
+    tree, stacks = {}, {}
+    for name, t in tensors.items():
+        a = t.detach().float().cpu().numpy()
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            stacks.setdefault(".".join(parts[2:]), {})[int(parts[1])] = a
+        else:
+            _put(tree, parts, a)
+    for rest, layers in stacks.items():
+        if sorted(layers) != list(range(cfg.n_layers)):
+            raise ValueError(f"blocks.*.{rest}: layers {sorted(layers)}, "
+                             f"{cfg.name} has {cfg.n_layers}")
+        _put(tree, ["blocks", *rest.split(".")],
+             np.stack([layers[i] for i in range(cfg.n_layers)]))
+    return tree
+
+
+def _put(tree: dict, path: list, leaf) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = leaf

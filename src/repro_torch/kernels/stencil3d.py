@@ -619,21 +619,26 @@ def launch_entry(name: str, params: list, ctas: int, threads: tuple,
                  smem: int) -> list:
     """The C entry of a kernel: ``ctas`` CTAs along x and the batch along
     y, the one-element instantiation for a batch of one; dynamic shared
-    memory above 48 KB opted into once; returns ``cudaGetLastError()``."""
+    memory above 48 KB opted into once on each device (the attribute is a
+    device's); returns ``cudaGetLastError()``."""
     args = ", ".join(q.split()[-1] for q in params)
     cfg = f"dim3({threads[0]}, {threads[1]}), {smem}, (cudaStream_t)stream"
     return [
         f'extern "C" int {name}_launch({", ".join(params)}, void* stream) {{',
-        "  static bool ready = false;",
-        f"  if (!ready && {smem} > 48 * 1024) {{",
-        f"    cudaError_t e = cudaFuncSetAttribute({name}_kernel<false>,",
+        "  static bool ready[64] = {};",
+        "  int dev = 0;",
+        "  cudaError_t e = cudaGetDevice(&dev);",
+        "  if (e != cudaSuccess) return (int)e;",
+        "  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;",
+        f"  if (!ready[dev] && {smem} > 48 * 1024) {{",
+        f"    e = cudaFuncSetAttribute({name}_kernel<false>,",
         f"        cudaFuncAttributeMaxDynamicSharedMemorySize, {smem});",
         "    if (e == cudaSuccess)",
         f"      e = cudaFuncSetAttribute({name}_kernel<true>,",
         f"          cudaFuncAttributeMaxDynamicSharedMemorySize, {smem});",
         "    if (e != cudaSuccess) return (int)e;",
         "  }",
-        "  ready = true;",
+        "  ready[dev] = true;",
         "  if (nb == 1)",
         f"    {name}_kernel<false><<<dim3({ctas}, 1), {cfg}>>>({args});",
         "  else",

@@ -187,13 +187,18 @@ extern "C" int swa_launch(const void* q, const void* k, const void* v,
                           long long vss, long long vsh, int window,
                           float scale, void* stream) {
   const int smem = swa_smem_bytes();
-  static bool ready = false;
-  if (!ready && smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
+  // the shared-memory attribute is a device's: set once on each device
+  static bool ready[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!ready[dev] && smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(
         swa_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  ready = true;
+  ready[dev] = true;
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   swa_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
       (const SWA_T*)q, (const SWA_T*)k, (const SWA_T*)v, (SWA_T*)o, S, H,

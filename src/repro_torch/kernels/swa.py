@@ -49,6 +49,15 @@ source to the other.
 :func:`swa_plain` is the plain PyTorch version: ``swa_pallas``'s
 arithmetic tile by tile, float32 throughout.  ``launches`` counts the
 kernels' launches (plain-version runs excluded).
+
+The backward, for training: ``swa_bwd.cu`` (both storage types, on the CUDA
+cores; its header says how) gives q's, k's and v's gradients from the
+forward's output and its cotangent, through :func:`swa_cuda_backward`
+(``backward_launches`` counts its calls); :func:`swa_plain_backward` is
+its plain version, autograd through :func:`swa_plain`.
+:class:`SlidingWindowAttention` puts the two kernels under autograd.  The
+TPU kernel has no backward: the JAX model trains through its jnp
+``swa_attention``.
 """
 
 from __future__ import annotations
@@ -65,6 +74,8 @@ from . import build
 
 #: kernel launches made by :func:`swa_cuda` (plain-version runs excluded)
 launches = 0
+#: calls of :func:`swa_cuda_backward` (each launches its two kernels)
+backward_launches = 0
 
 #: the TPU kernel this module replaces
 REPLACES = "src/repro/kernels/swa.py:92"
@@ -73,6 +84,9 @@ REPLACES = "src/repro/kernels/swa.py:92"
 SOURCES = {torch.float32: Path(__file__).with_name("swa.cu"),
            torch.bfloat16: Path(__file__).with_name("swa_mma.cu")}
 
+#: the backward's source, both storage types
+BACKWARD_SOURCE = Path(__file__).with_name("swa_bwd.cu")
+
 #: query rows of a CTA's tile and key rows of a chunk (``BQ``, ``BK``)
 Q_TILE = KV_CHUNK = 64
 
@@ -80,6 +94,9 @@ _CTYPE = {torch.float32: "float", torch.bfloat16: "__nv_bfloat16"}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
              + [ctypes.c_longlong] * 9 + [ctypes.c_int, ctypes.c_float,
                                           ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+                 + [ctypes.c_longlong] * 15 + [ctypes.c_int, ctypes.c_float,
+                                               ctypes.c_void_p])
 _FNS: dict = {}
 
 
@@ -124,6 +141,36 @@ def _function(dtype: torch.dtype, d: int):
     return fn
 
 
+def backward_smem_bytes(d: int) -> int:
+    """Shared memory of the backward's larger CTA (``swa_bwd_dq``) at head
+    dim ``d``: ``swa_bwd.cu``'s ``DQ_SMEM_FLOATS`` (float32 q, dout, K and
+    V tiles of rows of D + 1, a 64 x 65 tile, 11 floats a row)."""
+    bq = Q_TILE
+    return 4 * (4 * bq * (d + 1) + bq * (KV_CHUNK + 1) + 11 * bq)
+
+
+def backward_source(dtype: torch.dtype, d: int) -> str:
+    """``swa_bwd.cu`` specialised to its storage type and head dim."""
+    _check_dtype(dtype)
+    if backward_smem_bytes(d) > hw.H100.smem_per_block:
+        raise ValueError(f"head dim {d} needs {backward_smem_bytes(d)} B of "
+                         f"shared memory a CTA in the SWA backward; the "
+                         f"H100 gives {hw.H100.smem_per_block}")
+    return (f"#define SWA_T {_CTYPE[dtype]}\n#define SWA_D {d}\n"
+            + BACKWARD_SOURCE.read_text())
+
+
+def _backward_function(dtype: torch.dtype, d: int):
+    fn = _FNS.get(("backward", dtype, d))
+    if fn is None:
+        lib = build.load(backward_source(dtype, d), tag="swa_bwd")
+        fn = lib.swa_bwd_launch
+        fn.argtypes = _BWD_ARGTYPES
+        fn.restype = ctypes.c_int
+        _FNS[("backward", dtype, d)] = fn
+    return fn
+
+
 def _check(q, k, v, window) -> None:
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"expected q (B,S,H,D) and k, v (B,S,KV,D); got "
@@ -137,6 +184,19 @@ def _check(q, k, v, window) -> None:
         raise ValueError(f"window must be >= 1, got {window}")
 
 
+def _check_cuda(first: torch.Tensor, **named) -> None:
+    """Every tensor a CUDA tensor on ``first``'s device, in its dtype, with
+    its head dim contiguous."""
+    for name, t in named.items():
+        if t.device.type != "cuda" or t.device != first.device:
+            raise ValueError(f"{name} is on {t.device}; the kernel takes "
+                             f"CUDA tensors on one device")
+        if t.dtype != first.dtype:
+            raise ValueError(f"{name} has dtype {t.dtype}, q {first.dtype}")
+        if t.stride(3) != 1:
+            raise ValueError(f"{name}'s head dim must be contiguous")
+
+
 def swa_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
              window: int) -> torch.Tensor:
     """The kernel on CUDA tensors: q (B,S,H,D), k and v (B,S,KV,D), the
@@ -144,14 +204,7 @@ def swa_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``swa.cu``.  Returns a contiguous (B,S,H,D) in q's dtype."""
     global launches
     _check(q, k, v, window)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda" or t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}; the kernel takes "
-                             f"CUDA tensors on one device")
-        if t.dtype != q.dtype:
-            raise ValueError(f"{name} has dtype {t.dtype}, q {q.dtype}")
-        if t.stride(3) != 1:
-            raise ValueError(f"{name}'s head dim must be contiguous")
+    _check_cuda(q, q=q, k=k, v=v)
     B, S, H, D = q.shape
     KV = k.shape[2]
     fn = _function(q.dtype, D)
@@ -205,3 +258,71 @@ def swa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out[:, :, q0:q0 + bq] = (p @ vp[:, :, q0:q0 + slab]
                                  ) / p.sum(-1, keepdim=True)
     return out.transpose(1, 2).to(q.dtype)
+
+
+def swa_cuda_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, do: torch.Tensor, *, window: int):
+    """``swa_bwd.cu`` on CUDA tensors: the gradients (dq, dk, dv) of
+    ``o = swa_cuda(q, k, v)`` for the cotangent ``do``, contiguous, in q's
+    dtype; dk and dv summed over each KV head's query heads.  o and do are
+    (B,S,H,D); every head dim contiguous."""
+    global backward_launches
+    _check(q, k, v, window)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} "
+                         f"must have q's shape {tuple(q.shape)}")
+    _check_cuda(q, q=q, k=k, v=v, o=o, do=do)
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    fn = _backward_function(q.dtype, D)
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty((B, S, KV, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if q.numel() == 0:
+        return dq, dk, dv
+    m, l, drow = (torch.empty((B, H, S), dtype=torch.float32,
+                              device=q.device) for _ in range(3))
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            m.data_ptr(), l.data_ptr(), drow.data_ptr(), B, S, H, KV,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *o.stride()[:3], *do.stride()[:3], int(window),
+            1.0 / math.sqrt(D),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"CUDA SWA backward kernel (D={D}, {q.dtype}) "
+                           f"failed to launch: cudaError {rc}")
+    backward_launches += 1
+    return dq, dk, dv
+
+
+def swa_plain_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       do: torch.Tensor, *, window: int,
+                       q_block: int = 128):
+    """The backward's plain version: (dq, dk, dv) by autograd through
+    :func:`swa_plain` (float32 throughout, the gradients in q's dtype).
+    The kernel also takes the forward's output; this recomputes it."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        o = swa_plain(*leaves, window=window, q_block=q_block)
+        return torch.autograd.grad(o, leaves, do)
+
+
+class SlidingWindowAttention(torch.autograd.Function):
+    """``swa_cuda`` under autograd: the forward kernel, and
+    ``swa_cuda_backward`` for the gradients of q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int):
+        o = swa_cuda(q, k, v, window=window)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.window = window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        if do.stride(3) != 1:
+            do = do.contiguous()
+        dq, dk, dv = swa_cuda_backward(q, k, v, o, do, window=ctx.window)
+        return dq, dk, dv, None

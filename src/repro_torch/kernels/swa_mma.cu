@@ -345,9 +345,14 @@ extern "C" int swa_launch(const void* q, const void* k, const void* v,
                           long long kss, long long ksh, long long vsb,
                           long long vss, long long vsh, int window,
                           float scale, void* stream) {
-  static bool ready = false;
-  if (!ready) {
-    cudaError_t e = cudaFuncSetAttribute(
+  // the shared-memory attributes are a device's: set once on each device
+  static bool ready[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!ready[dev]) {
+    e = cudaFuncSetAttribute(
         swa_kernel_mma, cudaFuncAttributeMaxDynamicSharedMemorySize,
         SMEM_BYTES);
     if (e == cudaSuccess)
@@ -355,7 +360,7 @@ extern "C" int swa_launch(const void* q, const void* k, const void* v,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return (int)e;
-    ready = true;
+    ready[dev] = true;
   }
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   swa_kernel_mma<<<grid, NT, SMEM_BYTES, (cudaStream_t)stream>>>(

@@ -1,36 +1,48 @@
-"""The decoder LM's serving path in PyTorch: parameters, prefill and decode.
+"""The decoder LM in PyTorch: parameters, the training forward and loss,
+prefill and decode.
 
 The port of ``repro.models.transformer`` for ``family == "decoder"`` with
 dense MLPs: (GQA | MQA) x (global | SWA | alternating local:global), with
-the softcaps, qk-norm, sandwich norms and activations of the configs.  Local
-(SWA) layers keep *ring-buffer* KV caches of length ``window``; global
-layers keep full caches.
+the softcaps, qk-norm, sandwich norms and activations of the configs.
+
+* training / scoring: :func:`lm_forward` and :func:`lm_loss`, a Python
+  loop over the blocks in place of the reference's ``lax.scan``, each
+  block under ``torch.utils.checkpoint`` with ``remat`` (the reference's
+  ``nothing_saveable``: only a block's input is kept, the rest recomputed
+  in the backward).  :func:`block_apply` casts a block's master weights to
+  ``cfg.dtype`` through autograd (:func:`train_cast`), so the gradients
+  reach the float32 masters, as the reference differentiates through its
+  ``astype``.
+* prefill / decode: local (SWA) layers keep *ring-buffer* KV caches of
+  length ``window``; global layers keep full caches.
 
 Parameters are an :class:`LM` module whose ``blocks`` are per-layer
 :class:`Block` modules: the reference's serving layout
 (``unstack_params``), so no stacked copy exists here.  Master weights are
 ``cfg.param_dtype``; :func:`cast_params` gives the ``cfg.dtype`` compute
-copy.
+copy for serving (detached).
 
 Not ported yet: the MoE MLP (ROADMAP A11), the hybrid attention+Mamba
-family (A12), xLSTM (A13), the whisper encoder-decoder (A14), and the
-training forward ``lm_forward``/``lm_loss`` (A15).  The reference's
-activation-sharding hook ``shard_activation`` is a no-op on one device and
-has no counterpart here (distribution, A7).
+family (A12), xLSTM (A13) and the whisper encoder-decoder (A14).  The
+reference's activation-sharding hook ``shard_activation`` is a no-op on one
+device and has no counterpart here (LM sharding rules, A16).
 """
 
 from __future__ import annotations
 
 import copy
 import math
+import types
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.pipeline import resolve_device
-from .layers import (MLP, Attention, AttnSpec, Norm, attend, decode_attention,
-                     mlp_apply, norm_apply, project_qkv)
+from .layers import (MLP, Attention, AttnSpec, Norm, attend,
+                     attention_apply, decode_attention, mlp_apply, norm_apply,
+                     project_qkv)
 
 _DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -139,6 +151,18 @@ def cast_params(p: nn.Module, dtype: torch.dtype) -> nn.Module:
     return copy.deepcopy(p, memo)
 
 
+def train_cast(p: nn.Module, dtype: torch.dtype):
+    """Mixed precision for training: ``p``'s structure (attribute by
+    attribute) with every floating parameter ``.to(dtype)`` — a cast that
+    autograd differentiates, so the gradients reach the masters."""
+    out = types.SimpleNamespace()
+    for name, t in p.named_parameters(recurse=False):
+        setattr(out, name, t.to(dtype) if t.is_floating_point() else t)
+    for name, child in p.named_children():
+        setattr(out, name, train_cast(child, dtype))
+    return out
+
+
 # --------------------------------------------------------------------------
 # embedding and logits
 # --------------------------------------------------------------------------
@@ -155,7 +179,7 @@ def embed_tokens(cfg: ModelConfig, params: LM, tokens: torch.Tensor):
 def unembed(cfg: ModelConfig, params: LM, x: torch.Tensor):
     """(B, S, d) -> float32 logits (B, S, vocab_padded): the product in
     ``x``'s dtype, the final softcap, padded vocab rows at -1e30."""
-    x = norm_apply(cast_params(params.ln_f, _DT[cfg.dtype]), x, cfg.norm)
+    x = norm_apply(train_cast(params.ln_f, _DT[cfg.dtype]), x, cfg.norm)
     table = params.embed.T if cfg.tie_embeddings else params.lm_head
     logits = torch.einsum("bsd,dv->bsv", x, table.to(x.dtype)).float()
     if cfg.final_softcap:
@@ -163,6 +187,65 @@ def unembed(cfg: ModelConfig, params: LM, x: torch.Tensor):
     if cfg.vocab_padded != cfg.vocab:
         logits[..., cfg.vocab:] = -1e30
     return logits
+
+
+# --------------------------------------------------------------------------
+# forward and loss (training / scoring)
+# --------------------------------------------------------------------------
+
+def block_apply(cfg: ModelConfig, bp: Block, x: torch.Tensor, kind: str,
+                positions: torch.Tensor):
+    """One layer on the residual stream ``x`` (B, S, d) in ``cfg.dtype``,
+    the block's masters cast through autograd; returns (x, aux), aux the
+    MoE load-balance term (0: no MoE here)."""
+    check_supported(cfg)
+    bp = train_cast(bp, _DT[cfg.dtype])
+    h = norm_apply(bp.ln1, x, cfg.norm)
+    attn = attention_apply(bp.attn, h, _attn_spec(cfg, kind), positions,
+                           cfg.rope_theta, use_rope=(cfg.pos == "rope"),
+                           norm_kind=cfg.norm)
+    return (_mlp_half(cfg, bp, x, attn),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def lm_forward(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
+               remat: bool = False):
+    """tokens (B, S) -> (float32 logits (B, S, vocab_padded), aux): the
+    blocks in order, each recomputed in the backward with ``remat``."""
+    check_supported(cfg)
+    x = embed_tokens(cfg, params, tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    auxs = []
+    for i, bp in enumerate(params.blocks):
+        if remat:
+            x, aux = checkpoint(block_apply, cfg, bp, x, cfg.layer_kind(i),
+                                positions, use_reentrant=False)
+        else:
+            x, aux = block_apply(cfg, bp, x, cfg.layer_kind(i), positions)
+        auxs.append(aux)
+    return unembed(cfg, params, x), torch.stack(auxs).mean()
+
+
+def lm_loss(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
+            labels: torch.Tensor, remat: bool = False,
+            aux_weight: float = 0.01, z_weight: float = 1e-4):
+    """Next-token cross-entropy (labels are the tokens shifted by the
+    caller; -100 masks) plus the aux and z losses; returns (loss, {"ce",
+    "aux", "z", "ppl"})."""
+    logits, aux = lm_forward(cfg, params, tokens, remat=remat)
+    mask = labels >= 0
+    lbl = torch.where(mask, labels, 0)
+    logz = torch.logsumexp(logits, dim=-1)
+    # the label logit by a mask-sum, as the reference takes it
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    picked = torch.where(vocab == lbl[..., None], logits, 0.0).sum(-1)
+    ll = picked - logz
+    denom = torch.clamp(mask.sum(), min=1)
+    ce = -(ll * mask).sum() / denom
+    z_loss = ((logz * mask) ** 2).sum() / denom
+    loss = ce + aux_weight * aux + z_weight * z_loss
+    return loss, {"ce": ce, "aux": aux, "z": z_loss,
+                  "ppl": torch.exp(torch.clamp(ce, max=20.0))}
 
 
 # --------------------------------------------------------------------------

@@ -635,3 +635,96 @@ def test_lm_path_raises_when_the_kernel_cannot_build(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         prefill(cfg, lm, tokens, 80)
     assert swa.launches == before
+
+
+# the backward: Danube's layer shapes cut in length, a head dim that is
+# not a multiple of 16 with a ragged tile, a window >= S, MQA, window 1
+SWA_BWD_SHAPES = [
+    (1, 512, 32, 8, 80, 96),
+    (2, 200, 4, 2, 40, 64),
+    (1, 130, 2, 1, 80, 500),
+    (1, 256, 4, 1, 16, 1),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("B,S,H,KV,D,w", SWA_BWD_SHAPES)
+def test_swa_backward_kernel_matches_plain_version_on_the_card(B, S, H, KV,
+                                                               D, w, dtype,
+                                                               tol):
+    """``swa_bwd.cu`` against ``swa_plain_backward`` on the same inputs, each
+    gradient relative to the dv of the plain version's scale where the
+    window is 1 (dq and dk are then 0 up to rounding), else its own."""
+    from repro_torch.kernels import swa
+
+    _needs_card()
+    q, k, v = _swa_inputs(B, S, H, KV, D, dtype, seed=S + D + w)
+    do = _swa_inputs(B, S, H, H, D, dtype, seed=w)[0]
+    o = swa.swa_cuda(q, k, v, window=w)
+    before = swa.backward_launches
+    got = swa.swa_cuda_backward(q, k, v, o, do, window=w)
+    torch.cuda.synchronize()
+    assert swa.backward_launches == before + 1
+    want = swa.swa_plain_backward(q, k, v, do, window=w,
+                                  q_block=128 if S % 128 == 0 else S)
+    for g, t in zip(got, (q, k, v)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+    scale = float(want[2].float().abs().max())
+    for g, wg in zip(got, want):
+        ref = scale if w == 1 else float(wg.float().abs().max())
+        assert float((g.float() - wg.float()).abs().max()) <= tol * ref
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu():
+    """One ``make_train_step`` step of the Danube smoke config in float32
+    (S 64 > window 16: the SWA layers run the forward and backward
+    kernels) against the same step on the CPU, from the same non-zero
+    moments (so the update is smooth in the gradients): params at 1e-5 of
+    each leaf's max abs, and the kernels launched once a layer each way."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import swa
+    from repro_torch.models import init_lm
+    from repro_torch.train import (OptConfig, TrainConfig, adamw_init,
+                                   make_train_step)
+
+    _needs_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke("h2o_danube_1_8b"), dtype="float32")
+    cpu = init_lm(cfg, torch.Generator().manual_seed(0),
+                  "cpu").requires_grad_(True)
+    card = copy.deepcopy(cpu).to("cuda")
+    rng = np.random.default_rng(0)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab, (2, 64)))
+             for k in ("tokens", "labels")}
+    step = make_train_step(cfg, TrainConfig(opt=OptConfig(
+        lr=1e-3, warmup_steps=0)))
+    gen = torch.Generator().manual_seed(1)
+    state = adamw_init(dict(cpu.named_parameters()))
+    state["count"] += 5
+    for t in state["mu"].values():
+        t.copy_(torch.randn(t.shape, generator=gen) * 1e-2)
+    for t in state["nu"].values():
+        t.copy_(torch.randn(t.shape, generator=gen).square() * 1e-4 + 1e-6)
+    out = {}
+    for name, lm in (("cpu", cpu), ("cuda", card)):
+        before = (swa.launches, swa.backward_launches)
+        named = dict(lm.named_parameters())
+        moved = {"mu": {k: t.to(name, copy=True)
+                        for k, t in state["mu"].items()},
+                 "nu": {k: t.to(name, copy=True)
+                        for k, t in state["nu"].items()},
+                 "count": state["count"].to(name)}
+        step(lm, moved, torch.zeros(()),
+             {k: v.to(name) for k, v in batch.items()})
+        out[name] = ({k: p.detach().cpu() for k, p in named.items()},
+                     swa.launches - before[0],
+                     swa.backward_launches - before[1])
+    assert out["cuda"][1:] == (cfg.n_layers, cfg.n_layers)
+    assert out["cpu"][1:] == (0, 0)
+    for k, p in out["cpu"][0].items():
+        assert _rel_err(out["cuda"][0][k], p) <= 1e-5, k

@@ -79,6 +79,12 @@ def test_port_sources_import_neither_jax_nor_the_reference():
     assert {"sharding.py", "__init__.py"} <= {
         f.name for f in files if f.parent.name == "dist"}
     assert "distribute.py" in {f.name for f in files}
+    # so are the training, data and checkpoint packages
+    for pkg, names in (("train", {"optimizer.py", "compress.py", "loop.py"}),
+                       ("data", {"pipeline.py"}),
+                       ("checkpoint", {"store.py"})):
+        assert names | {"__init__.py"} <= {
+            f.name for f in files if f.parent.name == pkg}, pkg
     files.append(ROOT / "chip_smoke.py")
     pat = re.compile(r"^\s*(?:import|from)\s+(jax|repro)(?:\.|\s|$)", re.M)
     for f in files:

@@ -76,21 +76,25 @@ LM serving (the hand-written CUDA sliding-window attention kernels:
    kernel is off the serving path; its row (0 launches on the path) keeps
    its time.
 
-LM training (after the serving phase; the backward kernel
-``swa_bwd.cu`` under ``kernels.swa.SlidingWindowAttention``):
+LM training (after the serving phase; the backward kernels under
+``kernels.swa.SlidingWindowAttention``: ``swa_bwd_mma.cu`` on the tensor
+cores for bfloat16, fed the log-sum-exp the forward stores, and
+``swa_bwd.cu`` for float32):
 
-8. the backward against ``swa_plain_backward`` on layer 0's shapes (B 1,
-   S 8192, H 32, KV 8, D 80, w 4096; bf16 at 2e-2, float32 at 1e-4 of each
-   gradient's max abs), timed in turns with autograd through SDPA with the
-   band mask; H2O-Danube-1.8B at full width and depth trained by
-   ``repro_torch.train.Trainer`` for three steps on one 8192-token
-   sequence of ``SyntheticLM(seed=--seed)``, remat on, checkpoints off:
-   each step's loss, grad norm, CUDA-event time, tokens/s and SWA launches
-   (48 forward, 24 backward, counted from 0 around each step), peak
-   memory, the last step under ``torch.profiler``; the smoke config's
-   loss and gradients on the card (the kernels) against the CPU path in
-   float32; and a smoke trainer that fails at step 5, resumes from its
-   step-4 checkpoint and must match an uninterrupted run.
+8. the backward against ``swa_plain_backward`` on layer 0's shapes (B 1, S
+   8192, H 32, KV 8, D 80, w 4096; bf16 at 2e-2, float32 at 1e-4 of each
+   gradient's max abs; the forward's lse against ``swa_plain_lse`` at 1e-4
+   relative; no ptxas spill in either bf16 kernel at D 80), timed in turns
+   with autograd through SDPA with the band mask, and each bf16 kernel's
+   device time (dq, then dk/dv) under ``torch.profiler``; H2O-Danube-1.8B
+   at full width and depth trained by ``repro_torch.train.Trainer`` for
+   three steps on one 8192-token sequence of ``SyntheticLM(seed=--seed)``,
+   remat on, checkpoints off: each step's loss, grad norm, CUDA-event time,
+   tokens/s and SWA launches (48 forward, 24 backward, counted from 0
+   around each step), peak memory, the last step under ``torch.profiler``;
+   the smoke config's loss and gradients on the card (the kernels) against
+   the CPU path in float32; and a smoke trainer that fails at step 5,
+   resumes from its step-4 checkpoint and must match an uninterrupted run.
 
 Each block path's kernel row also keeps its CTA (chunk, tile, threads,
 shared memory, CTAs an SM, levels), what ptxas reported for it (registers,
@@ -126,22 +130,23 @@ CTA may opt into than the planner assumes fail the run.
 
 Every stencil path is compared with the same compile on
 ``backend="torch_fused"`` on the card, and each stream path with the block
-path of the same program, boundary, grid and steps where there is one.
-Each block path's first group kernel, and every sweep kernel of a stream
-path (a chain's remainder included) on the inputs the path gives it, is
-held against its plain PyTorch version; small grids are compared with the
-CPU oracle.  Every tolerance is relative to each output's own max abs:
-1e-5 for a float32 single step, 1e-4 for fused loops, and 2e-2 (a few
-bfloat16 ulps) for bfloat16.  Every launch count is zeroed just before each
-path and read just after.  Kernel and end-to-end times come from CUDA
-events (warm-up, then the median of 5; the LM prefill and decode the
-median of 3); a stencil kernel's time is that of 20 launches made
-while the card sleeps, so that they run back to back and the host's time
-to launch them does not count; a stream path's kernel, plain-version and
-bound times are per time step (a chained sweep's divided by its depth),
-and its plain version is timed in the one run that checks it.  One prefill and one
-decode step also run under ``torch.profiler`` for their device time, idle
-share and kernel launches.
+path of the same program, boundary, grid and steps where there is one. Each
+block path's first group kernel, and every sweep kernel of a stream path (a
+chain's remainder included) on the inputs the path gives it, is held
+against its plain PyTorch version; small grids are compared with the CPU
+oracle, and a program whose one group reads no field or coefficient (``o0 =
+s0`` on 6x8x32) must give 768 under every schedule.  Every tolerance is
+relative to each output's own max abs: 1e-5 for a float32 single step, 1e-4
+for fused loops, and 2e-2 (a few bfloat16 ulps) for bfloat16.  Every launch
+count is zeroed just before each path and read just after.  Kernel and
+end-to-end times come from CUDA events (warm-up, then the median of 5; the
+LM prefill and decode the median of 3); a stencil kernel's time is that of
+20 launches made while the card sleeps, so that they run back to back and
+the host's time to launch them does not count; a stream path's kernel,
+plain-version and bound times are per time step (a chained sweep's divided
+by its depth), and its plain version is timed in the one run that checks
+it.  One prefill and one decode step also run under ``torch.profiler`` for
+their device time, idle share and kernel launches.
 
 Usage, from the root of a checkout (the kernels build with nvcc into
 ``build/repro_torch_kernels/`` on first use):
@@ -173,6 +178,7 @@ PW_GRID = (512, 256, 256)
 TRACER_GRID = (256, 256, 128)
 BF16_GRID = (256, 256, 128)
 SMALL_GRID = (20, 18, 100)
+NOTHING_GRID = (6, 8, 32)
 PW_STEPS, TRACER_STEPS = 10, 4
 
 # the serving phase's request grids, drawn per axis from these inclusive
@@ -450,7 +456,7 @@ def main() -> int:
     from repro_torch.apps import (pw_advection, pw_advection_update,
                                   tracer_advection, tracer_advection_update)
     from repro_torch.configs import get_config
-    from repro_torch.core import TileDemotionWarning
+    from repro_torch.core import ProgramBuilder, TileDemotionWarning
     from repro_torch.interop import inputs_from_numpy
     from repro_torch.kernels import build, stencil3d, stream3d, swa
     from repro_torch.obs import fraction_for
@@ -597,6 +603,24 @@ def main() -> int:
             if err > 1e-5:
                 raise SystemExit(f"{p.name} {schedule}: card disagrees with "
                                  "the CPU oracle")
+
+    # a group that reads no field or coefficient (o0 = s0) runs on the
+    # card under every schedule
+    b = ProgramBuilder("scalar_only", ndim=3, boundary="zero")
+    b.inputs("in0")
+    b.define(b.outputs("o0")[0], b.scalars("s0")[0])
+    nothing = b.build()
+    for kw in ({}, {"strategy": "per_field"}, {"schedule": "stream"}):
+        stencil3d.launches = stream3d.launches = 0
+        got = compile_program(nothing, NOTHING_GRID, **kw)(
+            {"in0": torch.zeros(NOTHING_GRID, device="cuda")},
+            {"s0": 0.5})["o0"]
+        torch.cuda.synchronize()
+        n = stencil3d.launches + stream3d.launches
+        log(f"o0 = s0 on {NOTHING_GRID} {kw or 'block'}: sum "
+            f"{float(got.sum())} (want 768), {n} kernel launches")
+        if float(got.sum()) != 768.0 or n < 1 or got.device.type != "cuda":
+            raise SystemExit(f"a group that reads nothing failed under {kw}")
 
     # ------------------------------- kernel vs plain version, and timings
     rows, plain_step = [], {}
@@ -791,14 +815,14 @@ def stream_row(ph, torch, stream3d) -> dict:
     launch = stream3d.StreamCall.__call__
 
     def capture(call, padded, svec=None, pc=None, origin=None,
-                input_pad=None):
+                input_pad=None, device=None):
         n, args = captured.get(id(call), (0, None))
         if args is None:
             args = ({f: t.clone() for f, t in padded.items()}, svec,
                     {c: t.clone() for c, t in (pc or {}).items()}, origin,
                     input_pad)
         captured[id(call)] = (n + 1, args)
-        return launch(call, padded, svec, pc, origin, input_pad)
+        return launch(call, padded, svec, pc, origin, input_pad, device)
 
     stream3d.StreamCall.__call__ = capture
     try:
@@ -1261,12 +1285,12 @@ def serve_batch_checks(name, bex, fields, scalars, coeffs, tol, torch,
     captured = {}
     saved = (stencil3d.launch, stream3d.launch)
 
-    def capture(call, padded, sv, pc, origin, ipad):
+    def capture(call, padded, sv, pc, origin, ipad, device=None):
         if id(call) not in captured:
             captured[id(call)] = (call, (
                 {k: t.clone() for k, t in padded.items()}, sv.clone(),
                 {k: t.clone() for k, t in pc.items()}, origin, ipad))
-        return saved[0](call, padded, sv, pc, origin, ipad)
+        return saved[0](call, padded, sv, pc, origin, ipad, device)
 
     stencil3d.launch = stream3d.launch = capture
     try:
@@ -1405,12 +1429,12 @@ def mesh_run(torch, fn):
     captured, pairs = {}, []
     saved = (stencil3d.launch, stream3d.launch, distribute._exchange)
 
-    def capture(call, padded, sv, pc, origin, ipad):
+    def capture(call, padded, sv, pc, origin, ipad, device=None):
         if id(call) not in captured and origin is not None and any(origin):
             captured[id(call)] = (call, (
                 {k: t.clone() for k, t in padded.items()}, sv.clone(),
                 {k: t.clone() for k, t in pc.items()}, tuple(origin), ipad))
-        return saved[0](call, padded, sv, pc, origin, ipad)
+        return saved[0](call, padded, sv, pc, origin, ipad, device)
 
     def timed_exchange(*a, **kw):
         e0 = torch.cuda.Event(enable_timing=True)
@@ -2083,6 +2107,67 @@ def swa_backward_bound(B, S, H, KV, D, w, dtype):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def backward_parts(torch, swa, args, w, abs_err, shape) -> list:
+    """The bf16 backward's two kernels apart: each one's device time under
+    ``torch.profiler`` over three calls, its plain version's time
+    (autograd through ``swa_plain`` for dq alone, then for dk and dv), and
+    its bound: dq's three band products (S, dP, dQ: 6·D a pair) and
+    dk/dv's four (S^T, dP^T, dV, dK: 8·D a pair) over 989 TFLOP/s, against
+    the bytes each moves once (dq: q, k, v, o, dout, lse in, dq and D out;
+    dk/dv: q, k, v, dout, lse and D in, dk and dv out) over 3.35 TB/s."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import hw
+
+    q, k, v, o, do, lse = args
+    B, S, H, KV, D = shape
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            swa.swa_cuda_backward(q, k, v, o, do, window=w, lse=lse)
+        torch.cuda.synchronize()
+    dev = {"dq": 0.0, "dkdv": 0.0}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if "swa_bwd_mma_dkdv" in e.key:
+            dev["dkdv"] += us / 1e3 / 3
+        elif "swa_bwd_mma_dq" in e.key:
+            dev["dq"] += us / 1e3 / 3
+    if not all(dev.values()):
+        raise SystemExit(f"the profiler saw no bf16 backward kernel: {dev}")
+    plain = {}
+    for part, wrt in (("dq", (0,)), ("dkdv", (1, 2))):
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        with torch.enable_grad():
+            out = swa.swa_plain(*leaves, window=w)
+            torch.autograd.grad(out, [leaves[i] for i in wrt], do)
+        e1.record()
+        e1.synchronize()
+        plain[part] = e0.elapsed_time(e1)
+        del leaves, out
+    pairs = swa_flops(B, S, H, D, w) / (4 * D)
+    rows = []
+    for part, per_pair, moved in (
+            ("dq", 6 * D, B * S * (2 * (4 * H + 2 * KV) * D + 8 * H)),
+            ("dkdv", 8 * D, B * S * (2 * (2 * H + 4 * KV) * D + 8 * H))):
+        t_ops = pairs * per_pair / hw.H100.peak_bf16_flops
+        t_bytes = moved / hw.H100.hbm_bandwidth
+        rows.append({"kernel": part, "ms": dev[part],
+                     "plain_ms": plain[part],
+                     "bound_ms": max(t_ops, t_bytes) * 1e3,
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations",
+                     "max_abs_err": abs_err[part]})
+        log(f"swa_bwd_mma_{part}: {dev[part]:.4f} ms a call (profiler), "
+            f"bound {rows[-1]['bound_ms']:.4f} ms by {rows[-1]['bound_by']}"
+            f", plain {plain[part]:.3f} ms")
+    return rows
+
+
 def train_step_bound_ms(cfg, tokens: int) -> float:
     """The least time of a training step at the bf16 peak (989 TFLOP/s,
     700 W): 6·N·T for the matrix products (forward and backward), plus
@@ -2132,15 +2217,18 @@ def train_phase(seed, torch, swa):
 
     for dt in (torch.bfloat16, torch.float32):
         report = build.ptxas_report(swa.backward_source(dt, D), "swa_bwd")
+        name = "swa_bwd_mma" if dt == torch.bfloat16 else "swa_bwd"
         for chunk in report.split("Compiling entry function '")[1:]:
-            kernel = "dkdv" if "swa_bwd_dkdv" in chunk[:32] else "dq"
+            kernel = "dkdv" if "dkdv" in chunk[:40] else "dq"
             st = ptxas_stats(chunk)
             record[f"ptxas_{kernel}_{str(dt).removeprefix('torch.')}"] = st
-            log(f"ptxas swa_bwd_{kernel} {dt} D {D}: {st['registers']} "
-                f"registers, spill stores {st['spill_stores']} B, spill "
-                f"loads {st['spill_loads']} B; "
-                f"{swa.backward_smem_bytes(D)} B of shared memory a CTA at "
-                "most")
+            log(f"ptxas {name}_{kernel} {str(dt).removeprefix('torch.')} D "
+                f"{D}: {st['registers']} registers, spill stores "
+                f"{st['spill_stores']} B, spill loads {st['spill_loads']} B; "
+                f"{swa.backward_smem_bytes(dt, D)} B of shared memory a CTA "
+                "at most")
+            if st["spill_stores"] or st["spill_loads"]:
+                raise SystemExit(f"ptxas spills in {name}_{kernel} at D {D}")
 
     # 1. the backward kernel on layer 0's shapes, against its plain
     # version, and in turns with autograd through SDPA with the band mask
@@ -2154,8 +2242,18 @@ def train_phase(seed, torch, swa):
     timed = {}
     for dt, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
         q, k, v, do = (t.to(dt) for t in base)
-        o = swa.swa_cuda(q, k, v, window=w)
-        got = swa.swa_cuda_backward(q, k, v, o, do, window=w)
+        lse = None
+        if dt == torch.bfloat16:
+            o, lse = swa.swa_cuda_lse(q, k, v, window=w)
+            lse_err = rel_err(lse, swa.swa_plain_lse(q, k, window=w))
+            log(f"swa forward lse {dt}: vs swa_plain_lse max rel err "
+                f"{lse_err:.3e} (tol 1e-4)")
+            if lse_err > 1e-4 or not bool(torch.isfinite(lse).all()):
+                raise SystemExit("the forward's lse disagrees with its plain "
+                                 "version")
+        else:
+            o = swa.swa_cuda(q, k, v, window=w)
+        got = swa.swa_cuda_backward(q, k, v, o, do, window=w, lse=lse)
         torch.cuda.synchronize()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
@@ -2165,8 +2263,9 @@ def train_phase(seed, torch, swa):
         e1.synchronize()
         plain_ms = e0.elapsed_time(e1)
         errs = {n: rel_err(a, b) for n, a, b in zip("qkv", got, want)}
-        abs_err = max(float((a.float() - b.float()).abs().max())
-                      for a, b in zip(got, want))
+        abs_errs = [float((a.float() - b.float()).abs().max())
+                    for a, b in zip(got, want)]
+        abs_err = max(abs_errs)
         finite = all(bool(torch.isfinite(a.float()).all()) for a in got)
         log(f"swa backward {dt} {(B, S, H, KV, D)} w {w}: kernel vs plain "
             f"max rel err dq {errs['q']:.3e}, dk {errs['k']:.3e}, dv "
@@ -2184,13 +2283,18 @@ def train_phase(seed, torch, swa):
             out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band)
         dot = do.transpose(1, 2)
         ms, library_ms = time_in_turns([
-            lambda: swa.swa_cuda_backward(q, k, v, o, do, window=w),
+            lambda: swa.swa_cuda_backward(q, k, v, o, do, window=w, lse=lse),
             lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
                                         retain_graph=True)], reps=3)
         bound_ms, bound_by = swa_backward_bound(B, S, H, KV, D, w, dt)
         timed[dt] = dict(ms=ms, library_ms=library_ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by,
                          max_abs_err=abs_err, max_rel_err=errs)
+        if dt == torch.bfloat16:
+            timed["parts"] = backward_parts(
+                torch, swa, (q, k, v, o, do, lse), w,
+                {"dq": abs_errs[0], "dkdv": max(abs_errs[1:])},
+                (B, S, H, KV, D))
         log(f"swa backward kernel {dt}: {ms:.4f} ms a call ({bound_ms / ms:.1%}"
             f" of the bound {bound_ms:.4f} ms by {bound_by}), plain "
             f"{plain_ms:.3f} ms, autograd through SDPA with the band mask "
@@ -2198,8 +2302,10 @@ def train_phase(seed, torch, swa):
         del q, k, v, do, o, qt, kt, vt, out, dot
         torch.cuda.empty_cache()
     del base, band
+    parts = timed.pop("parts")
     record["backward"] = {str(dt).removeprefix("torch."): t
                           for dt, t in timed.items()}
+    record["backward"]["bfloat16_kernels"] = parts
 
     # 2. the main path: full-width Danube trained by the Trainer, the
     # counts zeroed just before each step and read just after it
@@ -2357,7 +2463,7 @@ def train_phase(seed, torch, swa):
             "name": f"swa.swa_cuda_backward[{cfg.name} train B{B} S{S} "
                     f"H{H} KV{KV} D{D} w{w} {tag}]",
             "route": "cuda",
-            "source": str(swa.BACKWARD_SOURCE.relative_to(ROOT)),
+            "source": str(swa.BACKWARD_SOURCES[dt].relative_to(ROOT)),
             "replaces": swa.REPLACES,
             "launches": (record["launches_backward"]
                          if dt == torch.bfloat16 else 0),
@@ -2370,7 +2476,26 @@ def train_phase(seed, torch, swa):
             "max_rel_err": t["max_rel_err"],
             "backward_of_replaces": True,
             "on_training_path": dt == torch.bfloat16,
-            "smem_bytes": swa.backward_smem_bytes(D),
+            "smem_bytes": swa.backward_smem_bytes(dt, D),
+        })
+    for part in parts:
+        rows.append({
+            "name": f"swa_bwd_mma_{part['kernel']}[{cfg.name} train B{B} "
+                    f"S{S} H{H} KV{KV} D{D} w{w} bf16]",
+            "route": "cuda",
+            "source": str(swa.BACKWARD_SOURCES[torch.bfloat16].relative_to(
+                ROOT)),
+            "replaces": swa.REPLACES,
+            "launches": record["launches_backward"],
+            "max_abs_err": part["max_abs_err"],
+            "ms": part["ms"],
+            "plain_ms": part["plain_ms"],
+            "bound_ms": part["bound_ms"],
+            "bound_by": part["bound_by"],
+            "library_ms": None,
+            "backward_of_replaces": True,
+            "on_training_path": True,
+            "smem_bytes": swa.backward_smem_bytes(torch.bfloat16, D),
         })
     record["seconds"] = time.perf_counter() - t_phase
     log(f"train phase: {record['seconds']:.1f} s")

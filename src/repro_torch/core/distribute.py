@@ -521,7 +521,8 @@ def lower_sharded(p: Program, plan: DataflowPlan, global_grid,
                         res = call({f: padded[f][idx]
                                     for f in call.group_inputs},
                                    svec[shards.device[idx]], pcs[idx][k],
-                                   origin=shards.origin[idx])
+                                   origin=shards.origin[idx],
+                                   device=shards.device[idx])
                     env[idx].update(res)
                     outs[idx].update({f: v for f, v in res.items()
                                       if f in out_names})
@@ -704,7 +705,8 @@ def lower_sharded_time_loop(p: Program, plan: DataflowPlan, global_grid,
                             {f: fresh[f][idx] for f in call.group_inputs},
                             svec[shards.device[idx]], pcs[idx][first],
                             input_pad={f: fpad[f] for f in call.group_inputs},
-                            origin=shards.origin[idx])
+                            origin=shards.origin[idx],
+                            device=shards.device[idx])
                 return res
             env = {idx: {} for idx in shards.index}
             outs = {idx: {} for idx in shards.index}
@@ -725,7 +727,8 @@ def lower_sharded_time_loop(p: Program, plan: DataflowPlan, global_grid,
                                    svec[shards.device[idx]],
                                    pcs[idx][first + k],
                                    input_pad=ipad or None,
-                                   origin=shards.origin[idx])
+                                   origin=shards.origin[idx],
+                                   device=shards.device[idx])
                     env[idx].update(res)
                     outs[idx].update({f: v for f, v in res.items()
                                       if p.fields[f].role.value == "output"})

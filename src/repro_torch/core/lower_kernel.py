@@ -26,7 +26,7 @@ import torch
 from ..kernels.stencil3d import bind, build_group_call
 from . import boundary as bc
 from .ir import Program
-from .lower_torch import write_back
+from .lower_torch import fresh_carry, write_back
 from .schedule import DataflowPlan, TimeLoopSpec, adapt_update
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -50,8 +50,9 @@ def _pad_coeffs(p: Program, calls, coeffs, dtype, device):
 
 
 def _run_groups(p: Program, calls, svec, pc_per_call, resolve_input,
-                origin=None):
-    """Run the fuse groups in order, materialising inter-group fields.
+                device, origin=None):
+    """Run the fuse groups in order on ``device``, materialising
+    inter-group fields.
 
     ``resolve_input(call, f, env) -> (tensor, actual_pad | None)`` supplies
     each group input: either freshly padded to the call's window geometry
@@ -66,7 +67,8 @@ def _run_groups(p: Program, calls, svec, pc_per_call, resolve_input,
             padded[f], actual = resolve_input(call, f, env)
             if actual is not None:
                 ipad[f] = actual
-        res = call(padded, svec, pc, input_pad=ipad or None, origin=origin)
+        res = call(padded, svec, pc, input_pad=ipad or None, origin=origin,
+                   device=device)
         env.update(res)
         for f, v in res.items():
             if p.fields[f].role.value == "output":
@@ -138,7 +140,7 @@ def lower_from_calls(p: Program, dtype, calls, device):
         return _run_groups(p, calls,
                            scalar_vector(p, scalars, device, batched),
                            _pad_coeffs(p, calls, coeffs, dtype, device),
-                           resolve)
+                           resolve, device)
 
     run.calls = calls
     return run
@@ -213,9 +215,8 @@ def time_loop_from_calls(p: Program, dtype, grid_shape, spec: TimeLoopSpec,
         pc_per_call = _pad_coeffs(p, calls, coeffs, dtype, device)
         pc_epilogue = (_pad_coeffs(p, epilogue, coeffs, dtype, device)
                        if epilogue else None)
-        carry = {f: refill(f, torch.as_tensor(fields[f], dtype=dtype,
-                                              device=device))
-                 for f in spec.persistent}
+        carry = {f: fresh_carry(refill, f, torch.as_tensor(
+            fields[f], dtype=dtype, device=device)) for f in spec.persistent}
         # a batch's carries keep their leading axis whole
         inner = {f: (slice(None),) * batched + interior[f]
                  for f in spec.persistent}
@@ -230,7 +231,8 @@ def time_loop_from_calls(p: Program, dtype, grid_shape, spec: TimeLoopSpec,
                 new.update(call({f: carry[f] for f in call.group_inputs},
                                 svec, pc_[0],
                                 input_pad={f: fpad[f]
-                                           for f in call.group_inputs}))
+                                           for f in call.group_inputs},
+                                device=device))
             else:
                 def resolve(call, f, env):
                     if f in carry:          # persistent: window from carry
@@ -239,7 +241,7 @@ def time_loop_from_calls(p: Program, dtype, grid_shape, spec: TimeLoopSpec,
                                         bnd[f], align_hi=call.align_hi
                                         ).contiguous(), None
 
-                outputs = _run_groups(p, calls_, svec, pc_, resolve)
+                outputs = _run_groups(p, calls_, svec, pc_, resolve, device)
                 new = dict(cur)
                 new.update(update(cur, outputs, upd_scalars))
             return write_back(carry, cur, new, inner, spec.carry_write,

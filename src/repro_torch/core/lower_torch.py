@@ -193,7 +193,8 @@ def lower_time_loop(p: Program, mode: str, spec, update):
         def refill(f, x):
             return bc.pad_field(x, fpad[f][:, 0], fpad[f][:, 1], bnd[f])
 
-        carry = {f: refill(f, fields[f]) for f in spec.persistent}
+        carry = {f: fresh_carry(refill, f, fields[f])
+                 for f in spec.persistent}
         for _ in range(int(spec.steps)):
             outs = step_fn(carry, scalars, coeffs)
             cur = {f: carry[f][interior[f]] for f in spec.persistent}
@@ -204,6 +205,17 @@ def lower_time_loop(p: Program, mode: str, spec, update):
         return {f: carry[f][interior[f]] for f in spec.persistent}
 
     return run
+
+
+def fresh_carry(refill, f: str, x: torch.Tensor) -> torch.Tensor:
+    """Field ``f``'s loop carry from the caller's ``x``: ``refill``'s padded
+    buffer, or a copy where it shares ``x``'s memory (a field with no halo
+    and no alignment slab), so that no in-place write back reaches the
+    caller's array or tensor."""
+    c = refill(f, x)
+    if c.untyped_storage().data_ptr() == x.untyped_storage().data_ptr():
+        c = c.clone()
+    return c
 
 
 def write_back(carry: dict, cur: dict, new: dict, interior: dict,

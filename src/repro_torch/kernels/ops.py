@@ -2,8 +2,9 @@
 
 * :func:`sliding_window_attention` — SWA with GQA handling, the drop-in for
   the torch path in ``models.layers`` on the card: the CUDA kernels for
-  CUDA tensors (under autograd: the forward kernel, and the backward kernel
-  for q's, k's and v's gradients), its plain version for CPU tensors.
+  CUDA tensors (where a gradient will follow, under autograd: the forward
+  kernel, and the backward kernel for q's, k's and v's gradients), its
+  plain version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ def sliding_window_attention(q: torch.Tensor, k: torch.Tensor,
     ``q_block`` is the plain version's query tile (the kernel has its
     own)."""
     if q.device.type == "cuda":
-        return swa.SlidingWindowAttention.apply(q, k, v, window)
+        return swa.attention(q, k, v, window=window)
     if q.device.type == "cpu":
         return swa.swa_plain(q, k, v, window=window, q_block=q_block)
     raise ValueError(f"no SWA kernel for device {q.device}")

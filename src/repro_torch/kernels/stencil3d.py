@@ -259,9 +259,24 @@ def scalar_rows(scalars_vec, n: int, batch: int, device) -> torch.Tensor:
     return sv[:, :n].contiguous()
 
 
+def call_device(call, padded_inputs: dict, padded_coeffs, device,
+                what: str) -> torch.device:
+    """The device a kernel call runs on: its first input's, else its first
+    coefficient's, else ``device`` (a group that reads neither)."""
+    ref = next((padded_inputs[f] for f in call.group_inputs), None)
+    if ref is None:
+        ref = next(iter((padded_coeffs or {}).values()), None)
+    if ref is not None:
+        return ref.device
+    if device is None:
+        raise ValueError(f"{what} reads no field or coefficient and was "
+                         "given no device")
+    return torch.device(device)
+
+
 def per_element(reference, call, padded_inputs: dict, scalars_vec=None,
                 padded_coeffs: dict | None = None, origin=None,
-                input_pad: dict | None = None) -> dict:
+                input_pad: dict | None = None, device=None) -> dict:
     """``reference`` (a plain version taking one request's arguments) over
     a batch: each element with its own inputs, coefficients and scalar
     row, the results stacked along a leading axis.  Arguments without a
@@ -270,13 +285,13 @@ def per_element(reference, call, padded_inputs: dict, scalars_vec=None,
     batch = batch_of(call, padded_inputs, padded_coeffs)
     if batch is None:
         return reference(call, padded_inputs, scalars_vec, padded_coeffs,
-                         origin, input_pad)
+                         origin, input_pad, device)
     two_d = isinstance(scalars_vec, torch.Tensor) and scalars_vec.ndim == 2
     outs = [reference(
         call, {f: x[b] for f, x in padded_inputs.items()},
         scalars_vec[b] if two_d else scalars_vec,
         {c: t[b] if t.ndim == 2 else t for c, t in padded_coeffs.items()},
-        origin, input_pad) for b in range(batch)]
+        origin, input_pad, device) for b in range(batch)]
     return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
 
@@ -371,20 +386,20 @@ class GroupCall:
     # ------------------------------------------------------------ running
     def __call__(self, padded_inputs: dict, scalars_vec=None,
                  padded_coeffs: dict | None = None, origin=None,
-                 input_pad: dict | None = None) -> dict:
-        ref = next((padded_inputs[f] for f in self.group_inputs),
-                   None)
-        if ref is None:
-            ref = next(iter((padded_coeffs or {}).values()), None)
-        if ref is None:
-            raise ValueError("fuse group reads no field or coefficient")
-        if ref.device.type == "cpu":
+                 input_pad: dict | None = None, device=None) -> dict:
+        """Run the group on its inputs' device; ``device`` (the
+        orchestrator's) decides for a group that reads no field or
+        coefficient."""
+        dev = call_device(self, padded_inputs, padded_coeffs, device,
+                          "fuse group")
+        if dev.type == "cpu":
             return group_call_reference(self, padded_inputs, scalars_vec,
-                                        padded_coeffs, origin, input_pad)
-        if ref.device.type != "cuda":
-            raise ValueError(f"no kernel for device {ref.device}")
+                                        padded_coeffs, origin, input_pad,
+                                        device=dev)
+        if dev.type != "cuda":
+            raise ValueError(f"no kernel for device {dev}")
         return launch(self, padded_inputs, scalars_vec, padded_coeffs or {},
-                      origin, input_pad or {})
+                      origin, input_pad or {}, device=dev)
 
     def kernel_args(self, padded_inputs, sv, padded_coeffs, origin,
                     input_pad, outs) -> list:
@@ -473,7 +488,7 @@ class GroupCall:
 # --------------------------------------------------------------------------
 
 def launch(call, padded_inputs: dict, scalars_vec, padded_coeffs: dict,
-           origin, input_pad: dict) -> dict:
+           origin, input_pad: dict, device=None) -> dict:
     """Launch ``call``'s kernel (a :class:`GroupCall` or a
     ``stream3d.StreamCall``) once for the whole batch on the current
     stream: outputs ``(B, *grid)``, or ``grid``-shaped without a batch
@@ -491,8 +506,8 @@ def launch(call, padded_inputs: dict, scalars_vec, padded_coeffs: dict,
     if call.module is None:
         bind([call])
     fn = call.module.function(call.entry)
-    device = (padded_inputs[call.group_inputs[0]] if call.group_inputs
-              else padded_coeffs[call.group_coeffs[0]]).device
+    device = call_device(call, padded_inputs, padded_coeffs, device,
+                         "kernel call")
     outs = {f: torch.empty((nb,) + call.grid_shape, dtype=call.dtype,
                            device=device) for f in call.group_outputs}
     sv = scalar_rows(scalars_vec, call.n_scalars, nb, device)
@@ -663,7 +678,8 @@ def build_group_call(p: Program, group: Sequence[int], block: Sequence[int],
 
 def group_call_reference(call: GroupCall, padded_inputs: dict,
                          scalars_vec=None, padded_coeffs: dict | None = None,
-                         origin=None, input_pad: dict | None = None) -> dict:
+                         origin=None, input_pad: dict | None = None,
+                         device=None) -> dict:
     """The group's function in plain PyTorch, on any device: the
     reference's per-tile evaluation with the whole padded output as one
     tile (overlapped tiling is exact, so the tile does not change a value).
@@ -671,11 +687,12 @@ def group_call_reference(call: GroupCall, padded_inputs: dict,
     (:func:`per_element`), and the same rounding: a bfloat16 group
     computes each op in float32 and rounds its result."""
     return per_element(_group_reference, call, padded_inputs, scalars_vec,
-                       padded_coeffs, origin, input_pad)
+                       padded_coeffs, origin, input_pad, device)
 
 
 def _group_reference(call: GroupCall, padded_inputs: dict, scalars_vec,
-                     padded_coeffs: dict, origin, input_pad) -> dict:
+                     padded_coeffs: dict, origin, input_pad,
+                     device=None) -> dict:
     """:func:`group_call_reference` for one request."""
     p, ndim, dtype = call.program, call.ndim, call.dtype
     cdt = torch.float32 if dtype == torch.bfloat16 else dtype
@@ -683,17 +700,15 @@ def _group_reference(call: GroupCall, padded_inputs: dict, scalars_vec,
     block = call.padded_out
     hl = call.halo_lo
     windows = {}
-    device = None
+    device = call_device(call, padded_inputs, padded_coeffs, device,
+                         "fuse group")
     for f in call.group_inputs:
         x = padded_inputs[f]
-        device = device or x.device
         ip = (input_pad or {}).get(f)
         lo = [int(ip[a][0]) - hl[a] if ip is not None else 0
               for a in range(ndim)]
         windows[f] = x[tuple(slice(lo[a], lo[a] + call.expect[a])
                              for a in range(ndim))].to(cdt)
-    for c in call.group_coeffs:
-        device = device or padded_coeffs[c].device
     svec = [] if scalars_vec is None else list(scalars_vec)
     scal = {s: torch.tensor(float(svec[i]), dtype=torch.float32,
                             device=device)

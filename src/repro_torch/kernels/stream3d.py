@@ -99,8 +99,8 @@ from ..core.schedule import (COPY_BYTES, StreamCTA, plan_stream_cta,
                              stream_update_fuses)
 from .stencil3d import (_CTYPE, _DTYPE_NAMES, _Emitter, _check_batch,
                         _coeff_args, _window_origin, batch_prologue,
-                        c_argtypes, kernel_head, kernel_params, launch,
-                        launch_entry, per_element)
+                        c_argtypes, call_device, kernel_head, kernel_params,
+                        launch, launch_entry, per_element)
 
 #: kernel launches made by :class:`StreamCall` (plain-version runs excluded)
 launches = 0
@@ -234,19 +234,20 @@ class StreamCall:
     # ------------------------------------------------------------ running
     def __call__(self, padded_inputs: dict, scalars_vec=None,
                  padded_coeffs: dict | None = None, origin=None,
-                 input_pad: dict | None = None) -> dict:
-        ref = next((padded_inputs[f] for f in self.group_inputs), None)
-        if ref is None:
-            ref = next(iter((padded_coeffs or {}).values()), None)
-        if ref is None:
-            raise ValueError("stream region reads no field or coefficient")
-        if ref.device.type == "cpu":
+                 input_pad: dict | None = None, device=None) -> dict:
+        """Run the region on its inputs' device; ``device`` (the
+        orchestrator's) decides for a region that reads no field or
+        coefficient."""
+        dev = call_device(self, padded_inputs, padded_coeffs, device,
+                          "stream region")
+        if dev.type == "cpu":
             return stream_call_reference(self, padded_inputs, scalars_vec,
-                                         padded_coeffs, origin, input_pad)
-        if ref.device.type != "cuda":
-            raise ValueError(f"no kernel for device {ref.device}")
+                                         padded_coeffs, origin, input_pad,
+                                         device=dev)
+        if dev.type != "cuda":
+            raise ValueError(f"no kernel for device {dev}")
         return launch(self, padded_inputs, scalars_vec, padded_coeffs or {},
-                      origin, input_pad or {})
+                      origin, input_pad or {}, device=dev)
 
     def count_launch(self) -> None:
         global launches
@@ -340,7 +341,8 @@ class StreamCall:
 
 def stream_call_reference(call: StreamCall, padded_inputs: dict,
                           scalars_vec=None, padded_coeffs: dict | None = None,
-                          origin=None, input_pad: dict | None = None) -> dict:
+                          origin=None, input_pad: dict | None = None,
+                          device=None) -> dict:
     """The region's sweep in plain PyTorch, on any device, grid step by
     grid step as the TPU kernel runs it: window buffers shifted by P planes
     per step, temp rings that store zeros outside the domain, T chained
@@ -351,11 +353,12 @@ def stream_call_reference(call: StreamCall, padded_inputs: dict,
     computes each op (and each update) in float32 and rounds its
     result."""
     return per_element(_stream_reference, call, padded_inputs, scalars_vec,
-                       padded_coeffs, origin, input_pad)
+                       padded_coeffs, origin, input_pad, device)
 
 
 def _stream_reference(call: StreamCall, padded_inputs: dict, scalars_vec,
-                      padded_coeffs: dict, origin, input_pad) -> dict:
+                      padded_coeffs: dict, origin, input_pad,
+                      device=None) -> dict:
     """:func:`stream_call_reference` for one request."""
     p, ndim, dtype = call.program, call.ndim, call.dtype
     cdt = torch.float32 if dtype == torch.bfloat16 else dtype
@@ -363,11 +366,11 @@ def _stream_reference(call: StreamCall, padded_inputs: dict, scalars_vec,
     grid, ge = call.grid_shape, call.global_extent
     T, P, lead = call.T, call.P, call.lead
     hl, hh, halo_lo = call.hl, call.hh, call.halo_lo
-    device = None
+    device = call_device(call, padded_inputs, padded_coeffs, device,
+                         "stream region")
     xs = {}
     for f in call.group_inputs:
         x = padded_inputs[f]
-        device = device or x.device
         ip = (input_pad or {}).get(f)
         if ip is not None:
             x = x[tuple(slice(int(ip[a][0]) - halo_lo[a],
@@ -378,8 +381,6 @@ def _stream_reference(call: StreamCall, padded_inputs: dict, scalars_vec,
             x = torch.cat([x, x.new_zeros((call.pad_round,) + x.shape[1:])])
         xs[f] = x
     cvecs = {c: padded_coeffs[c].to(cdt) for c in call.group_coeffs}
-    for c in call.group_coeffs:
-        device = device or padded_coeffs[c].device
     svec = [] if scalars_vec is None else list(scalars_vec)
     sdict = {s: torch.tensor(float(svec[i]), dtype=torch.float32,
                              device=device)

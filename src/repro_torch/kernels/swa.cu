@@ -6,6 +6,8 @@
 // q: (B, S, H, D), k and v: (B, S, KV, D), read through their strides (the
 // head dim contiguous); query head h reads KV head h / (H / KV).  Query i
 // attends to keys (i - window, i].  o: (B, S, H, D) contiguous, in SWA_T.
+// When lse is not null, each row's log-sum-exp of its scaled scores goes
+// to lse (B, H, S) float32, as swa_mma.cu stores it.
 //
 // One CTA of NT threads per (query tile of BQ rows, head, batch row).  The
 // q tile is staged once in shared memory; the tile's key range
@@ -37,10 +39,11 @@ __device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
 
 __global__ void __launch_bounds__(NT) swa_kernel(
     const SWA_T* __restrict__ q, const SWA_T* __restrict__ k,
-    const SWA_T* __restrict__ v, SWA_T* __restrict__ o, int S, int H, int G,
-    long long qsb, long long qss, long long qsh, long long ksb,
-    long long kss, long long ksh, long long vsb, long long vss,
-    long long vsh, int window, float scale) {
+    const SWA_T* __restrict__ v, SWA_T* __restrict__ o,
+    float* __restrict__ lse, int S, int H, int G, long long qsb,
+    long long qss, long long qsh, long long ksb, long long kss,
+    long long ksh, long long vsb, long long vss, long long vsh, int window,
+    float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* qs = (float*)smem_raw;      // BQ x QS
   float* ks = qs + BQ * QS;          // BK x QS
@@ -163,6 +166,9 @@ __global__ void __launch_bounds__(NT) swa_kernel(
   }
   __syncthreads();
 
+  if (lse != nullptr && tid < BQ && q0 + tid < S)
+    lse[((long long)b * H + h) * S + q0 + tid] = m_run[tid]
+                                                 + logf(l_run[tid]);
   SWA_T* ob = o + ((long long)b * S * H + h) * SWA_D;
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
@@ -181,7 +187,8 @@ __global__ void __launch_bounds__(NT) swa_kernel(
 extern "C" int swa_smem_bytes() { return (int)(SMEM_FLOATS * sizeof(float)); }
 
 extern "C" int swa_launch(const void* q, const void* k, const void* v,
-                          void* o, int B, int S, int H, int KV, long long qsb,
+                          void* o, void* lse, int B, int S, int H, int KV,
+                          long long qsb,
                           long long qss, long long qsh, long long ksb,
                           long long kss, long long ksh, long long vsb,
                           long long vss, long long vsh, int window,
@@ -201,7 +208,8 @@ extern "C" int swa_launch(const void* q, const void* k, const void* v,
   ready[dev] = true;
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   swa_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
-      (const SWA_T*)q, (const SWA_T*)k, (const SWA_T*)v, (SWA_T*)o, S, H,
-      H / KV, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, window, scale);
+      (const SWA_T*)q, (const SWA_T*)k, (const SWA_T*)v, (SWA_T*)o,
+      (float*)lse, S, H, H / KV, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh,
+      window, scale);
   return (int)cudaGetLastError();
 }

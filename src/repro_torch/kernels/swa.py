@@ -50,14 +50,21 @@ source to the other.
 arithmetic tile by tile, float32 throughout.  ``launches`` counts the
 kernels' launches (plain-version runs excluded).
 
-The backward, for training: ``swa_bwd.cu`` (both storage types, on the CUDA
-cores; its header says how) gives q's, k's and v's gradients from the
+The backward, for training, gives q's, k's and v's gradients from the
 forward's output and its cotangent, through :func:`swa_cuda_backward`
-(``backward_launches`` counts its calls); :func:`swa_plain_backward` is
-its plain version, autograd through :func:`swa_plain`.
-:class:`SlidingWindowAttention` puts the two kernels under autograd.  The
-TPU kernel has no backward: the JAX model trains through its jnp
-``swa_attention``.
+(``backward_launches`` counts its calls), one fixed source per storage
+type (their headers say how):
+
+* bfloat16: ``swa_bwd_mma.cu``, on the tensor cores (``mma.sync``), fed by
+  the forward's saved log-sum-exp (:func:`swa_cuda_lse`);
+* float32: ``swa_bwd.cu``, on the CUDA cores, which recomputes the row
+  statistics.
+
+:func:`swa_plain_backward` is the plain version of both, autograd through
+:func:`swa_plain`, and :func:`swa_plain_lse` the plain version of the
+saved log-sum-exp.  :class:`SlidingWindowAttention` puts the kernels under
+autograd.  The TPU kernel has no backward: the JAX model trains through
+its jnp ``swa_attention``.
 """
 
 from __future__ import annotations
@@ -74,7 +81,8 @@ from . import build
 
 #: kernel launches made by :func:`swa_cuda` (plain-version runs excluded)
 launches = 0
-#: calls of :func:`swa_cuda_backward` (each launches its two kernels)
+#: calls of :func:`swa_cuda_backward` (each launches its source's two
+#: kernels)
 backward_launches = 0
 
 #: the TPU kernel this module replaces
@@ -84,19 +92,25 @@ REPLACES = "src/repro/kernels/swa.py:92"
 SOURCES = {torch.float32: Path(__file__).with_name("swa.cu"),
            torch.bfloat16: Path(__file__).with_name("swa_mma.cu")}
 
-#: the backward's source, both storage types
-BACKWARD_SOURCE = Path(__file__).with_name("swa_bwd.cu")
+#: the backward's fixed source of each storage type
+BACKWARD_SOURCES = {torch.float32: Path(__file__).with_name("swa_bwd.cu"),
+                    torch.bfloat16: Path(__file__).with_name(
+                        "swa_bwd_mma.cu")}
 
 #: query rows of a CTA's tile and key rows of a chunk (``BQ``, ``BK``)
 Q_TILE = KV_CHUNK = 64
 
 _CTYPE = {torch.float32: "float", torch.bfloat16: "__nv_bfloat16"}
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
              + [ctypes.c_longlong] * 9 + [ctypes.c_int, ctypes.c_float,
                                           ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
-                 + [ctypes.c_longlong] * 15 + [ctypes.c_int, ctypes.c_float,
-                                               ctypes.c_void_p])
+# swa_bwd.cu: q, k, v, o, dout, dq, dk, dv, m, l, D; swa_bwd_mma.cu: q, k,
+# v, o, dout, lse, dq, dk, dv, D
+_BWD_ARGTYPES = {
+    dt: ([ctypes.c_void_p] * n + [ctypes.c_int] * 4
+         + [ctypes.c_longlong] * 15 + [ctypes.c_int, ctypes.c_float,
+                                       ctypes.c_void_p])
+    for dt, n in ((torch.float32, 11), (torch.bfloat16, 10))}
 _FNS: dict = {}
 
 
@@ -141,23 +155,29 @@ def _function(dtype: torch.dtype, d: int):
     return fn
 
 
-def backward_smem_bytes(d: int) -> int:
-    """Shared memory of the backward's larger CTA (``swa_bwd_dq``) at head
-    dim ``d``: ``swa_bwd.cu``'s ``DQ_SMEM_FLOATS`` (float32 q, dout, K and
-    V tiles of rows of D + 1, a 64 x 65 tile, 11 floats a row)."""
+def backward_smem_bytes(dtype: torch.dtype, d: int) -> int:
+    """Shared memory of the backward's larger CTA at head dim ``d``:
+    ``swa_bwd_mma.cu``'s ``SMEM_BYTES`` (bf16: six 64-row tiles of rows of
+    D rounded up to 16, plus 8, and 256 floats of row statistics) or
+    ``swa_bwd.cu``'s ``DQ_SMEM_FLOATS`` (float32 q, dout, K and V tiles of
+    rows of D + 1, a 64 x 65 tile, 11 floats a row)."""
+    _check_dtype(dtype)
     bq = Q_TILE
+    if dtype == torch.bfloat16:
+        return 2 * 6 * bq * (-(-d // 16) * 16 + 8) + 4 * 4 * bq
     return 4 * (4 * bq * (d + 1) + bq * (KV_CHUNK + 1) + 11 * bq)
 
 
 def backward_source(dtype: torch.dtype, d: int) -> str:
-    """``swa_bwd.cu`` specialised to its storage type and head dim."""
+    """The dtype's backward source specialised to its storage type and head
+    dim."""
     _check_dtype(dtype)
-    if backward_smem_bytes(d) > hw.H100.smem_per_block:
-        raise ValueError(f"head dim {d} needs {backward_smem_bytes(d)} B of "
-                         f"shared memory a CTA in the SWA backward; the "
-                         f"H100 gives {hw.H100.smem_per_block}")
+    if backward_smem_bytes(dtype, d) > hw.H100.smem_per_block:
+        raise ValueError(f"head dim {d} needs {backward_smem_bytes(dtype, d)}"
+                         f" B of shared memory a CTA in the SWA backward in "
+                         f"{dtype}; the H100 gives {hw.H100.smem_per_block}")
     return (f"#define SWA_T {_CTYPE[dtype]}\n#define SWA_D {d}\n"
-            + BACKWARD_SOURCE.read_text())
+            + BACKWARD_SOURCES[dtype].read_text())
 
 
 def _backward_function(dtype: torch.dtype, d: int):
@@ -165,7 +185,7 @@ def _backward_function(dtype: torch.dtype, d: int):
     if fn is None:
         lib = build.load(backward_source(dtype, d), tag="swa_bwd")
         fn = lib.swa_bwd_launch
-        fn.argtypes = _BWD_ARGTYPES
+        fn.argtypes = _BWD_ARGTYPES[dtype]
         fn.restype = ctypes.c_int
         _FNS[("backward", dtype, d)] = fn
     return fn
@@ -197,11 +217,15 @@ def _check_cuda(first: torch.Tensor, **named) -> None:
             raise ValueError(f"{name}'s head dim must be contiguous")
 
 
-def swa_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-             window: int) -> torch.Tensor:
-    """The kernel on CUDA tensors: q (B,S,H,D), k and v (B,S,KV,D), the
-    head dim contiguous.  bfloat16 runs ``swa_mma.cu``, float32
-    ``swa.cu``.  Returns a contiguous (B,S,H,D) in q's dtype."""
+def _strides(t: torch.Tensor) -> list:
+    """The batch, sequence and head strides a kernel reads ``t`` through,
+    0 along an axis of extent 1: such a stride is never stepped, and an
+    arbitrary one (autograd hands over (1, ...) for a batch of one) would
+    fail the sources' 16-byte copy test and stage element by element."""
+    return [st if n > 1 else 0 for n, st in zip(t.shape[:3], t.stride())]
+
+
+def _forward(q, k, v, window, with_lse: bool):
     global launches
     _check(q, k, v, window)
     _check_cuda(q, q=q, k=k, v=v)
@@ -209,17 +233,37 @@ def swa_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     KV = k.shape[2]
     fn = _function(q.dtype, D)
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if o.numel() == 0:
-        return o
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S, H,
-            KV, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            int(window), 1.0 / math.sqrt(D),
+        return o, lse
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr() if with_lse else None, B, S, H, KV,
+            *_strides(q), *_strides(k), *_strides(v), int(window),
+            1.0 / math.sqrt(D),
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"CUDA SWA kernel (D={D}, {q.dtype}) failed to "
                            f"launch: cudaError {rc}")
     launches += 1
-    return o
+    return o, lse
+
+
+def swa_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+             window: int) -> torch.Tensor:
+    """The kernel on CUDA tensors: q (B,S,H,D), k and v (B,S,KV,D), the
+    head dim contiguous.  bfloat16 runs ``swa_mma.cu``, float32
+    ``swa.cu``.  Returns a contiguous (B,S,H,D) in q's dtype; stores no
+    log-sum-exp (the serving path)."""
+    return _forward(q, k, v, window, with_lse=False)[0]
+
+
+def swa_cuda_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 window: int):
+    """:func:`swa_cuda` that also returns each row's log-sum-exp of its
+    scaled scores, a contiguous float32 (B,H,S) from the same launch: what
+    the bf16 backward reads in place of the row statistics."""
+    return _forward(q, k, v, window, with_lse=True)
 
 
 def swa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -260,12 +304,38 @@ def swa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.transpose(1, 2).to(q.dtype)
 
 
+def swa_plain_lse(q: torch.Tensor, k: torch.Tensor, *, window: int,
+                  q_block: int = 128) -> torch.Tensor:
+    """The plain version of the forward's saved log-sum-exp: float32
+    (B,H,S), ``log sum_j exp(scale q_i.k_j)`` over each row's band
+    ``(i - w, i]``, a query tile of ``q_block`` rows at a time."""
+    B, S, H, D = q.shape
+    G = H // k.shape[2]
+    kt = k.float().repeat_interleave(G, dim=2).transpose(1, 2)  # (B,H,S,D)
+    qt = q.float().transpose(1, 2)
+    w = int(window)
+    scale = 1.0 / math.sqrt(D)
+    out = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    for q0 in range(0, S, q_block):
+        q1 = min(q0 + q_block, S)
+        k0 = max(0, q0 - w + 1)
+        logits = (qt[:, :, q0:q1] @ kt[:, :, k0:q1].transpose(-1, -2)) * scale
+        qpos = torch.arange(q0, q1, device=q.device)[:, None]
+        kpos = torch.arange(k0, q1, device=q.device)[None, :]
+        ok = (kpos <= qpos) & (kpos > qpos - w)
+        out[:, :, q0:q1] = torch.where(ok, logits, -math.inf).logsumexp(-1)
+    return out
+
+
 def swa_cuda_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      o: torch.Tensor, do: torch.Tensor, *, window: int):
-    """``swa_bwd.cu`` on CUDA tensors: the gradients (dq, dk, dv) of
-    ``o = swa_cuda(q, k, v)`` for the cotangent ``do``, contiguous, in q's
-    dtype; dk and dv summed over each KV head's query heads.  o and do are
-    (B,S,H,D); every head dim contiguous."""
+                      o: torch.Tensor, do: torch.Tensor, *, window: int,
+                      lse: torch.Tensor | None = None):
+    """The gradients (dq, dk, dv) of ``o = swa_cuda(q, k, v)`` for the
+    cotangent ``do`` on CUDA tensors, contiguous, in q's dtype; dk and dv
+    summed over each KV head's query heads.  o and do are (B,S,H,D); every
+    head dim contiguous.  bfloat16 runs ``swa_bwd_mma.cu`` and needs the
+    forward's ``lse`` (:func:`swa_cuda_lse`); float32 runs ``swa_bwd.cu``,
+    which takes none."""
     global backward_launches
     _check(q, k, v, window)
     if o.shape != q.shape or do.shape != q.shape:
@@ -274,19 +344,30 @@ def swa_cuda_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_cuda(q, q=q, k=k, v=v, o=o, do=do)
     B, S, H, D = q.shape
     KV = k.shape[2]
+    mma = q.dtype == torch.bfloat16
+    if mma:
+        if lse is None or lse.shape != (B, H, S) \
+                or lse.dtype != torch.float32 or lse.device != q.device \
+                or not lse.is_contiguous():
+            raise ValueError("the bf16 backward takes the forward's lse: a "
+                             f"contiguous float32 {(B, H, S)} on {q.device}")
+    elif lse is not None:
+        raise ValueError(f"the {q.dtype} backward recomputes the row "
+                         "statistics and takes no lse")
     fn = _backward_function(q.dtype, D)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty((B, S, KV, D), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     if q.numel() == 0:
         return dq, dk, dv
-    m, l, drow = (torch.empty((B, H, S), dtype=torch.float32,
-                              device=q.device) for _ in range(3))
+    rows = [torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+            for _ in range(1 if mma else 3)]
+    ptrs = ([lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr()]
+            if mma else [dq.data_ptr(), dk.data_ptr(), dv.data_ptr()])
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            m.data_ptr(), l.data_ptr(), drow.data_ptr(), B, S, H, KV,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *o.stride()[:3], *do.stride()[:3], int(window),
+            do.data_ptr(), *ptrs, *(t.data_ptr() for t in rows), B, S, H, KV,
+            *_strides(q), *_strides(k), *_strides(v), *_strides(o),
+            *_strides(do), int(window),
             1.0 / math.sqrt(D),
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
@@ -308,21 +389,40 @@ def swa_plain_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return torch.autograd.grad(o, leaves, do)
 
 
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              window: int) -> torch.Tensor:
+    """The kernels on CUDA tensors: :class:`SlidingWindowAttention` where a
+    gradient will follow (grad mode on and an input that requires one),
+    else :func:`swa_cuda` alone, which stores no log-sum-exp (prefill and
+    decode)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return SlidingWindowAttention.apply(q, k, v, window)
+    return swa_cuda(q, k, v, window=window)
+
+
 class SlidingWindowAttention(torch.autograd.Function):
-    """``swa_cuda`` under autograd: the forward kernel, and
-    ``swa_cuda_backward`` for the gradients of q, k and v."""
+    """The forward kernel under autograd, and ``swa_cuda_backward`` for the
+    gradients of q, k and v.  In bfloat16 the forward also stores each
+    row's log-sum-exp (:func:`swa_cuda_lse`) and saves it for the
+    backward; float32 saves none."""
 
     @staticmethod
     def forward(ctx, q, k, v, window: int):
-        o = swa_cuda(q, k, v, window=window)
-        ctx.save_for_backward(q, k, v, o)
+        if q.dtype == torch.bfloat16:
+            o, lse = swa_cuda_lse(q, k, v, window=window)
+            ctx.save_for_backward(q, k, v, o, lse)
+        else:
+            o = swa_cuda(q, k, v, window=window)
+            ctx.save_for_backward(q, k, v, o)
         ctx.window = window
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
+        q, k, v, o, *lse = ctx.saved_tensors
         if do.stride(3) != 1:
             do = do.contiguous()
-        dq, dk, dv = swa_cuda_backward(q, k, v, o, do, window=ctx.window)
+        dq, dk, dv = swa_cuda_backward(q, k, v, o, do, window=ctx.window,
+                                       lse=lse[0] if lse else None)
         return dq, dk, dv, None

@@ -1,7 +1,8 @@
 // Backward of causal sliding-window attention for Hopper (sm_90a), on the
 // CUDA cores in float32.  Built by repro_torch.kernels.swa, which defines
-// SWA_T (the storage type: float or __nv_bfloat16) and SWA_D (the head dim)
-// ahead of this file; one library per (SWA_T, SWA_D).
+// SWA_T (float) and SWA_D (the head dim) ahead of this file; one library
+// per head dim.  The bfloat16 backward is swa_bwd_mma.cu, on the tensor
+// cores.
 //
 // The TPU kernel swa_pallas (src/repro/kernels/swa.py:92) has no backward:
 // the JAX model trains through its jnp swa_attention.  This is the gradient
@@ -43,10 +44,9 @@
 //   atomics, and the result does not depend on the order blocks run in.
 //
 // Masked pairs get P = 0 exactly, as the forward's exp(-inf); every row
-// sees its own position, so l_i > 0.  Tensor cores (mma.sync, wgmma) are
-// later work.
+// sees its own position, so l_i > 0.  TF32 products on the tensor cores
+// would not meet float32's 1e-4, as for swa.cu.
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
 
 #define BQ 64
@@ -60,13 +60,7 @@
 #define DKDV_SMEM_FLOATS (4 * BQ * QS + BK * PS + 3 * BQ)
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 __device__ __forceinline__ void st(float* p, float v) { *p = v; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 // rows [r0, r0 + 64) of a (S, D) slice with row stride ss into shared
 // memory as float32, zeros past S

@@ -7,7 +7,10 @@
 // q: (B, S, H, D), k and v: (B, S, KV, D), read through their strides (the
 // head dim contiguous); query head h reads KV head h / (H / KV).  Query i
 // attends to keys (i - window, i].  o: (B, S, H, D) contiguous, bf16; the
-// softmax statistics and the sums are float32.
+// softmax statistics and the sums are float32.  When lse is not null, each
+// row's log-sum-exp of its scaled scores, m scale + log l, goes to lse
+// (B, H, S) float32 for the backward (swa_bwd_mma.cu); prefill and decode
+// pass null and store nothing.
 //
 // Bound on the H100: operations.  4 D operations a (query, key) pair of the
 // band: at H2O-Danube's prefill (B 2, S 8192, H 32, D 80, w 4096) 5.2e11,
@@ -226,10 +229,11 @@ __device__ __forceinline__ void chunk(const SWA_T* ks, const SWA_T* vs,
 
 __global__ void __launch_bounds__(NT) swa_kernel_mma(
     const SWA_T* __restrict__ q, const SWA_T* __restrict__ k,
-    const SWA_T* __restrict__ v, SWA_T* __restrict__ o, int S, int H, int G,
-    long long qsb, long long qss, long long qsh, long long ksb,
-    long long kss, long long ksh, long long vsb, long long vss,
-    long long vsh, int window, float scale, int vec) {
+    const SWA_T* __restrict__ v, SWA_T* __restrict__ o,
+    float* __restrict__ lse, int S, int H, int G, long long qsb,
+    long long qss, long long qsh, long long ksb, long long kss,
+    long long ksh, long long vsb, long long vss, long long vsh, int window,
+    float scale, int vec) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   SWA_T* qs = (SWA_T*)smem_raw;         // BQ x DS
   SWA_T* kring = qs + BQ * DS;          // 2 x BK x DS
@@ -305,6 +309,14 @@ __global__ void __launch_bounds__(NT) swa_kernel_mma(
   }
   const float inv0 = 1.0f / l[0], inv1 = 1.0f / l[1];
   const int g = lane >> 2, t = lane & 3;
+  if (lse != nullptr && t == 0) {  // the row's log-sum-exp, for a backward
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = q0 + 16 * warp + g + 8 * r;
+      if (qi < S)
+        lse[((long long)b * H + h) * S + qi] = m[r] * scale + logf(l[r]);
+    }
+  }
   __syncwarp();
 #pragma unroll
   for (int n = 0; n < ND; ++n) {
@@ -340,7 +352,8 @@ static int swa_vec(const void* q, const void* k, const void* v,
 }
 
 extern "C" int swa_launch(const void* q, const void* k, const void* v,
-                          void* o, int B, int S, int H, int KV, long long qsb,
+                          void* o, void* lse, int B, int S, int H, int KV,
+                          long long qsb,
                           long long qss, long long qsh, long long ksb,
                           long long kss, long long ksh, long long vsb,
                           long long vss, long long vsh, int window,
@@ -364,8 +377,9 @@ extern "C" int swa_launch(const void* q, const void* k, const void* v,
   }
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   swa_kernel_mma<<<grid, NT, SMEM_BYTES, (cudaStream_t)stream>>>(
-      (const SWA_T*)q, (const SWA_T*)k, (const SWA_T*)v, (SWA_T*)o, S, H,
-      H / KV, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, window, scale,
+      (const SWA_T*)q, (const SWA_T*)k, (const SWA_T*)v, (SWA_T*)o,
+      (float*)lse, S, H, H / KV, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh,
+      window, scale,
       swa_vec(q, k, v, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh));
   return (int)cudaGetLastError();
 }

@@ -653,17 +653,27 @@ SWA_BWD_SHAPES = [
 def test_swa_backward_kernel_matches_plain_version_on_the_card(B, S, H, KV,
                                                                D, w, dtype,
                                                                tol):
-    """``swa_bwd.cu`` against ``swa_plain_backward`` on the same inputs, each
-    gradient relative to the dv of the plain version's scale where the
-    window is 1 (dq and dk are then 0 up to rounding), else its own."""
+    """The dtype's backward source (bf16 ``swa_bwd_mma.cu`` fed the
+    forward's lse, float32 ``swa_bwd.cu``) against ``swa_plain_backward`` on
+    the same inputs, each gradient relative to the dv of the plain
+    version's scale where the window is 1 (dq and dk are then 0 up to
+    rounding), else its own; the bf16 forward's lse against
+    ``swa_plain_lse`` at 1e-4 relative."""
     from repro_torch.kernels import swa
 
     _needs_card()
     q, k, v = _swa_inputs(B, S, H, KV, D, dtype, seed=S + D + w)
     do = _swa_inputs(B, S, H, H, D, dtype, seed=w)[0]
-    o = swa.swa_cuda(q, k, v, window=w)
+    lse = None
+    if dtype == "bfloat16":
+        o, lse = swa.swa_cuda_lse(q, k, v, window=w)
+        want_lse = swa.swa_plain_lse(q, k, window=w)
+        assert float((lse - want_lse).abs().max()) <= \
+            1e-4 * float(want_lse.abs().max())
+    else:
+        o = swa.swa_cuda(q, k, v, window=w)
     before = swa.backward_launches
-    got = swa.swa_cuda_backward(q, k, v, o, do, window=w)
+    got = swa.swa_cuda_backward(q, k, v, o, do, window=w, lse=lse)
     torch.cuda.synchronize()
     assert swa.backward_launches == before + 1
     want = swa.swa_plain_backward(q, k, v, do, window=w,

@@ -375,9 +375,10 @@ def test_sharded_kernels_run_at_every_shard_origin():
     seen = []
     real = stencil3d.GroupCall.__call__
 
-    def spy(self, padded, svec=None, pc=None, origin=None, input_pad=None):
+    def spy(self, padded, svec=None, pc=None, origin=None, input_pad=None,
+            device=None):
         seen.append((self.group, tuple(origin)))
-        return real(self, padded, svec, pc, origin, input_pad)
+        return real(self, padded, svec, pc, origin, input_pad, device)
 
     stencil3d.GroupCall.__call__ = spy
     try:

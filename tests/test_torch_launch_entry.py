@@ -3,8 +3,8 @@ attribute is a device's, so each entry sets it once on every device it
 launches on, not once a process.
 
 Every entry — the generated one (``stencil3d.launch_entry``, shared by the
-block and the sweep kernels), ``swa.cu``, ``swa_mma.cu`` and
-``swa_bwd.cu`` — is compiled by the host C++ compiler with its kernel
+block and the sweep kernels), ``swa.cu``, ``swa_mma.cu``, ``swa_bwd.cu``
+and ``swa_bwd_mma.cu`` — is compiled by the host C++ compiler with its kernel
 launches (``<<<...>>>``) turned into a counted call and the CUDA runtime
 calls it makes replaced by host versions: a current device that the test
 sets, and ``cudaFuncSetAttribute`` recorded by (device, kernel,
@@ -103,6 +103,11 @@ def _swa_source(dtype):
     return src, swa._ARGTYPES, shim
 
 
+def _swa_bwd_mma_source():
+    head, _, tail = _split_helpers(swa.backward_source(torch.bfloat16, 80))
+    return head + tail, swa._BWD_ARGTYPES[torch.bfloat16]
+
+
 # (name, entry, source and argument types, (kernel, attribute) pairs set)
 ENTRIES = {
     "block": ("g0_launch", _block_source, 2),
@@ -111,7 +116,8 @@ ENTRIES = {
     "swa_mma": ("swa_launch", lambda: _swa_source(torch.bfloat16)[:2], 2),
     "swa_bwd": ("swa_bwd_launch",
                 lambda: (swa.backward_source(torch.float32, 80),
-                         swa._BWD_ARGTYPES), 2),
+                         swa._BWD_ARGTYPES[torch.float32]), 2),
+    "swa_bwd_mma": ("swa_bwd_launch", lambda: _swa_bwd_mma_source(), 2),
 }
 
 
@@ -128,7 +134,7 @@ def test_shared_memory_attribute_is_set_once_per_device(which):
     entry, make, n_attrs = ENTRIES[which]
     src, argtypes = make()
     shim = SHIM + RUNTIME_SHIM
-    if which == "swa_mma":
+    if which in ("swa_mma", "swa_bwd_mma"):
         shim += MMA_SHIM
     lib = _host_library(_host_entry(src), shim, f"entry_{which}")
     fn = getattr(lib, entry)
@@ -137,7 +143,7 @@ def test_shared_memory_attribute_is_set_once_per_device(which):
     for dev in (0, 0, 1, 1, 0):
         lib.emu_set_device(dev)
         assert fn(*(_arg(t) for t in argtypes)) == 0
-    kernels = 2 if which == "swa_bwd" else 1
+    kernels = 2 if which.startswith("swa_bwd") else 1
     assert lib.emu_launch_count() == 5 * kernels
     for dev in (0, 1):
         assert lib.emu_attr_calls(dev) == lib.emu_attr_distinct(dev) \

@@ -290,10 +290,10 @@ template <int N> inline void cp_async_wait() {}
 
 # the emulated entries: every CTA's threads as host threads, one CTA at a
 # time, launched with the arguments ``swa_launch`` takes (less the stream)
-_EMU_ARGS = """const void* q, const void* k, const void* v, void* o, int B,
-    int S, int H, int KV, long long qsb, long long qss, long long qsh,
-    long long ksb, long long kss, long long ksh, long long vsb,
-    long long vss, long long vsh, int window, float scale"""
+_EMU_ARGS = """const void* q, const void* k, const void* v, void* o,
+    void* lse, int B, int S, int H, int KV, long long qsb, long long qss,
+    long long qsh, long long ksb, long long kss, long long ksh,
+    long long vsb, long long vss, long long vsh, int window, float scale"""
 F32_LAUNCH = r"""
 extern "C" int emu_launch(ARGS) {
   const int smem = SMEM_FLOATS * sizeof(float);
@@ -308,8 +308,8 @@ extern "C" int emu_launch(ARGS) {
             threadIdx = dim3(x); blockIdx = dim3(t, h, b);
             blockDim = dim3(NT); emu_bar = &bar; emu_smem = sm.data();
             swa_kernel((const SWA_T*)q, (const SWA_T*)k, (const SWA_T*)v,
-                       (SWA_T*)o, S, H, H / KV, qsb, qss, qsh, ksb, kss, ksh,
-                       vsb, vss, vsh, window, scale);
+                       (SWA_T*)o, (float*)lse, S, H, H / KV, qsb, qss, qsh,
+                       ksb, kss, ksh, vsb, vss, vsh, window, scale);
           });
         for (auto& th : ts) th.join();
       }
@@ -337,9 +337,9 @@ extern "C" int emu_launch(ARGS) {
             blockDim = dim3(NT); gridDim = dim3(tiles, H, B);
             emu_bar = &bar; emu_smem = sm.data(); emu_warp = &warps[x / 32];
             swa_kernel_mma((const SWA_T*)q, (const SWA_T*)k,
-                           (const SWA_T*)v, (SWA_T*)o, S, H, H / KV, qsb, qss,
-                           qsh, ksb, kss, ksh, vsb, vss, vsh, window, scale,
-                           vec);
+                           (const SWA_T*)v, (SWA_T*)o, (float*)lse, S, H,
+                           H / KV, qsb, qss, qsh, ksb, kss, ksh, vsb, vss,
+                           vsh, window, scale, vec);
           });
         for (auto& th : ts) th.join();
       }
@@ -401,16 +401,20 @@ def _emulated(dtype: torch.dtype, d: int):
     return fn
 
 
-def run_emulated(q, k, v, window):
+def run_emulated(q, k, v, window, with_lse=False):
     """The kernel launched as ``swa.swa_cuda`` launches it (same argument
-    marshalling), on CPU tensors, through the emulated entry."""
+    marshalling), on CPU tensors, through the emulated entry; with
+    ``with_lse``, as ``swa.swa_cuda_lse`` launches it, returning (o,
+    lse)."""
     B, S, H, D = q.shape
     o = torch.full((B, S, H, D), float("nan"), dtype=q.dtype)
+    lse = torch.full((B, H, S), float("nan")) if with_lse else None
     _emulated(q.dtype, D)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          o.data_ptr(), B, S, H, k.shape[2], *q.stride()[:3],
-                          *k.stride()[:3], *v.stride()[:3], int(window),
+                          o.data_ptr(), lse.data_ptr() if with_lse else None,
+                          B, S, H, k.shape[2], *swa._strides(q),
+                          *swa._strides(k), *swa._strides(v), int(window),
                           1.0 / np.sqrt(D))
-    return o
+    return (o, lse) if with_lse else o
 
 
 FRAG_HARNESS = r"""
@@ -535,3 +539,50 @@ def test_kernel_source_matches_plain_version_on_the_host(B, S, H, KV, D, w,
     want = swa.swa_plain(tq, tk, tv, window=w, q_block=bq)
     assert torch.isfinite(got.float()).all()
     assert _rel(got.float(), want.float()) <= TOL[dtype]
+
+
+# (B, S, H, KV, D, window, dtype): the log-sum-exp each source stores for
+# the backward, at Danube's head dim with GQA and interior chunks, a
+# ragged last tile, window 1 and a window >= S
+LSE_CASES = [
+    (1, 320, 4, 1, 80, 128, "bfloat16"),
+    (1, 100, 2, 2, 40, 30, "bfloat16"),
+    (1, 128, 2, 2, 16, 1, "bfloat16"),
+    (2, 100, 2, 1, 32, 500, "bfloat16"),
+    (1, 192, 4, 1, 80, 96, "float32"),
+    (2, 100, 2, 1, 32, 500, "float32"),
+]
+
+
+@pytest.mark.parametrize("B,S,H,KV,D,w,dtype", LSE_CASES)
+def test_kernel_lse_matches_plain_lse_on_the_host(B, S, H, KV, D, w, dtype):
+    """With an lse pointer, each source stores every row's log-sum-exp of
+    its scaled scores (1e-4 relative: float32 sums in another order over
+    the same bf16 inputs), and its output is the one it gives without."""
+    (_, _, _), (tq, tk, tv) = _qkv(B, S, H, KV, D, seed=D + w + 1,
+                                   dtype=dtype)
+    o, lse = run_emulated(tq, tk, tv, w, with_lse=True)
+    want = swa.swa_plain_lse(tq, tk, window=w)
+    assert lse.shape == (B, H, S) and torch.isfinite(lse).all()
+    assert _rel(lse, want) <= 1e-4
+    assert torch.equal(o, run_emulated(tq, tk, tv, w))
+
+
+@pytest.mark.parametrize("B,S,H,KV,D,w", [(2, 256, 4, 2, 32, 64),
+                                          (1, 200, 4, 1, 16, 300),
+                                          (1, 130, 2, 2, 80, 1)])
+def test_plain_lse_matches_the_reference_oracle(B, S, H, KV, D, w):
+    """``swa_plain_lse`` against the log-sum-exp of the reference's dense
+    band (``jax.nn.logsumexp`` of its masked scores), float32."""
+    import jax
+
+    (q, k, _), (tq, tk, _) = _qkv(B, S, H, KV, D, seed=w)
+    G = H // KV
+    s = jnp.einsum("bihd,bjhd->bhij", jnp.asarray(q),
+                   jnp.repeat(jnp.asarray(k), G, 2)) / np.sqrt(D)
+    i = jnp.arange(S)
+    band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
+    want = jax.nn.logsumexp(jnp.where(band, s, -jnp.inf), axis=-1)
+    got = swa.swa_plain_lse(tq, tk, window=w, q_block=64)
+    assert got.dtype == torch.float32 and got.shape == (B, H, S)
+    assert _rel(got, want) <= 1e-5

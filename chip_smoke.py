@@ -76,6 +76,31 @@ LM serving (the hand-written CUDA sliding-window attention kernels:
    kernel is off the serving path; its row (0 launches on the path) keeps
    its time.
 
+LM serving of the MoE, hybrid and xLSTM families (the last phase, after
+training; the same bf16 kernel on new shapes), each at full width through
+``ServeEngine.generate`` on two prompts from ``--seed``, 16 greedy new
+tokens:
+
+7b. mixtral-8x7B cut to 8 of its 32 layers (d 4096, 8 experts top-2, 32
+   heads over 8 KV heads, head dim 128, window 4096; prompts of 8192: the
+   kernel on every layer, 8 a prefill), hymba-1.5B whole (32 layers, d
+   1600, 25 heads over 5 KV heads, head dim 64, window 1024, the Mamba
+   head beside attention; prompts of 8192: the kernel on its 30 local
+   layers) and xlstm-350M whole (24 layers, d 1024; prompts of 4096; its
+   three sLSTM layers step token by token, as the reference's do).  Each
+   logs its prefill and decode ms, peak memory, the profiler's device ms
+   by class (SWA, matrix products, scan and recurrence, MoE dispatch,
+   elementwise: ``record_function`` ranges around each module) and idle
+   share of one prefill (xlstm's of 512 tokens), and mixtral the assignments each layer drops at capacity factor
+   1.25.  Checks: the bf16 kernel on the inputs the first local layer
+   hands it against ``swa_plain`` (hymba D 64 at a GQA group of 5,
+   mixtral D 128), timed in turns with SDPA with the band mask; mixtral's
+   ``moe_apply`` on layer 0's input against a plain loop over the experts
+   with the same choices and drops; each recurrent cell on 512 tokens of
+   its layer's input against its CPU float32 result, and its decode form
+   against one call; and at depth 2 prefill against prefill plus 256
+   decode steps (mixtral at capacity factor 8).
+
 LM training (after the serving phase; the backward kernels under
 ``kernels.swa.SlidingWindowAttention``: ``swa_bwd_mma.cu`` on the tensor
 cores for bfloat16, fed the log-sum-exp the forward stores, and
@@ -86,7 +111,8 @@ cores for bfloat16, fed the log-sum-exp the forward stores, and
    gradient's max abs; the forward's lse against ``swa_plain_lse`` at 1e-4
    relative; no ptxas spill in either bf16 kernel at D 80), timed in turns
    with autograd through SDPA with the band mask, and each bf16 kernel's
-   device time (dq, then dk/dv) under ``torch.profiler``; H2O-Danube-1.8B
+   device time (dq, then dk/dv) under ``torch.profiler`` in a process of
+   its own (``--backward-parts``); H2O-Danube-1.8B
    at full width and depth trained by ``repro_torch.train.Trainer`` for
    three steps on one 8192-token sequence of ``SyntheticLM(seed=--seed)``,
    remat on, checkpoints off: each step's loss, grad norm, CUDA-event time,
@@ -146,7 +172,8 @@ the host's time to launch them does not count; a stream path's kernel,
 plain-version and bound times are per time step (a chained sweep's divided
 by its depth), and its plain version is timed in the one run that checks
 it.  One prefill and one decode step also run under ``torch.profiler`` for
-their device time, idle share and kernel launches.
+their device time, idle share and kernel launches, beside the SWA kernels
+launched and the SWA kernel records the profile holds.
 
 Usage, from the root of a checkout (the kernels build with nvcc into
 ``build/repro_torch_kernels/`` on first use):
@@ -201,6 +228,30 @@ LM_ARCH = "h2o_danube_1_8b"
 LM_BATCH, LM_PROMPT, LM_NEW = 2, 8192, 16
 LM_E2E_DEPTH, LM_E2E_SPLIT = 4, 7168     # prefill 7168, decode 1024
 SWA_HEAD_DIMS = (40, 64, 80, 128, 256)
+#: the bf16 SWA libraries the LMs serve (hymba, Danube, mixtral): a ptxas
+#: spill fails the run, but at D 128, the q fragments' limit, where it is
+#: recorded in the row
+SERVED_HEAD_DIMS = (64, 80, 128)
+# the families phase: (arch, depth (None: the config's), prompt tokens,
+# the prefill-vs-decode check's prompt, the profiled prefill's prompt),
+# served at full width (xlstm's prefill profiled at 512 tokens: its sLSTM
+# loop launches ~70 kernels a token, linear in the prompt, and a profile
+# of 4096 tokens holds ~1M events); then, at
+# depth 2, prefill against prefill + FAMILY_E2E_TAIL decode steps (mixtral
+# at capacity factor 8, so that the prefill drops nothing that decode
+# keeps; hymba at 2048 tokens: its global layers' blockwise attention
+# takes multiples of its 2048-key chunk, as the reference's does), and
+# each recurrent cell on FAMILY_MODULE_SEQ tokens in one call and in
+# FAMILY_STEPS more, one at a time
+FAMILY_RUNS = (("mixtral_8x7b", 8, 8192, 8192, 8192),
+               ("hymba_1_5b", None, 8192, 2048, 8192),
+               ("xlstm_350m", None, 4096, 4096, 512))
+FAMILY_E2E_DEPTH, FAMILY_E2E_TAIL, FAMILY_E2E_CF = 2, 256, 8.0
+FAMILY_MODULE_SEQ, FAMILY_STEPS = 512, 16
+#: profiler ranges of the families phase and the class of the kernels
+#: (other than the SWA kernel and matrix products) launched inside them
+FAMILY_RANGES = {"moe": "moe_dispatch", "mamba": "scan", "mlstm": "scan",
+                 "slstm": "scan"}
 # the training phase: full-width Danube on one 8192-token sequence (every
 # layer past its window), three steps under remat; the smoke config (head
 # dim 16) for the card-vs-CPU gradients and the resumed trainer
@@ -438,7 +489,12 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=str(ROOT / "build" /
                                          "chip_smoke.json"))
+    ap.add_argument("--backward-parts", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.backward_parts:
+        print(json.dumps(backward_parts_child(json.loads(
+            args.backward_parts))))
+        return 0
     t_smoke = time.perf_counter()
 
     import torch
@@ -455,7 +511,6 @@ def main() -> int:
     from repro_torch.analysis.stencil_roofline import model_plan
     from repro_torch.apps import (pw_advection, pw_advection_update,
                                   tracer_advection, tracer_advection_update)
-    from repro_torch.configs import get_config
     from repro_torch.core import ProgramBuilder, TileDemotionWarning
     from repro_torch.interop import inputs_from_numpy
     from repro_torch.kernels import build, stencil3d, stream3d, swa
@@ -536,8 +591,8 @@ def main() -> int:
                 f"{st['registers']} registers, spill stores "
                 f"{st['spill_stores']} B, spill loads {st['spill_loads']} B,"
                 f" {st['smem_bytes']} B of dynamic shared memory a CTA")
-            # the served library (the LM's head dim) keeps all in registers
-            if dt == torch.bfloat16 and d == get_config(LM_ARCH).d_head \
+            # the served libraries keep all in registers (D 128 recorded)
+            if dt == torch.bfloat16 and d in SERVED_HEAD_DIMS and d != 128 \
                     and (st["spill_stores"] or st["spill_loads"]):
                 raise SystemExit(f"ptxas spills in the bf16 SWA library at "
                                  f"D {d}")
@@ -677,6 +732,13 @@ def main() -> int:
     # -------------------------------------------------- LM training path
     train_rows, train = train_phase(args.seed, torch, swa)
     rows += train_rows
+    torch.cuda.empty_cache()
+
+    # ------------------ LM serving: the MoE, hybrid and xLSTM families
+    # (last: after xlstm's profile of ~1M events, the train phase's short
+    # profile of the backward came back empty in two calls out of three)
+    family_rows, families = families_phase(args.seed, torch, swa, swa_ptxas)
+    rows += family_rows
 
     smoke_s = time.perf_counter() - t_smoke
     log(f"chip_smoke: {smoke_s:.1f} s in all")
@@ -684,7 +746,7 @@ def main() -> int:
               "torch": torch.__version__, "cuda": torch.version.cuda,
               "seed": args.seed, "kernels": rows, "paths": path_rows,
               "tuner": tuner, "serve": serve, "mesh": mesh, "lm": lm,
-              "train": train, "seconds": smoke_s}
+              "families": families, "train": train, "seconds": smoke_s}
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=1))
@@ -1777,14 +1839,33 @@ def mesh_phase(seed, torch, card) -> tuple:
     return rows, record
 
 
-def device_profile(fn, torch) -> dict:
+def kernel_class(name: str) -> str:
+    """A kernel's class by its name: the SWA kernel, its backward, a
+    matrix product, or "other"."""
+    name = name.lower()
+    return ("swa" if "swa_kernel" in name else "swa_bwd"
+            if "swa_bwd" in name else "matmul"
+            if any(t in name for t in ("gemm", "nvjet", "cutlass", "sm90"))
+            else "other")
+
+
+def device_profile(fn, torch, ranges=None, swa_kernels=None) -> dict:
     """One run of ``fn`` under ``torch.profiler``: host ms (to the final
     synchronise), device ms (the kernels' time summed: one stream, so
     busy time), the idle share, kernel launches, and device ms by kernel
     class (the SWA kernel, its backward, matrix products, the rest) and
-    of the eight kernels that took longest."""
+    of the eight kernels that took longest.  ``ranges`` ({label: class}):
+    a kernel of the rest launched inside a ``record_function(label)``
+    range counts to that class, and each label's device ms and host ms
+    are kept apart.  ``swa_kernels``, a running count of the SWA kernels
+    launched (read before and after ``fn``): those of ``fn`` beside the
+    SWA kernel records the profile holds, which a profiler that lost
+    records shows (PERF.md, section 7)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    ranges = ranges or {}
+    before = swa_kernels() if swa_kernels else 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1792,27 +1873,55 @@ def device_profile(fn, torch) -> dict:
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3
     by = {"swa": 0.0, "swa_bwd": 0.0, "matmul": 0.0, "other": 0.0}
-    launches, kernels = 0, []
+    launches, kernels, swa_records = 0, [], 0
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # (a range's own device-side annotation is not a kernel)
+        if e.device_type != DeviceType.CUDA or e.key in ranges:
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
-        name = e.key.lower()
-        cls = ("swa" if "swa_kernel" in name else "swa_bwd"
-               if "swa_bwd" in name else "matmul"
-               if any(t in name for t in ("gemm", "nvjet", "cutlass", "sm90"))
-               else "other")
+        cls = kernel_class(e.key)
         by[cls] += us / 1e3
         launches += e.count
+        swa_records += e.count if cls in ("swa", "swa_bwd") else 0
         kernels.append({"name": e.key[:120], "ms": us / 1e3,
                         "launches": e.count, "class": cls})
     dev = sum(by.values())
-    return {"host_ms": host_ms, "device_ms": dev,
-            "idle_share": max(0.0, 1.0 - dev / host_ms),
-            "kernel_launches": launches, "device_ms_by": by,
-            "top_kernels": sorted(kernels, key=lambda k: -k["ms"])[:8]}
+    out = {"host_ms": host_ms, "device_ms": dev,
+           "idle_share": max(0.0, 1.0 - dev / host_ms),
+           "kernel_launches": launches, "device_ms_by": by,
+           "top_kernels": sorted(kernels, key=lambda k: -k["ms"])[:8]}
+    if swa_kernels:
+        out.update(swa_kernels=swa_kernels() - before,
+                   swa_records=swa_records)
+        if swa_records != out["swa_kernels"]:
+            log(f"the profiler holds {swa_records} SWA kernel records of "
+                f"{out['swa_kernels']} launched: its SWA device ms are "
+                "short by the rest")
+    if ranges:
+        dev_by = dict.fromkeys(ranges, 0.0)
+        host_by = dict.fromkeys(ranges, 0.0)
+        for ev in prof.events():
+            if ev.device_type != DeviceType.CPU:
+                continue
+            if ev.name in ranges:
+                host_by[ev.name] += ev.cpu_time_total / 1e3
+            if not ev.kernels:
+                continue
+            up = ev
+            while up is not None and up.name not in ranges:
+                up = up.cpu_parent
+            if up is None:
+                continue
+            for kern in ev.kernels:
+                if kernel_class(kern.name) == "other":
+                    dev_by[up.name] += kern.duration / 1e3
+        for label, ms in dev_by.items():
+            by[ranges[label]] = by.get(ranges[label], 0.0) + ms
+            by["other"] -= ms
+        out.update(device_ms_by_range=dev_by, host_ms_by_range=host_by)
+    return out
 
 
 def swa_flops(B, S, H, D, w):
@@ -1998,8 +2107,10 @@ def lm_phase(seed, torch, swa):
 
     decode_ms = time_ms(one_step, inner=4, reps=3, warmup=1)
     prof = {"prefill": device_profile(
-        lambda: prefill(cfg, eng.params, toks, S + new), torch),
-        "decode_step": device_profile(one_step, torch)}
+        lambda: prefill(cfg, eng.params, toks, S + new), torch,
+        swa_kernels=lambda: swa.launches),
+        "decode_step": device_profile(one_step, torch,
+                                      swa_kernels=lambda: swa.launches)}
     del cache
     log(f"prefill {B}x{S}: {prefill_ms:.2f} ms ({B * S / prefill_ms * 1e3:.0f}"
         f" tokens/s); decode {decode_ms:.3f} ms a step "
@@ -2088,6 +2199,380 @@ def lm_phase(seed, torch, swa):
     return rows, record
 
 
+def families_phase(seed, torch, swa, swa_ptxas):
+    """The MoE, hybrid and xLSTM families served through
+    ``ServeEngine.generate`` (``FAMILY_RUNS``), each at full width, with
+    the SWA kernel held against its plain version on the inputs its first
+    local layer hands it, the MoE against a plain per-expert loop and each
+    recurrent cell against its CPU float32 result, and prefill against
+    prefill plus decode.  Returns (the SWA kernel's rows, the record)."""
+    rows, record = [], {}
+    for arch, depth, prompt, e2e_prompt, prof_prompt in FAMILY_RUNS:
+        row, record[arch] = serve_family(arch, depth, prompt, e2e_prompt,
+                                         prof_prompt,
+                                         seed, torch, swa, swa_ptxas)
+        rows += [row] if row else []
+        torch.cuda.empty_cache()
+    return rows, record
+
+
+def serve_family(arch, depth, S, e2e_prompt, prof_prompt, seed, torch, swa,
+                 swa_ptxas):
+    """One family's serving path at full width (depth cut to ``depth``
+    where given): the main path with its counts, times, a prefill of
+    ``prof_prompt`` tokens and a decode step profiled, and the checks.
+    Returns (its SWA row or None, its record)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import (ServeEngine, decode_step, init_lm,
+                                    lm_serve, prefill, ssm, transformer)
+
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    full_depth = cfg.n_layers
+    if depth:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    B, new = LM_BATCH, LM_NEW
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_lm(cfg, gen)
+    eng = ServeEngine(cfg, params, batch=B, max_len=S + new)
+    del params
+    torch.cuda.empty_cache()
+    prompts = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                            device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in eng.params.parameters())
+    log(f"{cfg.name}: {cfg.n_layers} of {full_depth} layers, d "
+        f"{cfg.d_model}, {n_params / 1e9:.3f} B params served in "
+        f"{cfg.dtype}, built in {time.perf_counter() - t_phase:.1f} s (peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB)")
+    local = ([i for i in range(cfg.n_layers) if cfg.layer_kind(i) == "local"]
+             if cfg.window and S > cfg.window and not cfg.attn_softcap
+             else [])
+
+    # the main path: counts zeroed just before and read just after; the
+    # first call's inputs of the SWA kernel and of each cell captured;
+    # each module's work in a profiler range
+    counts = {"prefill": [], "decode": []}
+    captured, moe_calls = {}, []
+    plain = {"swa_cuda": swa.swa_cuda, "moe_apply": transformer.moe_apply,
+             "mamba_apply": ssm.mamba_apply, "mlstm_apply": ssm.mlstm_apply,
+             "slstm_apply": ssm.slstm_apply}
+
+    def capture_swa(q, k, v, *, window):
+        if "swa" not in captured:
+            captured["swa"] = (q.clone(), k.clone(), v.clone(), window)
+        return plain["swa_cuda"](q, k, v, window=window)
+
+    def ranged(name, label):
+        def run(p, x, *a, **kw):
+            if label not in captured:
+                captured[label] = (p, x.clone())
+            with torch.profiler.record_function(label):
+                if label != "moe":
+                    return plain[name](p, x, *a, **kw)
+                stats = {}
+                out = plain[name](p, x, *a, stats=stats, **kw)
+                moe_calls.append((x.shape[1], stats["dropped"]))
+                return out
+        return run
+
+    def counted(name, fn):
+        def run(*a, **kw):
+            before = swa.launches
+            out = fn(*a, **kw)
+            counts[name].append(swa.launches - before)
+            return out
+        return run
+
+    patched = [(swa, "swa_cuda", capture_swa),
+               (lm_serve, "prefill", counted("prefill", lm_serve.prefill)),
+               (lm_serve, "decode_step",
+                counted("decode", lm_serve.decode_step)),
+               (transformer, "moe_apply", ranged("moe_apply", "moe"))]
+    patched += [(ssm, f"{c}_apply", ranged(f"{c}_apply", c))
+                for c in ("mamba", "mlstm", "slstm")]
+    saved = [(m, n, getattr(m, n)) for m, n, _ in patched]
+    for m, n, f in patched:
+        setattr(m, n, f)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        swa.launches = 0
+        t0 = time.perf_counter()
+        ids = eng.generate(prompts.cpu().numpy(), new)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        launches = swa.launches
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        dropped = [int(d) for s, d in moe_calls if s > 1]
+        log(f"{arch} generate: ids {ids.shape}, {gen_s:.3f} s, peak "
+            f"{peak_gb:.2f} GB; SWA launches {launches} (prefill "
+            f"{counts['prefill']}, decode steps {sum(counts['decode'])} "
+            f"over {len(counts['decode'])})"
+            + (f"; MoE assignments dropped a layer at capacity factor "
+               f"{cfg.capacity_factor}: {dropped} of "
+               f"{B * S * cfg.top_k}" if cfg.n_experts else ""))
+        if ids.shape != (B, new) or not ((ids >= 0)
+                                         & (ids < cfg.vocab)).all():
+            raise SystemExit(f"{arch}: generate returned bad ids")
+        if counts["prefill"] != [len(local)] or any(counts["decode"]) \
+                or launches != len(local):
+            raise SystemExit(f"{arch}: the SWA kernel did not run once a "
+                             "local layer in the prefill and never in "
+                             "decode")
+        if cfg.n_experts and len(dropped) != cfg.n_layers:
+            raise SystemExit(f"{arch}: {len(dropped)} MoE prefill calls")
+
+        # end-to-end times and one profiled prefill and decode step
+        toks = prompts
+        prefill_ms = time_ms(lambda: prefill(cfg, eng.params, toks, S + 64),
+                             reps=3, warmup=1)
+        _, cache = prefill(cfg, eng.params, toks, S + 64)
+        step = {"pos": S}
+        tok = toks[:, -1]
+
+        def one_step():
+            decode_step(cfg, eng.params, cache, tok, step["pos"])
+            step["pos"] += 1
+
+        decode_ms = time_ms(one_step, inner=4, reps=3, warmup=1)
+        ptoks = toks[:, :prof_prompt]
+        prof = {"prefill": device_profile(
+            lambda: prefill(cfg, eng.params, ptoks, S + 64), torch,
+            FAMILY_RANGES, lambda: swa.launches),
+            "decode_step": device_profile(one_step, torch, FAMILY_RANGES,
+                                          lambda: swa.launches)}
+        del cache
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+    log(f"{arch} prefill {B}x{S}: {prefill_ms:.2f} ms "
+        f"({B * S / prefill_ms * 1e3:.0f} tokens/s); decode "
+        f"{decode_ms:.3f} ms a step ({B / decode_ms * 1e3:.1f} tokens/s)")
+    for k, pr in prof.items():
+        shape = f" ({B}x{prof_prompt})" if k == "prefill" else ""
+        log(f"{arch} profile {k}{shape}: host {pr['host_ms']:.2f} ms, "
+            f"device {pr['device_ms']:.2f} ms (idle {pr['idle_share']:.1%}), "
+            f"{pr['kernel_launches']} kernel launches; device ms: "
+            + ", ".join(f"{'elementwise' if c == 'other' else c} {v:.2f}"
+                        for c, v in pr["device_ms_by"].items())
+            + "; host ms in ranges: "
+            + ", ".join(f"{c} {v:.1f}" for c, v in
+                        pr["host_ms_by_range"].items() if v))
+
+    record = {"arch": arch, "depth": cfg.n_layers, "full_depth": full_depth,
+              "params": n_params,
+              "batch": B, "prompt": S, "new_tokens": new,
+              "profiled_prompt": prof_prompt,
+              "generate_s": gen_s, "prefill_ms": prefill_ms,
+              "decode_ms_per_step": decode_ms,
+              "prefill_tokens_per_s": B * S / prefill_ms * 1e3,
+              "decode_tokens_per_s": B / decode_ms * 1e3,
+              "peak_memory_gb": peak_gb, "local_layers": len(local),
+              "launches_prefill": counts["prefill"],
+              "launches_decode": sum(counts["decode"]), "profile": prof}
+    if cfg.n_experts:
+        record["moe_dropped_per_layer"] = dropped
+        record["moe_assignments_per_layer"] = B * S * cfg.top_k
+        record["moe_check"] = moe_check(cfg, *captured["moe"], torch)
+    for cell in ("mamba", "mlstm", "slstm"):
+        if cell in captured:
+            record[f"{cell}_check"] = cell_check(
+                cell, plain[f"{cell}_apply"], *captured[cell], torch)
+    row = None
+    if "swa" in captured:
+        row = family_swa_row(cfg, captured.pop("swa"), len(local), swa,
+                             swa_ptxas, torch)
+    del eng, captured, prompts
+    torch.cuda.empty_cache()
+    record["e2e"] = family_e2e(cfg, seed, e2e_prompt, torch, swa)
+    record["seconds"] = time.perf_counter() - t_phase
+    log(f"{arch}: {record['seconds']:.1f} s in all")
+    return row, record
+
+
+def moe_check(cfg, p, x, torch) -> dict:
+    """The card's ``moe_apply`` on layer 0's bf16 input against a plain
+    loop over the experts on the same input and the same top-k choices,
+    with the same assignments dropped (each expert keeps its first
+    ``cap`` in token-major order), at 2e-2 of the output's max abs."""
+    from repro_torch.models.layers import _ACTS, moe_apply
+
+    stats = {}
+    y, _ = moe_apply(p, x, cfg.top_k, cfg.act, cfg.capacity_factor,
+                     stats=stats)
+    B, S, D = x.shape
+    T, k = B * S, cfg.top_k
+    xf = x.reshape(T, D)
+    probs = torch.softmax(xf.float() @ p.router.float(), -1)
+    top_i = stats["top_i"]
+    top_p = probs.gather(1, top_i)
+    top_p = (top_p / top_p.sum(-1, keepdim=True).clamp(min=1e-9)).reshape(-1)
+    cap = max(int(cfg.capacity_factor * T * k / cfg.n_experts), 1)
+    want = torch.zeros((T, D), dtype=torch.float32, device=x.device)
+    eid = top_i.reshape(-1)
+    kept = 0
+    for e in range(cfg.n_experts):
+        idx = torch.nonzero(eid == e)[:cap, 0]          # token-major
+        kept += idx.numel()
+        t = idx // k
+        h = xf[t] @ p.w_in[e]
+        g = xf[t] @ p.w_gate[e] if hasattr(p, "w_gate") else None
+        h = _ACTS[cfg.act](h) if g is None else _ACTS[cfg.act](g) * h
+        want.index_add_(0, t, (h @ p.w_out[e]).float() * top_p[idx, None])
+    want = want.to(x.dtype).reshape(B, S, D)
+    err = rel_err(y, want)
+    dropped = int(stats["dropped"])
+    log(f"moe_apply {tuple(x.shape)} E {cfg.n_experts} top-{k} cap {cap}: "
+        f"vs the per-expert loop max rel err {err:.3e} (tol 2e-2); "
+        f"{dropped} of {T * k} assignments dropped")
+    if err > 2e-2 or dropped != T * k - kept \
+            or not bool(torch.isfinite(y).all()):
+        raise SystemExit("moe_apply disagrees with the per-expert loop")
+    return {"max_rel_err": err, "dropped": dropped, "capacity": cap}
+
+
+def cell_check(cell, apply, p, x, torch) -> dict:
+    """The card's (bf16) ``<cell>_apply`` on the first ``FAMILY_MODULE_SEQ``
+    tokens of its layer's input against its CPU float32 result (the same
+    bf16 weights and input, cast up): the output and each state at 2e-2
+    of its max abs; and its decode form on the card, FAMILY_STEPS tokens
+    one at a time from that state, against one call over all of them."""
+    import copy
+
+    n, m = FAMILY_MODULE_SEQ, FAMILY_STEPS
+    xs = x[:, :n]
+    y, state = apply(p, xs)
+    p32 = copy.deepcopy(p).to("cpu", torch.float32)
+    y32, state32 = apply(p32, xs.float().cpu())
+    errs = [rel_err(y.cpu(), y32)] + [rel_err(a.cpu(), b)
+                                      for a, b in zip(state, state32)]
+    whole, _ = apply(p, x[:, :n + m])
+    steps = []
+    for t in range(n, n + m):
+        out, state = apply(p, x[:, t:t + 1], state)
+        steps.append(out)
+    step_err = rel_err(torch.cat(steps, 1), whole[:, n:])
+    log(f"{cell}_apply {tuple(xs.shape)} bf16 on the card vs float32 on "
+        f"the CPU: max rel err output {errs[0]:.3e}, states "
+        + ", ".join(f"{e:.3e}" for e in errs[1:]) + f"; {m} decode steps "
+        f"vs one call {step_err:.3e} (tol 2e-2)")
+    if max(errs + [step_err]) > 2e-2 or not bool(torch.isfinite(y).all()):
+        raise SystemExit(f"{cell}_apply on the card disagrees with the CPU "
+                         "or with its decode form")
+    return {"seq": n, "max_rel_err": errs[0], "state_max_rel_err": errs[1:],
+            "decode_steps": m, "decode_vs_call_max_rel_err": step_err}
+
+
+def family_swa_row(cfg, captured, launches, swa, swa_ptxas, torch) -> dict:
+    """The bf16 SWA kernel on the inputs the first local layer hands it:
+    against ``swa_plain`` at 2e-2, timed in turns with SDPA with the band
+    mask, its bound, and ptxas's registers and spills at its head dim."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q, k, v, w = captured
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    got = swa.swa_cuda(q, k, v, window=w)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    want = swa.swa_plain(q, k, v, window=w)
+    e1.record()
+    e1.synchronize()
+    plain_ms = e0.elapsed_time(e1)
+    err = float((got.float() - want.float()).abs().max())
+    rel = rel_err(got, want)
+    del got, want
+    G = H // KV
+    i = torch.arange(S, device="cuda")
+    band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
+    qt = q.transpose(1, 2)
+    kt = k.repeat_interleave(G, 2).transpose(1, 2)
+    vt = v.repeat_interleave(G, 2).transpose(1, 2)
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        ms, library_ms = time_in_turns([
+            lambda: swa.swa_cuda(q, k, v, window=w),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   attn_mask=band)])
+    del qt, kt, vt, band
+    bound_ms, bound_by = swa_bound(B, S, H, KV, D, w, q.dtype)
+    flops = swa_flops(B, S, H, D, w)
+    ptx = next(st for st in swa_ptxas
+               if st["dtype"] == "bfloat16" and st["d"] == D)
+    log(f"swa {cfg.name} first local layer {tuple(q.shape)} KV {KV} (group "
+        f"{G}) w {w}: kernel vs plain max abs err {err:.3e}, max rel err "
+        f"{rel:.3e} (bf16, tol 2e-2); {ms:.4f} ms a call "
+        f"({flops / ms / 1e9:.1f} TFLOP/s on the band, {bound_ms / ms:.1%} "
+        f"of the bound {bound_ms:.4f} ms by {bound_by}), plain "
+        f"{plain_ms:.3f} ms, SDPA with the band mask {library_ms:.4f} ms "
+        f"(in turns); ptxas {ptx['registers']} registers, spill stores "
+        f"{ptx['spill_stores']} B, loads {ptx['spill_loads']} B; {launches} "
+        "launches a prefill")
+    if rel > 2e-2:
+        raise SystemExit(f"the SWA kernel disagrees with its plain version "
+                         f"at {cfg.name}'s shape")
+    return {
+        "name": f"swa.swa_cuda[{cfg.name} prefill B{B} S{S} H{H} KV{KV} "
+                f"D{D} w{w} bf16]",
+        "route": "cuda",
+        "source": str(swa.SOURCES[q.dtype].relative_to(ROOT)),
+        "replaces": swa.REPLACES, "launches": launches,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms, "max_rel_err": rel,
+        "tflops": flops / ms / 1e9, "bound_share": bound_ms / ms,
+        "on_serving_path": launches > 0,
+        "smem_bytes": swa.smem_bytes(q.dtype, D),
+        "registers": ptx["registers"], "spill_stores": ptx["spill_stores"],
+        "spill_loads": ptx["spill_loads"]}
+
+
+def family_e2e(cfg, seed, S, torch, swa) -> dict:
+    """At depth FAMILY_E2E_DEPTH, full width, bf16: the last-position
+    logits (the real vocabulary) of an S-token prefill against a prefill
+    of S - FAMILY_E2E_TAIL tokens and FAMILY_E2E_TAIL decode steps, at
+    2e-2; the MoE at capacity factor FAMILY_E2E_CF, so that the prefill
+    drops none of what decode keeps."""
+    import dataclasses
+
+    from repro_torch.models import cast_params, decode_step, init_lm, prefill
+
+    depth = FAMILY_E2E_DEPTH
+    cfg2 = dataclasses.replace(cfg, n_layers=depth, capacity_factor=(
+        FAMILY_E2E_CF if cfg.n_experts else cfg.capacity_factor))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    toks = torch.randint(0, cfg.vocab, (LM_BATCH, S), generator=gen,
+                         device="cuda")
+    p2 = cast_params(init_lm(cfg2, gen), torch.bfloat16)
+    full, _ = prefill(cfg2, p2, toks, S)
+    swa.launches = 0
+    split = S - FAMILY_E2E_TAIL
+    part, cache = prefill(cfg2, p2, toks[:, :split], S)
+    pre = swa.launches
+    for t in range(split, S):
+        part, cache = decode_step(cfg2, p2, cache, toks[:, t], t)
+    torch.cuda.synchronize()
+    dec = swa.launches - pre
+    err = rel_err(part[:, :cfg.vocab], full[:, :cfg.vocab])
+    local = sum(cfg2.layer_kind(i) == "local" for i in range(depth)) \
+        if cfg2.window and split > cfg2.window else 0
+    log(f"{cfg.name} depth {depth}: prefill {S} vs prefill {split} + "
+        f"{FAMILY_E2E_TAIL} decode steps, last-position logits max rel err "
+        f"{err:.3e} (tol 2e-2); SWA launches {pre} + {dec}")
+    if err > 2e-2 or pre != local or dec \
+            or not bool(torch.isfinite(full).all()):
+        raise SystemExit(f"{cfg.name}: prefill and decode disagree at "
+                         f"depth {depth}")
+    del p2, cache
+    return {"depth": depth, "split": split, "max_rel_err": err,
+            "capacity_factor": cfg2.capacity_factor,
+            "launches_prefill": pre, "launches_decode": dec}
+
+
 def swa_backward_bound(B, S, H, KV, D, w, dtype):
     """(bound ms, what bounds it) of the SWA gradient: q, k, v, o and dout
     read and dq, dk, dv written once over 3.35 TB/s, against the
@@ -2107,33 +2592,30 @@ def swa_backward_bound(B, S, H, KV, D, w, dtype):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def backward_parts(torch, swa, args, w, abs_err, shape) -> list:
+def backward_parts(torch, swa, args, w, abs_err, shape, seed) -> list:
     """The bf16 backward's two kernels apart: each one's device time under
-    ``torch.profiler`` over three calls, its plain version's time
-    (autograd through ``swa_plain`` for dq alone, then for dk and dv), and
-    its bound: dq's three band products (S, dP, dQ: 6·D a pair) and
-    dk/dv's four (S^T, dP^T, dV, dK: 8·D a pair) over 989 TFLOP/s, against
-    the bytes each moves once (dq: q, k, v, o, dout, lse in, dq and D out;
-    dk/dv: q, k, v, dout, lse and D in, dk and dv out) over 3.35 TB/s."""
-    from torch.profiler import ProfilerActivity, profile
-
+    ``torch.profiler`` over three calls, in a process of its own
+    (:func:`backward_parts_child`, on the same inputs from ``seed``), its
+    plain version's time (autograd through ``swa_plain`` for dq alone,
+    then for dk and dv), and its bound: dq's three band products (S, dP,
+    dQ: 6·D a pair) and dk/dv's four (S^T, dP^T, dV, dK: 8·D a pair) over
+    989 TFLOP/s, against the bytes each moves once (dq: q, k, v, o, dout,
+    lse in, dq and D out; dk/dv: q, k, v, dout, lse and D in, dk and dv
+    out) over 3.35 TB/s."""
     from repro_torch import hw
 
     q, k, v, o, do, lse = args
     B, S, H, KV, D = shape
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            swa.swa_cuda_backward(q, k, v, o, do, window=w, lse=lse)
-        torch.cuda.synchronize()
-    dev = {"dq": 0.0, "dkdv": 0.0}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if "swa_bwd_mma_dkdv" in e.key:
-            dev["dkdv"] += us / 1e3 / 3
-        elif "swa_bwd_mma_dq" in e.key:
-            dev["dq"] += us / 1e3 / 3
+    # a process that has used the card for a minute or more loses this
+    # library's kernel records from a short profile (PERF.md, section 7);
+    # a fresh one has kept them in every session tried
+    spec = {"seed": seed, "shape": list(shape), "window": w}
+    run = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--backward-parts", json.dumps(spec)],
+                         capture_output=True, text=True, timeout=600)
+    if run.returncode != 0:
+        raise SystemExit(f"the backward's profile failed: {run.stderr}")
+    dev = json.loads(run.stdout.strip().splitlines()[-1])
     if not all(dev.values()):
         raise SystemExit(f"the profiler saw no bf16 backward kernel: {dev}")
     plain = {}
@@ -2166,6 +2648,41 @@ def backward_parts(torch, swa, args, w, abs_err, shape) -> list:
             f"bound {rows[-1]['bound_ms']:.4f} ms by {rows[-1]['bound_by']}"
             f", plain {plain[part]:.3f} ms")
     return rows
+
+
+def backward_parts_child(spec: dict) -> dict:
+    """Device ms a call of each bf16 backward kernel, over three calls
+    under ``torch.profiler``, on the train phase's layer-0 inputs made
+    from ``spec["seed"]``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import swa
+
+    B, S, H, KV, D = spec["shape"]
+    w = spec["window"]
+    gen = torch.Generator(device="cuda").manual_seed(spec["seed"])
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(
+        torch.bfloat16) for shape in ((B, S, H, D), (B, S, KV, D),
+                                      (B, S, KV, D), (B, S, H, D)))
+    o, lse = swa.swa_cuda_lse(q, k, v, window=w)
+    swa.swa_cuda_backward(q, k, v, o, do, window=w, lse=lse)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            swa.swa_cuda_backward(q, k, v, o, do, window=w, lse=lse)
+        torch.cuda.synchronize()
+    dev = {"dq": 0.0, "dkdv": 0.0}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if "swa_bwd_mma_dkdv" in e.key:
+            dev["dkdv"] += us / 1e3 / 3
+        elif "swa_bwd_mma_dq" in e.key:
+            dev["dq"] += us / 1e3 / 3
+    return dev
 
 
 def train_step_bound_ms(cfg, tokens: int) -> float:
@@ -2294,7 +2811,7 @@ def train_phase(seed, torch, swa):
             timed["parts"] = backward_parts(
                 torch, swa, (q, k, v, o, do, lse), w,
                 {"dq": abs_errs[0], "dkdv": max(abs_errs[1:])},
-                (B, S, H, KV, D))
+                (B, S, H, KV, D), seed + 2)
         log(f"swa backward kernel {dt}: {ms:.4f} ms a call ({bound_ms / ms:.1%}"
             f" of the bound {bound_ms:.4f} ms by {bound_by}), plain "
             f"{plain_ms:.3f} ms, autograd through SDPA with the band mask "
@@ -2341,7 +2858,10 @@ def train_phase(seed, torch, swa):
 
     tr.step_fn = counted
     tr.run(TRAIN_STEPS - 1)
-    prof = device_profile(lambda: tr.run(1), torch)
+    # (each step zeroes the wrappers' counts; a backward launch runs two
+    # kernels)
+    prof = device_profile(lambda: tr.run(1), torch, swa_kernels=lambda: sum(
+        st["forward"] + 2 * st["backward"] for st in steps))
     hist = tr.history
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for st in steps:

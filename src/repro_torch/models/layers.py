@@ -1,5 +1,5 @@
 """Transformer building blocks of the decoder path: norms, RoPE, the
-attention family and the MLP, in PyTorch.
+attention family, the MLP and the MoE MLP, in PyTorch.
 
 The port of ``repro.models.layers``.  Parameters live in ``nn.Module``s
 whose attribute names are the reference's pytree keys (``Attention.wq``,
@@ -21,7 +21,8 @@ Attention paths, as in the reference:
   :func:`swa_attention`;
 * decode attention over a (possibly ring-buffer) KV cache.
 
-MoE (``init_moe``/``moe_apply``) is not ported yet (ROADMAP A11).
+The MoE MLP (:func:`moe_apply`) is the reference's GShard-style capacity
+dispatch, plain PyTorch as the reference's is plain jnp.
 """
 
 from __future__ import annotations
@@ -94,6 +95,26 @@ class Attention(nn.Module):
         if spec.qk_norm:
             self.q_norm = Norm(dh, **init)
             self.k_norm = Norm(dh, **init)
+
+
+class MoE(nn.Module):
+    """``router`` (d, E) float32, ``w_in`` (E, d, F), ``w_out`` (E, F, d),
+    and ``w_gate`` (E, d, F) when gated."""
+
+    def __init__(self, d_model: int, d_ff: int, n_experts: int,
+                 glu: bool = True, generator=None, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        init = dict(dtype=dtype, device=device)
+        self.router = _dense_init(generator, (d_model, n_experts), d_model,
+                                  torch.float32, device)
+        self.w_in = _dense_init(generator, (n_experts, d_model, d_ff),
+                                d_model, **init)
+        self.w_out = _dense_init(generator, (n_experts, d_ff, d_model), d_ff,
+                                 **init)
+        if glu:
+            self.w_gate = _dense_init(generator, (n_experts, d_model, d_ff),
+                                      d_model, **init)
 
 
 class MLP(nn.Module):
@@ -371,9 +392,79 @@ _ACTS = {
 
 def mlp_apply(p: MLP, x, act="silu"):
     h = torch.einsum("...d,df->...f", x, p.w_in)
-    if hasattr(p, "w_gate"):
-        g = torch.einsum("...d,df->...f", x, p.w_gate)
-        h = _ACTS[act](g) * h
-    else:
-        h = _ACTS[act](h)
-    return torch.einsum("...f,fd->...d", h, p.w_out)
+    g = (torch.einsum("...d,df->...f", x, p.w_gate) if hasattr(p, "w_gate")
+         else None)
+    return torch.einsum("...f,fd->...d", _gated(h, g, act), p.w_out)
+
+
+def _gated(h, g, act):
+    """The MLP's nonlinearity: ``act(g) * h`` when gated, else ``act(h)``."""
+    return _ACTS[act](h) if g is None else _ACTS[act](g) * h
+
+
+def moe_apply(p: MoE, x, top_k=2, act="silu", capacity_factor=1.25,
+              no_drop=False, stats=None):
+    """Capacity-factor scatter dispatch (GShard-style).
+
+    x: (B, S, D) -> ((B, S, D), aux).  The router runs in float32; each
+    token's top-k experts are renormalised; assignment ``j`` of token
+    ``t`` is ranked in its expert token-major (``t0k0, t0k1, t1k0, ...``)
+    and dropped (contributes zero) past ``cap = max(int(capacity_factor *
+    T * k / E), 1)``.  ``no_drop=True`` (decode) sizes ``cap`` at ``T``,
+    or, when ``T * k <= E``, gathers only the chosen experts' weights.
+    ``aux`` is the Switch load-balance loss.  ``stats``, a dict when
+    given, receives ``top_i`` (T, k) and ``dropped`` (assignments dropped,
+    a 0-d tensor) without a host sync.
+    """
+    B, S, D = x.shape
+    E = p.router.shape[-1]
+    T = B * S
+    xf = x.reshape(T, D)
+    probs = torch.softmax(xf.float() @ p.router.float(), -1)
+    top_p, top_i = torch.topk(probs, top_k, dim=-1)             # (T,k)
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    gated = hasattr(p, "w_gate")
+    aux = _load_balance_loss(probs, top_i, E)
+    if stats is not None:
+        stats["top_i"] = top_i
+
+    if no_drop and T * top_k <= E:
+        # decode fast path (tiny T): only the chosen experts' weights
+        h = torch.einsum("td,tkdf->tkf", xf, p.w_in[top_i])    # (T,k,F)
+        g = (torch.einsum("td,tkdf->tkf", xf, p.w_gate[top_i]) if gated
+             else None)
+        out = torch.einsum("tkf,tkfd->tkd", _gated(h, g, act),
+                           p.w_out[top_i])
+        y = (out * top_p[..., None].to(x.dtype)).sum(1)
+        if stats is not None:
+            stats["dropped"] = torch.zeros((), dtype=torch.long,
+                                           device=x.device)
+        return y.reshape(B, S, D), aux
+
+    eid = top_i.reshape(-1)                                     # (T*k,)
+    tid = torch.arange(T, device=x.device).repeat_interleave(top_k)
+    cap = T if no_drop else max(int(capacity_factor * T * top_k / E), 1)
+    onehot = F.one_hot(eid, E)                                  # (T*k, E)
+    rank = (torch.cumsum(onehot, 0) - 1).gather(1, eid[:, None])[:, 0]
+    keep = rank < cap
+    rank = torch.where(keep, rank, 0)
+    if stats is not None:
+        stats["dropped"] = (~keep).sum()
+
+    buf = torch.zeros((E, cap, D), dtype=x.dtype, device=x.device)
+    buf = buf.index_put((eid, rank), torch.where(keep[:, None], xf[tid], 0),
+                        accumulate=True)
+    h = torch.einsum("ecd,edf->ecf", buf, p.w_in)
+    g = torch.einsum("ecd,edf->ecf", buf, p.w_gate) if gated else None
+    out_e = torch.einsum("ecf,efd->ecd", _gated(h, g, act), p.w_out)
+    gathered = torch.where(keep[:, None], out_e[eid, rank], 0)
+    # tid groups each token's k assignments together, in order
+    y = (gathered * top_p.reshape(-1, 1).to(x.dtype)).reshape(T, top_k, D)
+    return y.sum(1).reshape(B, S, D), aux
+
+
+def _load_balance_loss(probs, top_i, E):
+    """Switch-style auxiliary load-balancing loss (the first choice's
+    fraction of tokens times the mean router probability, per expert)."""
+    fraction = F.one_hot(top_i[:, 0], E).float().mean(0)
+    return E * (fraction * probs.mean(0)).sum()

@@ -37,7 +37,9 @@ class LMServeStats:
 class ServeEngine:
     """Fixed-batch generation on ``device`` (the card by default).  The
     weights are cast to ``cfg.dtype`` once, here, which is what the
-    reference's per-call ``cast_params`` computes."""
+    reference's per-call ``cast_params`` computes; with ``emb_scale`` the
+    lookup also keeps the master embedding, since the reference scales the
+    master rows before it casts them."""
 
     def __init__(self, cfg: ModelConfig, params: LM, batch: int,
                  max_len: int, temperature: float = 0.0, eos: int = -1,
@@ -48,6 +50,10 @@ class ServeEngine:
                              f"engine on {self.device}")
         self.cfg = cfg
         self.params = cast_params(params, _DT[cfg.dtype])
+        if cfg.emb_scale and self.params is not params:
+            # the lookup scales the master rows (shared, not copied); the
+            # unembed reads the table cast here
+            self.params.embed_master = params.embed.detach()
         self.batch, self.max_len = batch, max_len
         self.temperature, self.eos = temperature, eos
         self.stats = LMServeStats()

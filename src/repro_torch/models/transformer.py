@@ -1,9 +1,16 @@
 """The decoder LM in PyTorch: parameters, the training forward and loss,
 prefill and decode.
 
-The port of ``repro.models.transformer`` for ``family == "decoder"`` with
-dense MLPs: (GQA | MQA) x (global | SWA | alternating local:global), with
-the softcaps, qk-norm, sandwich norms and activations of the configs.
+The port of ``repro.models.transformer`` for its three families:
+
+* ``decoder``: (GQA | MQA) x (global | SWA | alternating local:global) x
+  (dense | MoE), with the softcaps, qk-norm, sandwich norms and
+  activations of the configs;
+* ``hybrid`` (hymba): attention and a Mamba head in parallel in every
+  block, their outputs summed;
+* ``xlstm``: mLSTM blocks with an sLSTM every ``slstm_every``-th layer,
+  no MLP.  As in the reference every xlstm layer carries both cells'
+  weights (the reference stacks a uniform tree); a layer runs its kind's.
 
 * training / scoring: :func:`lm_forward` and :func:`lm_loss`, a Python
   loop over the blocks in place of the reference's ``lax.scan``, each
@@ -14,7 +21,9 @@ the softcaps, qk-norm, sandwich norms and activations of the configs.
   reach the float32 masters, as the reference differentiates through its
   ``astype``.
 * prefill / decode: local (SWA) layers keep *ring-buffer* KV caches of
-  length ``window``; global layers keep full caches.
+  length ``window``; global layers keep full caches; hybrid layers add
+  the Mamba state ``(h, conv_tail)`` and xlstm layers hold only their
+  cell's state.  Decode runs the MoE without drops (``no_drop``).
 
 Parameters are an :class:`LM` module whose ``blocks`` are per-layer
 :class:`Block` modules: the reference's serving layout
@@ -22,8 +31,7 @@ Parameters are an :class:`LM` module whose ``blocks`` are per-layer
 ``cfg.param_dtype``; :func:`cast_params` gives the ``cfg.dtype`` compute
 copy for serving (detached).
 
-Not ported yet: the MoE MLP (ROADMAP A11), the hybrid attention+Mamba
-family (A12), xLSTM (A13) and the whisper encoder-decoder (A14).  The
+Not ported yet: the whisper encoder-decoder (ROADMAP A14).  The
 reference's activation-sharding hook ``shard_activation`` is a no-op on one
 device and has no counterpart here (LM sharding rules, A16).
 """
@@ -40,15 +48,15 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.pipeline import resolve_device
-from .layers import (MLP, Attention, AttnSpec, Norm, attend,
-                     attention_apply, decode_attention, mlp_apply, norm_apply,
-                     project_qkv)
+from . import ssm
+from .layers import (MLP, Attention, AttnSpec, MoE, Norm, attend,
+                     attention_apply, decode_attention, mlp_apply, moe_apply,
+                     norm_apply, project_qkv)
 
 _DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-_NOT_PORTED = {"hybrid": "ROADMAP A12 (hybrid attention + Mamba)",
-               "xlstm": "ROADMAP A13 (xLSTM)",
-               "encdec": "ROADMAP A14 (whisper encoder-decoder)"}
+_NOT_PORTED = {"encdec": "ROADMAP A14 (whisper encoder-decoder)"}
+_FAMILIES = ("decoder", "hybrid", "xlstm")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -57,11 +65,8 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not "
                                   f"ported yet, {_NOT_PORTED[cfg.family]}")
-    if cfg.family != "decoder":
+    if cfg.family not in _FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}")
-    if cfg.n_experts:
-        raise NotImplementedError(f"{cfg.name}: the MoE MLP is not ported "
-                                  "yet, ROADMAP A11")
     if cfg.pos not in ("rope", "none"):
         raise NotImplementedError(f"{cfg.name}: pos={cfg.pos!r} is not "
                                   "ported (only whisper uses it), ROADMAP "
@@ -85,22 +90,37 @@ def _is_ring(cfg: ModelConfig, kind: str) -> bool:
 # --------------------------------------------------------------------------
 
 class Block(nn.Module):
-    """One decoder layer: ``ln1``, ``attn``, ``ln2``, ``mlp`` (when
-    ``d_ff``), and ``ln1_post``/``ln2_post`` with ``post_norm``."""
+    """One layer: ``ln1``, ``attn``, ``ln2``, ``moe`` (with ``n_experts``)
+    or ``mlp`` (when ``d_ff``), ``ssm`` (hybrid), and ``ln1_post``/
+    ``ln2_post`` with ``post_norm``; an xlstm layer ``ln1``, ``mlstm`` and
+    ``slstm`` (with ``slstm_every``), whatever its kind."""
 
     def __init__(self, cfg: ModelConfig, generator=None, dtype=torch.float32,
                  device=None):
         super().__init__()
         init = dict(dtype=dtype, device=device)
         self.ln1 = Norm(cfg.d_model, cfg.norm, **init)
+        if cfg.family == "xlstm":
+            self.mlstm = ssm.MLSTM(cfg.d_model, cfg.n_heads, cfg.ssm_expand,
+                                   generator, **init)
+            if cfg.slstm_every:
+                self.slstm = ssm.SLSTM(cfg.d_model, cfg.n_heads, generator,
+                                       **init)
+            return
         self.attn = Attention(cfg.d_model, _attn_spec(cfg, "global"),
                               generator, **init)
         self.ln2 = Norm(cfg.d_model, cfg.norm, **init)
         if cfg.post_norm:
             self.ln1_post = Norm(cfg.d_model, cfg.norm, **init)
             self.ln2_post = Norm(cfg.d_model, cfg.norm, **init)
-        if cfg.d_ff:
+        if cfg.n_experts:
+            self.moe = MoE(cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.glu,
+                           generator, **init)
+        elif cfg.d_ff:
             self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.glu, generator, **init)
+        if cfg.family == "hybrid":
+            self.ssm = ssm.Mamba(cfg.d_model, cfg.ssm_state, cfg.ssm_expand,
+                                 cfg.ssm_conv, generator, **init)
 
 
 class LM(nn.Module):
@@ -169,8 +189,9 @@ def train_cast(p: nn.Module, dtype: torch.dtype):
 
 def embed_tokens(cfg: ModelConfig, params: LM, tokens: torch.Tensor):
     """tokens (B, S) -> (B, S, d) in ``cfg.dtype``.  The scaling runs in
-    float32, as the reference's does on float32 master weights."""
-    x = params.embed[tokens].float()
+    float32, as the reference's does on float32 master weights: on
+    ``params.embed_master`` where a server's cast copy keeps them."""
+    x = getattr(params, "embed_master", params.embed)[tokens].float()
     if cfg.emb_scale:
         x = x * math.sqrt(cfg.d_model)
     return x.to(_DT[cfg.dtype])
@@ -197,15 +218,20 @@ def block_apply(cfg: ModelConfig, bp: Block, x: torch.Tensor, kind: str,
                 positions: torch.Tensor):
     """One layer on the residual stream ``x`` (B, S, d) in ``cfg.dtype``,
     the block's masters cast through autograd; returns (x, aux), aux the
-    MoE load-balance term (0: no MoE here)."""
+    MoE load-balance term (0 without experts)."""
     check_supported(cfg)
     bp = train_cast(bp, _DT[cfg.dtype])
     h = norm_apply(bp.ln1, x, cfg.norm)
+    if cfg.family == "xlstm":
+        y, _ = _cell(bp, kind, h)
+        return x + y, _no_aux(x)
     attn = attention_apply(bp.attn, h, _attn_spec(cfg, kind), positions,
                            cfg.rope_theta, use_rope=(cfg.pos == "rope"),
                            norm_kind=cfg.norm)
-    return (_mlp_half(cfg, bp, x, attn),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+    if cfg.family == "hybrid":
+        attn = attn + ssm.mamba_apply(bp.ssm, h)[0]
+    x, aux = _mlp_half(cfg, bp, x, attn)
+    return x, _no_aux(x) if aux is None else aux
 
 
 def lm_forward(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
@@ -253,31 +279,68 @@ def lm_loss(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
 # --------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
-    """Per-layer ``{"k", "v"}`` caches in ``cfg.dtype``.  Local (SWA)
-    layers get ring buffers of length ``window``."""
+    """Per-layer caches: ``{"k", "v"}`` in ``cfg.dtype`` (local (SWA)
+    layers get ring buffers of length ``window``), with ``"ssm"`` = (h
+    float32, conv_tail ``cfg.dtype``) for hybrid layers; an xlstm layer's
+    ``{"state"}`` is its cell's, float32."""
     check_supported(cfg)
     dev = resolve_device(device)
     adt = _DT[cfg.dtype]
+    f32 = dict(dtype=torch.float32, device=dev)
+    di = cfg.ssm_expand * cfg.d_model
     cache = []
     for i in range(cfg.n_layers):
-        L = (min(cfg.window, max_len) if _is_ring(cfg, cfg.layer_kind(i))
-             else max_len)
+        kind = cfg.layer_kind(i)
+        if cfg.family == "xlstm":
+            if kind == "slstm":
+                z = torch.zeros((batch, cfg.d_model), **f32)
+                state = (z, z, z, z)
+            else:
+                state = ssm.mlstm_init_state_b(batch, cfg.n_heads,
+                                               di // cfg.n_heads, dev)
+            cache.append({"state": state})
+            continue
+        L = min(cfg.window, max_len) if _is_ring(cfg, kind) else max_len
         shape = (batch, L, cfg.n_kv_heads, cfg.d_head)
-        cache.append({"k": torch.zeros(shape, dtype=adt, device=dev),
-                      "v": torch.zeros(shape, dtype=adt, device=dev)})
+        entry = {"k": torch.zeros(shape, dtype=adt, device=dev),
+                 "v": torch.zeros(shape, dtype=adt, device=dev)}
+        if cfg.family == "hybrid":
+            entry["ssm"] = (torch.zeros((batch, di, cfg.ssm_state), **f32),
+                            torch.zeros((batch, cfg.ssm_conv - 1, di),
+                                        dtype=adt, device=dev))
+        cache.append(entry)
     return cache
 
 
-def _mlp_half(cfg: ModelConfig, bp: Block, x, attn):
-    """The residual stream after a layer's attention output ``attn``."""
+def _no_aux(x):
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _cell(bp, kind: str, h, state=None):
+    """An xlstm layer's cell of its kind on ``h``: (y, state)."""
+    if kind == "slstm":
+        return ssm.slstm_apply(bp.slstm, h, state)
+    return ssm.mlstm_apply(bp.mlstm, h, state)
+
+
+def _mlp_half(cfg: ModelConfig, bp: Block, x, attn, no_drop=False):
+    """(the residual stream after a layer's attention output ``attn``,
+    the MoE's aux or None without experts)."""
     if cfg.post_norm:
         attn = norm_apply(bp.ln1_post, attn, cfg.norm)
     x = x + attn
     h2 = norm_apply(bp.ln2, x, cfg.norm)
-    y = mlp_apply(bp.mlp, h2, cfg.act) if cfg.d_ff else torch.zeros_like(h2)
+    aux = None
+    if cfg.n_experts:
+        y, aux = moe_apply(bp.moe, h2, cfg.top_k, cfg.act,
+                           cfg.capacity_factor, no_drop=no_drop)
+    elif cfg.d_ff:
+        y = mlp_apply(bp.mlp, h2, cfg.act)
+    else:
+        y = torch.zeros_like(h2)
     if cfg.post_norm:
         y = norm_apply(bp.ln2_post, y, cfg.norm)
-    return x + y
+    return x + y, aux
 
 
 def prefill(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
@@ -293,8 +356,12 @@ def prefill(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
     for i, entry in enumerate(cache):
         bp = cast_params(params.blocks[i], _DT[cfg.dtype])
         kind = cfg.layer_kind(i)
-        spec = _attn_spec(cfg, kind)
         h = norm_apply(bp.ln1, x, cfg.norm)
+        if cfg.family == "xlstm":
+            y, entry["state"] = _cell(bp, kind, h)
+            x = x + y
+            continue
+        spec = _attn_spec(cfg, kind)
         q, k, v = project_qkv(bp.attn, h, spec, positions, cfg.rope_theta,
                               use_rope=(cfg.pos == "rope"),
                               norm_kind=cfg.norm)
@@ -311,7 +378,10 @@ def prefill(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
         else:
             kc[:, :S] = k.to(kc.dtype)
             vc[:, :S] = v.to(vc.dtype)
-        x = _mlp_half(cfg, bp, x, attn)
+        if cfg.family == "hybrid":
+            smo, entry["ssm"] = ssm.mamba_apply(bp.ssm, h)
+            attn = attn + smo
+        x, _ = _mlp_half(cfg, bp, x, attn)
     logits = unembed(cfg, params, x[:, -1:])
     return logits[:, 0], cache
 
@@ -325,11 +395,20 @@ def decode_step(cfg: ModelConfig, params: LM, cache, tokens: torch.Tensor,
     for i, entry in enumerate(cache):
         bp = cast_params(params.blocks[i], _DT[cfg.dtype])
         kind = cfg.layer_kind(i)
-        h = norm_apply(bp.ln1, x[:, None], cfg.norm)[:, 0]
+        h = norm_apply(bp.ln1, x[:, None], cfg.norm)
+        if cfg.family == "xlstm":
+            y, entry["state"] = _cell(bp, kind, h, entry["state"])
+            x = x + y[:, 0]
+            continue
         attn, entry["k"], entry["v"] = decode_attention(
-            bp.attn, h, entry["k"], entry["v"], pos, _attn_spec(cfg, kind),
-            cfg.rope_theta, use_rope=(cfg.pos == "rope"),
-            ring=_is_ring(cfg, kind), norm_kind=cfg.norm)
-        x = _mlp_half(cfg, bp, x, attn)
+            bp.attn, h[:, 0], entry["k"], entry["v"], pos,
+            _attn_spec(cfg, kind), cfg.rope_theta,
+            use_rope=(cfg.pos == "rope"), ring=_is_ring(cfg, kind),
+            norm_kind=cfg.norm)
+        if cfg.family == "hybrid":
+            smo, entry["ssm"] = ssm.mamba_apply(bp.ssm, h, entry["ssm"])
+            attn = attn + smo[:, 0]
+        x, _ = _mlp_half(cfg, bp, x[:, None], attn[:, None], no_drop=True)
+        x = x[:, 0]
     logits = unembed(cfg, params, x[:, None])
     return logits[:, 0], cache

@@ -614,6 +614,43 @@ def test_lm_prefill_runs_the_kernel_and_matches_the_cpu(dtype, tol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mixtral_8x7b", "hymba_1_5b",
+                                  "xlstm_350m"])
+def test_family_prefill_and_decode_match_the_cpu(arch):
+    """The MoE, hybrid and xLSTM smoke configs in float32: a 64-token
+    prefill (the kernel once a local layer past its window) and four
+    decode steps (no kernel), the logits at 1e-4 of the same model on the
+    CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import swa
+    from repro_torch.models import decode_step, init_lm, prefill
+
+    _needs_card()
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+    lm = init_lm(cfg, torch.Generator(device="cuda").manual_seed(0))
+    lm_cpu = init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    lm_cpu.load_state_dict({k: v.cpu() for k, v in lm.state_dict().items()})
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 64)))
+    local = sum(cfg.layer_kind(i) == "local" for i in range(cfg.n_layers)
+                if cfg.window)
+    before = swa.launches
+    got, cache = prefill(cfg, lm, tokens.cuda(), 80)
+    torch.cuda.synchronize()
+    assert swa.launches - before == local
+    want, cache_cpu = prefill(cfg, lm_cpu, tokens, 80)
+    for t in range(64, 68):
+        assert _rel_err(got.cpu(), want) <= 1e-4, t
+        tok = want.argmax(-1)
+        got, cache = decode_step(cfg, lm, cache, tok.cuda(), t)
+        want, cache_cpu = decode_step(cfg, lm_cpu, cache_cpu, tok, t)
+    assert _rel_err(got.cpu(), want) <= 1e-4
+    assert swa.launches - before == local
+
+
+@pytest.mark.cuda
 def test_lm_path_raises_when_the_kernel_cannot_build(monkeypatch, tmp_path):
     """No fallback: without nvcc the SWA layer raises on the card."""
     from repro_torch.configs import get_smoke

@@ -71,7 +71,8 @@ def test_port_imports_and_compiles_without_jax():
 
 
 def test_port_sources_import_neither_jax_nor_the_reference():
-    """(b) Static check over every port file and chip_smoke.py."""
+    """(b) Static check over every port file, chip_smoke.py and
+    tools/lm_turns.py."""
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     # the serving and mesh packages are scanned with the rest
     assert {"bucket.py", "engine.py", "stats.py", "__init__.py"} <= {
@@ -85,7 +86,7 @@ def test_port_sources_import_neither_jax_nor_the_reference():
                        ("checkpoint", {"store.py"})):
         assert names | {"__init__.py"} <= {
             f.name for f in files if f.parent.name == pkg}, pkg
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "tools" / "lm_turns.py"]
     pat = re.compile(r"^\s*(?:import|from)\s+(jax|repro)(?:\.|\s|$)", re.M)
     for f in files:
         hits = pat.findall(f.read_text())

@@ -521,6 +521,10 @@ EMU_CASES = [
     (1, 128, 2, 2, 16, 1, "bfloat16"),
     (2, 100, 2, 1, 32, 500, "bfloat16"),
     (1, 96, 2, 1, 20, 50, "bfloat16"),
+    # the served shapes' groups: hymba's 5 query heads a KV head (not a
+    # power of two) at D 64, mixtral's 4 at D 128
+    (1, 160, 10, 2, 64, 100, "bfloat16"),
+    (1, 160, 8, 2, 128, 96, "bfloat16"),
 ]
 
 

@@ -8,16 +8,20 @@
 * ``checkpoint``: round trip, atomic publish, structure checks, the async
   writer's snapshot and gc, a bfloat16 leaf;
 * ``lm_loss`` and every parameter gradient against ``jax.grad`` of the
-  reference's ``lm_loss`` on the ``h2o_danube_1_8b`` smoke config (S 64 >
-  window 16, so the SWA path runs), in float32: the loss and metrics at
-  1e-5, each gradient at 1e-4 of its leaf's max abs;
-* one ``make_train_step`` step (remat off and on, two microbatches,
-  compressed gradients) from the same params and moments, carried across
-  by ``interop``: params, moments and error buffers at 1e-5 of each leaf's
-  max abs;
+  reference's ``lm_loss`` on the smoke config of every decoder arch the
+  port runs (the ``h2o_danube_1_8b`` one has S 64 > window 16, so the SWA
+  path runs; mixtral and grok add the MoE aux loss; hymba the Mamba scan;
+  xlstm both cells, the unused one's gradient zero), in float32: the loss
+  and metrics (``ce``, ``aux``, ``z``, ``ppl``) at 1e-5, each gradient at
+  1e-4 of its leaf's max abs;
+* one ``make_train_step`` step (remat off and on, two microbatches and
+  compressed gradients on Danube; a plain and a compressed step on
+  mixtral, hymba and xlstm) from the same params and moments, carried
+  across by ``interop``: params, moments and error buffers at 1e-5 of
+  each leaf's max abs;
 * the ``Trainer`` on ``device="cpu"``: the reference's losses step for
-  step, recovery from a checkpoint, loss falls, the straggler count, and
-  train-then-serve.
+  step (Danube, mixtral, hymba, xlstm), recovery from a checkpoint, loss
+  falls, the straggler count, and train-then-serve.
 
 Reference inputs and weights are made from seeds (numpy, ``jax.random``)
 and handed to both packages.
@@ -68,8 +72,17 @@ from repro_torch.train import (OptConfig, TrainConfig, Trainer, adamw_init,
 from repro_torch.train.optimizer import leaf_rank
 
 ARCH = "h2o_danube_1_8b"
+LM_ARCHS = [a for a in ref_configs.ARCHS
+            if ref_configs.get_smoke(a).family != "encdec"]
 B, S = 4, 64
 GRAD_TOL, STEP_TOL = 1e-4, 1e-5
+
+
+def _cases(archs, values, ids):
+    """(arch, *value) cases: Danube's keep the ids they had before the
+    other archs joined (``ids``), the others ``<arch>-<id>``."""
+    return [pytest.param(a, *v, id=i if a == ARCH else f"{a}-{i}")
+            for a in archs for v, i in zip(values, ids)]
 
 
 def _rel(got, want) -> float:
@@ -382,16 +395,21 @@ def _reference_grads(arch=ARCH):
             jax.tree.map(np.asarray, grads))
 
 
-@pytest.mark.parametrize("remat", [False, True])
-def test_lm_loss_and_every_gradient_match_reference(remat):
-    """The Danube smoke LM in float32 (S 64 > window 16: the SWA layers run
-    ``swa_attention``, differentiated by autograd): loss and metrics at
-    1e-5, each parameter's gradient at 1e-4 of the reference leaf's max
-    abs, and the attention projections' gradients non-zero."""
-    rcfg, cfg = _cfgs()
-    assert S > cfg.window and cfg.layer_pattern == ("local",)
-    loss, metrics, grads = _reference_grads()
-    lm = lm_params_from_reference(cfg, _reference_params(),
+@pytest.mark.parametrize("arch,remat", _cases(
+    [ARCH] + [a for a in LM_ARCHS if a != ARCH], [(False,), (True,)],
+    ["False", "True"]))
+def test_lm_loss_and_every_gradient_match_reference(arch, remat):
+    """Each smoke LM in float32 (Danube's S 64 > window 16: the SWA layers
+    run ``swa_attention``, differentiated by autograd): loss and metrics
+    at 1e-5, each parameter's gradient at 1e-4 of the reference leaf's max
+    abs (an xlstm layer's unused cell: zero, as the reference's), and the
+    attention projections' gradients non-zero, output projection included
+    (xlstm: the mLSTM's q/k/v and ``w_down``)."""
+    rcfg, cfg = _cfgs(arch)
+    if arch == ARCH:
+        assert S > cfg.window and cfg.layer_pattern == ("local",)
+    loss, metrics, grads = _reference_grads(arch)
+    lm = lm_params_from_reference(cfg, _reference_params(arch),
                                   device="cpu").requires_grad_(True)
     toks, lbls = _batch(cfg.vocab, mask_prefix=5)
     named = dict(lm.named_parameters())
@@ -401,11 +419,19 @@ def test_lm_loss_and_every_gradient_match_reference(remat):
     assert set(got_m) == set(metrics)
     for k, v in metrics.items():
         assert abs(got_m[k].item() - v) <= 1e-5 * max(abs(v), 1e-30), k
-    g = torch.autograd.grad(got, list(named.values()))
-    mine = lm_tree_to_reference(cfg, dict(zip(named, g)))
+    g = torch.autograd.grad(got, list(named.values()), allow_unused=True)
+    mine = lm_tree_to_reference(cfg, {
+        k: torch.zeros_like(p) if d is None else d
+        for (k, p), d in zip(named.items(), g)})
     _assert_trees_close(mine, grads, GRAD_TOL, "grads")
-    for w in ("wq", "wk", "wv", "wo"):
-        assert float(np.abs(mine["blocks"]["attn"][w]).max()) > 1e-3, w
+    if cfg.family == "xlstm":
+        proj, names = mine["blocks"]["mlstm"], ("wq", "wk", "wv", "w_down")
+    else:
+        proj, names = mine["blocks"]["attn"], ("wq", "wk", "wv", "wo")
+    for w in names:
+        assert float(np.abs(proj[w]).max()) > 1e-3, w
+    if cfg.n_experts:
+        assert metrics["aux"] > 0
 
 
 def test_lm_loss_masks_and_counts_tokens():
@@ -434,12 +460,12 @@ STEP_OPT = dict(lr=1e-2, warmup_steps=2, total_steps=50)
 
 
 @functools.lru_cache(maxsize=None)
-def _reference_step(remat, microbatches, compress):
-    rcfg, _ = _cfgs()
+def _reference_step(remat, microbatches, compress, arch=ARCH):
+    rcfg, _ = _cfgs(arch)
     tcfg = RefTrainConfig(opt=RefOptConfig(compress_grads=compress,
                                            **STEP_OPT),
                           remat=remat, microbatches=microbatches)
-    params = _reference_params()
+    params = _reference_params(arch)
     opt = _moments(params, 1)
     rng = np.random.default_rng(2)
     ef = (jax.tree.map(lambda a: (rng.standard_normal(a.shape) * 1e-3
@@ -473,14 +499,19 @@ def _port_step(cfg, start, remat, microbatches, compress):
     return make_train_step(cfg, tcfg)(lm, state, ef, batch)
 
 
-@pytest.mark.parametrize("remat,microbatches", [(False, 1), (True, 1),
-                                                (False, 2)])
-def test_train_step_matches_reference(remat, microbatches):
+@pytest.mark.parametrize("arch,remat,microbatches", _cases(
+    [ARCH], [(False, 1), (True, 1), (False, 2)],
+    ["False-1", "True-1", "False-2"]) + _cases(
+        ["mixtral_8x7b", "hymba_1_5b", "xlstm_350m"], [(False, 1)],
+        ["False-1"]))
+def test_train_step_matches_reference(arch, remat, microbatches):
     """One step from the same params and non-zero moments on the same
     batch: params, moments and count at 1e-5 of each leaf's max abs; loss,
-    grad norm, lr and the loss metrics at 1e-5."""
-    _, cfg = _cfgs()
-    start, (p, o, _, m) = _reference_step(remat, microbatches, False)
+    grad norm, lr and the loss metrics at 1e-5 (mixtral: with the aux
+    loss; xlstm: AdamW decays each layer's unused cell, as the
+    reference's does)."""
+    _, cfg = _cfgs(arch)
+    start, (p, o, _, m) = _reference_step(remat, microbatches, False, arch)
     lm, state, _, metrics = _port_step(cfg, start, remat, microbatches,
                                        False)
     named = dict(lm.named_parameters())
@@ -494,8 +525,9 @@ def test_train_step_matches_reference(remat, microbatches):
     for k, v in m.items():
         assert abs(float(metrics[k]) - v) <= 1e-5 * abs(v), k
     # the step moved the params
-    assert _rel(p["blocks"]["attn"]["wq"],
-                start[0]["blocks"]["attn"]["wq"]) > 1e-3
+    proj = "mlstm" if cfg.family == "xlstm" else "attn"
+    assert _rel(p["blocks"][proj]["wq"],
+                start[0]["blocks"][proj]["wq"]) > 1e-3
 
 
 def test_compressed_step_matches_reference():
@@ -506,10 +538,23 @@ def test_compressed_step_matches_reference():
     the port's own float32 gradients (params, moments, error buffers at
     1e-5 of each leaf's max abs), and its loss to the reference's
     compressed step at 1e-5."""
+    _compressed_step(ARCH)
+
+
+@pytest.mark.parametrize("arch", ["mixtral_8x7b", "hymba_1_5b",
+                                  "xlstm_350m"])
+def test_compressed_step_matches_reference_per_family(arch):
+    """As ``test_compressed_step_matches_reference``, for the MoE, hybrid
+    and xLSTM families (an xlstm layer's unused cell: a zero gradient,
+    compressed and decayed as the reference's)."""
+    _compressed_step(arch)
+
+
+def _compressed_step(arch):
     from repro.train.compress import ef_compress_grads as ref_ef_compress
 
-    _, cfg = _cfgs()
-    start, (_, _, _, m) = _reference_step(False, 1, True)
+    _, cfg = _cfgs(arch)
+    start, (_, _, _, m) = _reference_step(False, 1, True, arch)
     params, opt, ef = start
     lm = lm_params_from_reference(cfg, params,
                                   device="cpu").requires_grad_(True)
@@ -517,8 +562,10 @@ def test_compressed_step_matches_reference():
     named = dict(lm.named_parameters())
     loss, _ = lm_loss(cfg, lm, torch.as_tensor(toks).long(),
                       torch.as_tensor(lbls).long())
-    grads = lm_tree_to_reference(cfg, dict(zip(
-        named, torch.autograd.grad(loss, list(named.values())))))
+    g = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
+    grads = lm_tree_to_reference(cfg, {
+        k: torch.zeros_like(p) if d is None else d
+        for (k, p), d in zip(named.items(), g)})
     tree = lambda t: jax.tree.map(jnp.asarray, t)  # noqa: E731
     deq, want_ef = ref_ef_compress(tree(grads), tree(ef))
     want_p, want_o, wm = ref_adamw_update(
@@ -571,7 +618,26 @@ def test_trainer_matches_reference_step_for_step(tmp_path):
     held to the reference from non-zero moments in
     ``test_train_step_matches_reference``, and here through the losses of
     the steps that follow.)"""
-    rcfg, cfg = _cfgs()
+    _trainer_step_for_step(tmp_path, ARCH, 3)
+
+
+@pytest.mark.parametrize("arch,steps", [("mixtral_8x7b", 3),
+                                        ("hymba_1_5b", 3),
+                                        ("xlstm_350m", 1)])
+def test_trainer_matches_reference_step_for_step_per_family(tmp_path, arch,
+                                                            steps):
+    """As ``test_trainer_matches_reference_step_for_step``, for the MoE
+    model (the aux loss in every step's loss), hymba (the Mamba scan's
+    gradients) and xlstm (both cells).
+    xlstm is held over its first step: that sign-like step moves four of
+    its weights whose gradients are near 0 by up to 4.6e-5 apart, and the
+    next step's grad norm by 2.1e-4 of itself (the step from non-zero
+    moments is held in ``test_train_step_matches_reference``)."""
+    _trainer_step_for_step(tmp_path, arch, steps)
+
+
+def _trainer_step_for_step(tmp_path, arch, steps):
+    rcfg, cfg = _cfgs(arch)
     spec = dict(global_batch=4, seq_len=32, vocab=cfg.vocab)
     opt = dict(lr=1e-3, warmup_steps=2, total_steps=40)
     ref = RefTrainer(rcfg, RefTrainConfig(
@@ -586,12 +652,12 @@ def test_trainer_matches_reference_step_for_step(tmp_path):
         for k, t in lm_params_from_reference(cfg, start, device="cpu"
                                              ).state_dict().items():
             tr.state["params"].get_parameter(k).copy_(t)
-    want = ref.run(3)
-    got = tr.run(3)
-    assert [h["step"] for h in got] == [0, 1, 2]
+    want = ref.run(steps)
+    got = tr.run(steps)
+    assert [h["step"] for h in got] == list(range(steps))
     for g, w in zip(got, want):
         assert set(g) == set(w)
-        for k in ("loss", "grad_norm", "ce", "z", "ppl"):
+        for k in ("loss", "grad_norm", "ce", "aux", "z", "ppl"):
             assert abs(g[k] - w[k]) <= 1e-5 * abs(w[k]), (g["step"], k)
         assert g["lr"] == pytest.approx(w["lr"], rel=1e-6)
 
@@ -674,8 +740,8 @@ def test_trainer_entry_points_need_a_card_or_the_cpu(tmp_path, monkeypatch):
         Trainer(cfg, _tcfg(tmp_path), data, rules=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="A16"):
         make_train_step(cfg, _tcfg(tmp_path), rules=object())
-    with pytest.raises(NotImplementedError, match="A12"):
-        Trainer(configs.get_smoke("hymba_1_5b"), _tcfg(tmp_path), data,
+    with pytest.raises(NotImplementedError, match="A14"):
+        Trainer(configs.get_smoke("whisper_small"), _tcfg(tmp_path), data,
                 device="cpu")
 
 

@@ -122,6 +122,21 @@ cores for bfloat16, fed the log-sum-exp the forward stores, and
    the CPU path in float32; and a smoke trainer that fails at step 5,
    resumes from its step-4 checkpoint and must match an uninterrupted run.
 
+Whisper serving (after training, before the families; no hand-written
+kernel on its path: its attention is the reference's plain attention):
+
+9. whisper-small at full width and depth (12 + 12 layers, d 768, 12
+   heads, vocab 51865 padded to 51968), float32 masters from ``--seed``
+   served as one bf16 copy: 8 utterances of 1500 precomputed frames (30 s
+   each, numpy from ``--seed``), a 4-token prompt, then 64 greedy tokens
+   through ``whisper_prefill`` and ``whisper_decode_step`` in a decoder
+   context of 448.  Logs encode, prefill and decode ms, tokens/s, peak
+   memory, and one decode step under ``torch.profiler`` (device ms, idle
+   share).  Checks: no greedy id at or past the vocabulary (the padded
+   columns are masked); the decode's logits against ``whisper_forward``
+   on the same tokens (teacher-forced) at 2e-2; at depth 2 + 2, full
+   width, the card's bf16 logits against the CPU's float32 ones at 2e-2.
+
 Each block path's kernel row also keeps its CTA (chunk, tile, threads,
 shared memory, CTAs an SM, levels), what ptxas reported for it (registers,
 spill bytes), its generated operations and staged bytes a grid point, and
@@ -252,6 +267,12 @@ FAMILY_MODULE_SEQ, FAMILY_STEPS = 512, 16
 #: (other than the SWA kernel and matrix products) launched inside them
 FAMILY_RANGES = {"moe": "moe_dispatch", "mamba": "scan", "mlstm": "scan",
                  "slstm": "scan"}
+# the Whisper phase: whisper-small at full width and depth, a batch of 30 s
+# utterances (1500 frames each), a short prompt and greedy tokens in the
+# published decoder context of 448; the card-vs-CPU check at depth 2 + 2
+# on WHISPER_CHECK_BATCH of the utterances
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_NEW, WHISPER_MAX_LEN = 8, 4, 64, 448
+WHISPER_CHECK_DEPTH, WHISPER_CHECK_BATCH = 2, 2
 # the training phase: full-width Danube on one 8192-token sequence (every
 # layer past its window), three steps under remat; the smoke config (head
 # dim 16) for the card-vs-CPU gradients and the resumed trainer
@@ -734,6 +755,10 @@ def main() -> int:
     rows += train_rows
     torch.cuda.empty_cache()
 
+    # -------------------------------- Whisper serving (no kernel on it)
+    whisper = whisper_phase(args.seed, torch)
+    torch.cuda.empty_cache()
+
     # ------------------ LM serving: the MoE, hybrid and xLSTM families
     # (last: after xlstm's profile of ~1M events, the train phase's short
     # profile of the backward came back empty in two calls out of three)
@@ -746,7 +771,8 @@ def main() -> int:
               "torch": torch.__version__, "cuda": torch.version.cuda,
               "seed": args.seed, "kernels": rows, "paths": path_rows,
               "tuner": tuner, "serve": serve, "mesh": mesh, "lm": lm,
-              "families": families, "train": train, "seconds": smoke_s}
+              "families": families, "train": train, "whisper": whisper,
+              "seconds": smoke_s}
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=1))
@@ -2391,6 +2417,149 @@ def serve_family(arch, depth, S, e2e_prompt, prof_prompt, seed, torch, swa,
     record["seconds"] = time.perf_counter() - t_phase
     log(f"{arch}: {record['seconds']:.1f} s in all")
     return row, record
+
+
+def whisper_phase(seed, torch) -> dict:
+    """whisper-small served on the card at full width and depth: float32
+    masters from ``--seed`` cast once to a bf16 copy; WHISPER_BATCH
+    utterances of precomputed frames (numpy, from ``--seed``), a prompt of
+    WHISPER_PROMPT tokens, then WHISPER_NEW greedy tokens through
+    ``whisper_prefill`` and ``whisper_decode_step`` (plain PyTorch: no
+    hand-written kernel is on this path).  Logs encode, prefill and decode
+    ms, tokens/s, peak memory and one profiled decode step.  Raises unless:
+    no greedy id is past the vocabulary; the teacher-forced decode's
+    logits equal ``whisper_forward``'s on the same tokens at 2e-2; and, at
+    depth 2 + 2, the card's bf16 logits equal the CPU's float32 ones at
+    2e-2 (each relative to the compared logits' max abs)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import cast_params
+    from repro_torch.models.whisper import (encode, init_whisper,
+                                            whisper_decode_step,
+                                            whisper_forward, whisper_prefill)
+
+    t_phase = time.perf_counter()
+    cfg = get_config("whisper_small")
+    B, P, new = WHISPER_BATCH, WHISPER_PROMPT, WHISPER_NEW
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    torch.cuda.reset_peak_memory_stats()
+    served = cast_params(init_whisper(cfg, gen), torch.bfloat16)
+    rng = np.random.default_rng(seed)
+    frames_np = rng.standard_normal((B, cfg.enc_seq, cfg.d_model),
+                                    dtype=np.float32)
+    prompt_np = rng.integers(0, cfg.vocab, (B, P))
+    frames = torch.as_tensor(frames_np, device="cuda")
+    prompt = torch.as_tensor(prompt_np, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in served.parameters())
+    log(f"{cfg.name}: {cfg.n_enc_layers} + {cfg.n_layers} layers, d "
+        f"{cfg.d_model}, vocab {cfg.vocab} (padded {cfg.vocab_padded}), "
+        f"{n_params / 1e6:.1f} M params served in bfloat16, {B} x "
+        f"{cfg.enc_seq} frames, prompt {P}, {new} new tokens, max_len "
+        f"{WHISPER_MAX_LEN}")
+
+    # the main path: prefill, then greedy decode steps
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits, cache = whisper_prefill(cfg, served, frames, prompt,
+                                        WHISPER_MAX_LEN)
+        steps, ids = [logits], [logits.argmax(-1)]
+        for i in range(new - 1):
+            logits, cache = whisper_decode_step(cfg, served, cache, ids[-1],
+                                                P + i)
+            steps.append(logits)
+            ids.append(logits.argmax(-1))
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ids = torch.stack(ids, 1)
+    steps = torch.stack(steps, 1)
+    past_vocab = int((ids >= cfg.vocab).sum())
+    log(f"whisper generate: ids {tuple(ids.shape)}, {gen_s:.3f} s, peak "
+        f"{peak_gb:.2f} GB; greedy ids >= vocab {cfg.vocab}: {past_vocab}")
+    if past_vocab or not bool(torch.isfinite(steps[..., :cfg.vocab]).all()):
+        raise SystemExit(f"whisper: {past_vocab} greedy ids past the "
+                         "vocabulary, or logits not finite")
+
+    # teacher-forced: the decode's logits against the forward's on the
+    # prompt and the greedy ids
+    with torch.inference_mode():
+        full = whisper_forward(cfg, served, frames,
+                               torch.cat([prompt, ids[:, :-1]], 1))
+    tf_err = rel_err(steps[..., :cfg.vocab],
+                     full[:, P - 1:, :cfg.vocab])
+    log(f"whisper teacher-forced decode vs whisper_forward ({B} x "
+        f"{P + new - 1} tokens): rel err {tf_err:.3e} (tol 2e-2)")
+    if not tf_err <= 2e-2:
+        raise SystemExit(f"whisper: the decode departs from the forward, "
+                         f"{tf_err:.3e}")
+
+    # end-to-end times and one profiled decode step
+    with torch.inference_mode():
+        encode_ms = time_ms(lambda: encode(cfg, served, frames), reps=3,
+                            warmup=1)
+        prefill_ms = time_ms(lambda: whisper_prefill(
+            cfg, served, frames, prompt, WHISPER_MAX_LEN), reps=3, warmup=1)
+        _, cache = whisper_prefill(cfg, served, frames, prompt,
+                                   WHISPER_MAX_LEN)
+        step = {"pos": P}
+        tok = prompt[:, -1]
+
+        def one_step():
+            whisper_decode_step(cfg, served, cache, tok, step["pos"])
+            step["pos"] += 1
+
+        decode_ms = time_ms(one_step, inner=4, reps=3, warmup=1)
+        prof = device_profile(one_step, torch)
+    del cache, full, steps, served
+    torch.cuda.empty_cache()
+    log(f"whisper encode {B}x{cfg.enc_seq}: {encode_ms:.2f} ms; prefill "
+        f"(encode + {P} tokens): {prefill_ms:.2f} ms; decode "
+        f"{decode_ms:.3f} ms a step ({B / decode_ms * 1e3:.1f} tokens/s)")
+    log(f"whisper peak memory: {peak_gb:.2f} GB")
+    log(f"whisper profile decode step: host {prof['host_ms']:.2f} ms, "
+        f"device {prof['device_ms']:.3f} ms (idle {prof['idle_share']:.1%}), "
+        f"{prof['kernel_launches']} kernel launches; device ms: "
+        + ", ".join(f"{c} {v:.3f}" for c, v in prof["device_ms_by"].items()))
+
+    # depth 2 + 2, full width: the card's bf16 logits against the CPU's
+    # float32 ones, the same masters
+    small = dataclasses.replace(cfg, n_layers=WHISPER_CHECK_DEPTH,
+                                n_enc_layers=WHISPER_CHECK_DEPTH)
+    masters = init_whisper(small, gen)
+    b = WHISPER_CHECK_BATCH
+    toks = torch.cat([prompt, ids[:, :-1]], 1)[:b]
+    with torch.inference_mode():
+        card = whisper_forward(small, cast_params(masters, torch.bfloat16),
+                               frames[:b], toks)
+        cpu = whisper_forward(dataclasses.replace(small, dtype="float32"),
+                              masters.to("cpu"), frames[:b].cpu(),
+                              toks.cpu())
+    cpu_err = rel_err(card[..., :cfg.vocab].cpu(), cpu[..., :cfg.vocab])
+    log(f"whisper depth {WHISPER_CHECK_DEPTH}+{WHISPER_CHECK_DEPTH} card "
+        f"bf16 vs CPU float32 logits ({b} x {toks.shape[1]} tokens): rel "
+        f"err {cpu_err:.3e} (tol 2e-2)")
+    if not cpu_err <= 2e-2:
+        raise SystemExit(f"whisper: the card departs from the CPU, "
+                         f"{cpu_err:.3e}")
+    del masters, card, cpu
+    torch.cuda.empty_cache()
+    record = {"arch": "whisper_small", "params": n_params, "batch": B,
+              "frames": cfg.enc_seq, "prompt": P, "new_tokens": new,
+              "max_len": WHISPER_MAX_LEN, "generate_s": gen_s,
+              "encode_ms": encode_ms, "prefill_ms": prefill_ms,
+              "decode_ms_per_step": decode_ms,
+              "decode_tokens_per_s": B / decode_ms * 1e3,
+              "peak_memory_gb": peak_gb, "ids_past_vocab": past_vocab,
+              "teacher_forced_rel_err": tf_err, "cpu_rel_err": cpu_err,
+              "profile_decode_step": prof,
+              "seconds": time.perf_counter() - t_phase}
+    log(f"whisper: {record['seconds']:.1f} s in all")
+    return record
 
 
 def moe_check(cfg, p, x, torch) -> dict:

@@ -21,7 +21,7 @@ A tree is nested dicts (and lists or tuples) whose leaves are tensors,
 numpy arrays or numbers.  numpy has no bfloat16, so a bfloat16 leaf is
 stored as its ``uint16`` view and the manifest records ``"bfloat16"``.
 Restoring onto another layout (the reference's ``shardings=``) waits for
-the port's LM sharding rules, ROADMAP A16.
+sharded execution, ROADMAP A16.
 """
 
 from __future__ import annotations
@@ -132,8 +132,8 @@ def restore_checkpoint(ckpt_dir: str, step: int, like, shardings=None):
     like leaf's dtype, on its device when it is a tensor.  Returns (tree,
     extra, step)."""
     if shardings is not None:
-        raise NotImplementedError("restoring onto shardings waits for the "
-                                  "port's LM sharding rules, ROADMAP A16")
+        raise NotImplementedError("restoring onto shardings waits for "
+                                  "sharded execution, ROADMAP A16")
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)

@@ -1,7 +1,12 @@
 """repro_torch.dist — the device mesh the distributed stencil executor
-runs over (the mesh part of ``repro.dist``; the LM's sharding rules are
-not ported yet)."""
+runs over, and the LM's sharding rules over a ``DeviceMesh`` (the port of
+``repro.dist``)."""
 
-from .sharding import Mesh, make_auto_mesh
+from .sharding import (Mesh, ShardingRules, activation_context,
+                       batch_sharding, cache_specs, make_auto_mesh,
+                       named_shardings, param_specs, placements,
+                       shard_activation)
 
-__all__ = ["Mesh", "make_auto_mesh"]
+__all__ = ["Mesh", "ShardingRules", "activation_context", "batch_sharding",
+           "cache_specs", "make_auto_mesh", "named_shardings", "param_specs",
+           "placements", "shard_activation"]

@@ -8,6 +8,11 @@ of it reserved per resident CTA, 2048 threads, 32 CTAs and 65,536 32-bit
 registers per SM, 50 MB L2, 80 GB of HBM3 at 3.35 TB/s, 67 TFLOP/s float32
 outside the tensor cores, 989 TFLOP/s dense bfloat16 on the tensor cores,
 at 700 W).
+
+Links between cards, per GPU and per direction: NVLink 4 at 450 GB/s (the
+H100 SXM data sheet's 900 GB/s counts both directions), the fabric inside
+one DGX H100 node's eight cards; InfiniBand NDR at 50 GB/s (one 400 Gb/s
+ConnectX-7 adapter per GPU in a DGX H100), between nodes.
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ class ChipSpec:
     peak_f32_flops: float       # FLOP/s, CUDA cores
     peak_bf16_flops: float      # FLOP/s, dense bf16 on the tensor cores
     power_watts: float          # board power limit the peaks assume (W)
+    nvlink_bandwidth: float     # bytes/s per GPU, one direction, in a node
+    network_bandwidth: float    # bytes/s per GPU, one direction, between nodes
 
 
 H100 = ChipSpec(
@@ -48,6 +55,8 @@ H100 = ChipSpec(
     peak_f32_flops=67e12,
     peak_bf16_flops=989e12,
     power_watts=700.0,
+    nvlink_bandwidth=450e9,
+    network_bandwidth=50e9,
 )
 
 # field storage dtypes the planner and cost models understand

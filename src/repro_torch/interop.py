@@ -5,11 +5,13 @@ data.  :func:`plan_from_reference` reads a plan the JAX package wrote
 (``repro.core.schedule.plan_to_dict``) and :func:`inputs_from_numpy` turns
 numpy inputs — the form both packages accept — into tensors on a device.
 :func:`lm_params_from_reference` turns the reference LM's parameter tree
-into the port's modules, so both packages compute the same model;
+into the port's modules, so both packages compute the same model, and
+:func:`whisper_params_from_reference` does the same for the
+encoder-decoder;
 :func:`opt_state_from_reference` does the same for its AdamW state, and
 :func:`lm_tree_to_reference` turns the port's per-layer tensors (params,
-grads, moments) back into the reference's stacked tree, so the two can be
-held against each other leaf by leaf.
+grads, moments; an LM's or a Whisper's) back into the reference's stacked
+tree, so the two can be held against each other leaf by leaf.
 """
 
 from __future__ import annotations
@@ -23,7 +25,9 @@ from . import hw
 from .core.ir import Program
 from .core.lower_kernel import DTYPES
 from .core.schedule import DataflowPlan, pick_block, plan_from_dict
+from .dist.sharding import STACKS
 from .models.transformer import LM
+from .models.whisper import Whisper
 
 #: the reference's backend names and their counterparts here
 BACKENDS = {"pallas": "cuda", "jnp_fused": "torch_fused",
@@ -78,14 +82,15 @@ def _flatten(tree: Mapping, prefix: str = "") -> dict:
 
 
 def _unstacked(tree: Mapping) -> dict:
-    """{port name: float32 tensor} of a reference LM-shaped tree: the
-    stacked ``blocks`` leaves split into ``blocks.<i>.…``."""
+    """{port name: float32 tensor} of a reference tree: the stacked
+    ``blocks`` (``enc_blocks``, ``dec_blocks``) leaves split into
+    ``blocks.<i>.…``."""
     out = {}
     for name, a in _flatten(tree).items():
-        if name.startswith("blocks."):
-            rest = name[len("blocks."):]
+        stack, _, rest = name.partition(".")
+        if stack in STACKS:
             for i in range(a.shape[0]):
-                out[f"blocks.{i}.{rest}"] = torch.as_tensor(a[i])
+                out[f"{stack}.{i}.{rest}"] = torch.as_tensor(a[i])
         else:
             out[name] = torch.as_tensor(a)
     return out
@@ -99,6 +104,17 @@ def lm_params_from_reference(cfg, params: Mapping, device="cuda") -> LM:
     lm = LM(cfg, device=torch.device(device))
     lm.load_state_dict(_unstacked(params), strict=True)
     return lm
+
+
+def whisper_params_from_reference(cfg, params: Mapping,
+                                  device="cuda") -> Whisper:
+    """The port's :class:`~repro_torch.models.whisper.Whisper` holding the
+    reference ``init_whisper`` tree ``params`` (numpy arrays;
+    ``"enc_blocks"`` and ``"dec_blocks"`` stacked on a leading layer axis),
+    on ``device``, in ``cfg.param_dtype``."""
+    model = Whisper(cfg, device=torch.device(device))
+    model.load_state_dict(_unstacked(params), strict=True)
+    return model
 
 
 def opt_state_from_reference(cfg, opt_state: Mapping, device="cuda") -> dict:
@@ -121,23 +137,26 @@ def opt_state_from_reference(cfg, opt_state: Mapping, device="cuda") -> dict:
 
 
 def lm_tree_to_reference(cfg, tensors: Mapping) -> dict:
-    """The reference's nested tree (numpy float32, ``"blocks"`` stacked on
-    a leading layer axis) of per-layer tensors keyed by the port's
-    parameter names — params, grads or moments."""
+    """The reference's nested tree (numpy float32, ``"blocks"`` — or a
+    Whisper's ``"enc_blocks"`` and ``"dec_blocks"`` — stacked on a leading
+    layer axis) of per-layer tensors keyed by the port's parameter names:
+    params, grads or moments."""
     tree, stacks = {}, {}
     for name, t in tensors.items():
         a = t.detach().float().cpu().numpy()
         parts = name.split(".")
-        if parts[0] == "blocks":
-            stacks.setdefault(".".join(parts[2:]), {})[int(parts[1])] = a
+        if parts[0] in STACKS:
+            stacks.setdefault((parts[0], ".".join(parts[2:])),
+                              {})[int(parts[1])] = a
         else:
             _put(tree, parts, a)
-    for rest, layers in stacks.items():
-        if sorted(layers) != list(range(cfg.n_layers)):
-            raise ValueError(f"blocks.*.{rest}: layers {sorted(layers)}, "
-                             f"{cfg.name} has {cfg.n_layers}")
-        _put(tree, ["blocks", *rest.split(".")],
-             np.stack([layers[i] for i in range(cfg.n_layers)]))
+    for (stack, rest), layers in stacks.items():
+        n = getattr(cfg, STACKS[stack])
+        if sorted(layers) != list(range(n)):
+            raise ValueError(f"{stack}.*.{rest}: layers {sorted(layers)}, "
+                             f"{cfg.name} has {n}")
+        _put(tree, [stack, *rest.split(".")],
+             np.stack([layers[i] for i in range(n)]))
     return tree
 
 

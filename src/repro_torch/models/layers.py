@@ -233,9 +233,12 @@ def flash_attention(q, k, v, spec: AttnSpec):
     v = _repeat_kv(v, spec.n_heads)
     scale = 1.0 / math.sqrt(D)
     qpos = torch.arange(S, device=q.device)
-    m = torch.full((B, H, S), -math.inf, device=q.device)
-    l = torch.zeros((B, H, S), device=q.device)
-    acc = torch.zeros((B, H, S, D), device=q.device)
+    # the running statistics made like q's rows (B,H,S) and q (B,H,S,D):
+    # a sharded q (the dry run's DTensor) gives statistics sharded alike
+    m = torch.full_like(q[..., 0], -math.inf,
+                        dtype=torch.float32).transpose(1, 2)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(q, dtype=torch.float32).transpose(1, 2)
     for blk in range(S // C):
         kb, vb = k[:, blk * C:(blk + 1) * C], v[:, blk * C:(blk + 1) * C]
         kpos = blk * C + torch.arange(C, device=q.device)
@@ -325,13 +328,31 @@ def attend(q, k, v, spec: AttnSpec):
 
 
 def attention_apply(p: Attention, x, spec: AttnSpec, positions=None,
-                    rope_theta=10000.0, use_rope=True, norm_kind="rmsnorm"):
-    """Full self-attention block: proj -> rope -> attend -> out-proj.  (The
-    reference's ``kv_override`` cross-attention is whisper's, not ported.)
+                    rope_theta=10000.0, use_rope=True, kv_override=None,
+                    norm_kind="rmsnorm"):
+    """Full attention block: proj -> rope -> attend -> out-proj.
+
+    ``kv_override``: (k, v) (B, Sk, KV, Dh) from an encoder, for
+    cross-attention: only q is projected (RoPE, with ``use_rope``, on q
+    alone), and the attention is dense and non-causal with no window,
+    whatever ``spec`` says, as in the reference.
     """
-    q, k, v = project_qkv(p, x, spec, positions, rope_theta, use_rope,
-                          norm_kind)
-    return torch.einsum("bshk,hkd->bsd", attend(q, k, v, spec), p.wo)
+    if kv_override is None:
+        q, k, v = project_qkv(p, x, spec, positions, rope_theta, use_rope,
+                              norm_kind)
+        return torch.einsum("bshk,hkd->bsd", attend(q, k, v, spec), p.wo)
+    q = torch.einsum("bsd,dhk->bshk", x, p.wq)
+    k, v = kv_override
+    if spec.qk_norm:
+        q = norm_apply(p.q_norm, q, norm_kind)
+        k = norm_apply(p.k_norm, k, norm_kind)
+    if use_rope:
+        if positions is None:
+            positions = torch.arange(x.shape[1], device=x.device)
+        q = apply_rope(q, positions, rope_theta)
+    out = dense_attention(q, k, v, dataclasses.replace(spec, causal=False,
+                                                       window=0))
+    return torch.einsum("bshk,hkd->bsd", out, p.wo)
 
 
 # -------------------------------------------------------------------- decode

@@ -37,9 +37,10 @@ class LMServeStats:
 class ServeEngine:
     """Fixed-batch generation on ``device`` (the card by default).  The
     weights are cast to ``cfg.dtype`` once, here, which is what the
-    reference's per-call ``cast_params`` computes; with ``emb_scale`` the
-    lookup also keeps the master embedding, since the reference scales the
-    master rows before it casts them."""
+    reference's per-call ``cast_params`` computes; with ``emb_scale`` or
+    learned positions the lookup also keeps the master embedding (and
+    positions), since the reference scales and sums the master rows before
+    it casts them."""
 
     def __init__(self, cfg: ModelConfig, params: LM, batch: int,
                  max_len: int, temperature: float = 0.0, eos: int = -1,
@@ -50,10 +51,14 @@ class ServeEngine:
                              f"engine on {self.device}")
         self.cfg = cfg
         self.params = cast_params(params, _DT[cfg.dtype])
-        if cfg.emb_scale and self.params is not params:
-            # the lookup scales the master rows (shared, not copied); the
-            # unembed reads the table cast here
+        if (cfg.emb_scale or cfg.pos == "learned") \
+                and self.params is not params:
+            # the lookup scales the master rows and adds the master
+            # positions (shared, not copied); the unembed reads the table
+            # cast here
             self.params.embed_master = params.embed.detach()
+            if cfg.pos == "learned":
+                self.params.pos_emb_master = params.pos_emb.detach()
         self.batch, self.max_len = batch, max_len
         self.temperature, self.eos = temperature, eos
         self.stats = LMServeStats()

@@ -5,7 +5,9 @@ The port of ``repro.models.transformer`` for its three families:
 
 * ``decoder``: (GQA | MQA) x (global | SWA | alternating local:global) x
   (dense | MoE), with the softcaps, qk-norm, sandwich norms and
-  activations of the configs;
+  activations of the configs, RoPE or learned positions (``pos_emb``);
+  an ``encdec`` config builds this decoder too, as the reference's
+  ``init_lm`` does (the encoder-decoder itself is :mod:`.whisper`);
 * ``hybrid`` (hymba): attention and a Mamba head in parallel in every
   block, their outputs summed;
 * ``xlstm``: mLSTM blocks with an sLSTM every ``slstm_every``-th layer,
@@ -31,9 +33,14 @@ Parameters are an :class:`LM` module whose ``blocks`` are per-layer
 ``cfg.param_dtype``; :func:`cast_params` gives the ``cfg.dtype`` compute
 copy for serving (detached).
 
-Not ported yet: the whisper encoder-decoder (ROADMAP A14).  The
-reference's activation-sharding hook ``shard_activation`` is a no-op on one
-device and has no counterpart here (LM sharding rules, A16).
+Learned positions differ from the reference in one place, on purpose:
+its ``decode_step`` embeds the new token through ``embed_tokens(tokens[:,
+None])``, which adds ``pos_emb[0]`` at every step; here a decode step adds
+``pos_emb[pos]``, so the decode of a learned-position LM equals its own
+forward.  The residual stream and the logits pass through
+:func:`~repro_torch.dist.sharding.shard_activation` where the reference's
+do: a no-op outside an ``activation_context`` (the dry run's DTensor
+trace, :mod:`repro_torch.launch`).
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.pipeline import resolve_device
+from ..dist.sharding import cache_zeros, shard_activation
 from . import ssm
 from .layers import (MLP, Attention, AttnSpec, MoE, Norm, attend,
                      attention_apply, decode_attention, mlp_apply, moe_apply,
@@ -55,22 +63,16 @@ from .layers import (MLP, Attention, AttnSpec, MoE, Norm, attend,
 
 _DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-_NOT_PORTED = {"encdec": "ROADMAP A14 (whisper encoder-decoder)"}
-_FAMILIES = ("decoder", "hybrid", "xlstm")
+_FAMILIES = ("decoder", "hybrid", "xlstm", "encdec")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item for what the
-    port does not run yet."""
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not "
-                                  f"ported yet, {_NOT_PORTED[cfg.family]}")
+    """Raise ``ValueError`` for a family or position scheme no config of
+    the reference has."""
     if cfg.family not in _FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}")
-    if cfg.pos not in ("rope", "none"):
-        raise NotImplementedError(f"{cfg.name}: pos={cfg.pos!r} is not "
-                                  "ported (only whisper uses it), ROADMAP "
-                                  "A14")
+    if cfg.pos not in ("rope", "none", "learned"):
+        raise ValueError(f"unknown position scheme {cfg.pos!r}")
 
 
 def _attn_spec(cfg: ModelConfig, kind: str) -> AttnSpec:
@@ -125,7 +127,8 @@ class Block(nn.Module):
 
 class LM(nn.Module):
     """``embed`` (vocab_padded, d), ``ln_f``, ``lm_head`` (d, vocab_padded)
-    unless the embeddings are tied, and ``blocks``."""
+    unless the embeddings are tied, ``pos_emb`` (max_seq, d) with learned
+    positions, and ``blocks``."""
 
     def __init__(self, cfg: ModelConfig, generator=None, device=None):
         super().__init__()
@@ -145,6 +148,8 @@ class LM(nn.Module):
         self.ln_f = Norm(cfg.d_model, cfg.norm, dtype, device)
         if not cfg.tie_embeddings:
             self.lm_head = table((cfg.d_model, cfg.vocab_padded))
+        if cfg.pos == "learned":
+            self.pos_emb = table((cfg.max_seq, cfg.d_model))
         self.blocks = nn.ModuleList(
             Block(cfg, generator, dtype, device) for _ in range(cfg.n_layers))
 
@@ -187,13 +192,20 @@ def train_cast(p: nn.Module, dtype: torch.dtype):
 # embedding and logits
 # --------------------------------------------------------------------------
 
-def embed_tokens(cfg: ModelConfig, params: LM, tokens: torch.Tensor):
-    """tokens (B, S) -> (B, S, d) in ``cfg.dtype``.  The scaling runs in
-    float32, as the reference's does on float32 master weights: on
-    ``params.embed_master`` where a server's cast copy keeps them."""
+def embed_tokens(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
+                 pos: int | None = None):
+    """tokens (B, S) -> (B, S, d) in ``cfg.dtype``, learned positions
+    ``0..S-1`` added (``pos``, ``pos+1``, ... from ``pos`` on, for a
+    decode step).  The scaling and the sum run in float32, as the
+    reference's do on float32 master weights: on ``params.embed_master``
+    and ``params.pos_emb_master`` where a server's cast copy keeps them."""
     x = getattr(params, "embed_master", params.embed)[tokens].float()
     if cfg.emb_scale:
         x = x * math.sqrt(cfg.d_model)
+    if cfg.pos == "learned":
+        table = getattr(params, "pos_emb_master", params.pos_emb)
+        start = 0 if pos is None else pos
+        x = x + table[start:start + tokens.shape[1]].float()
     return x.to(_DT[cfg.dtype])
 
 
@@ -205,9 +217,25 @@ def unembed(cfg: ModelConfig, params: LM, x: torch.Tensor):
     logits = torch.einsum("bsd,dv->bsv", x, table.to(x.dtype)).float()
     if cfg.final_softcap:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
-    if cfg.vocab_padded != cfg.vocab:
-        logits[..., cfg.vocab:] = -1e30
-    return logits
+    return shard_activation(mask_padded_vocab(cfg, logits), "logits")
+
+
+def logsumexp(logits: torch.Tensor) -> torch.Tensor:
+    """log(sum(exp(logits))) over the last dim, by its max and a sum: two
+    reductions DTensor runs on a vocab-sharded row (``torch.logsumexp``
+    gathers the whole row on every device first)."""
+    m = logits.amax(-1, keepdim=True).detach()
+    return (m + torch.log(torch.exp(logits - m).sum(-1, keepdim=True)))[
+        ..., 0]
+
+
+def mask_padded_vocab(cfg: ModelConfig, logits: torch.Tensor):
+    """``logits`` (..., vocab_padded) with the padded columns at -1e30, so
+    that softmax and argmax never pick an id past ``cfg.vocab``."""
+    if cfg.vocab_padded == cfg.vocab:
+        return logits
+    vid = torch.arange(logits.shape[-1], device=logits.device)
+    return torch.where(vid < cfg.vocab, logits, -1e30)
 
 
 # --------------------------------------------------------------------------
@@ -239,7 +267,7 @@ def lm_forward(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
     """tokens (B, S) -> (float32 logits (B, S, vocab_padded), aux): the
     blocks in order, each recomputed in the backward with ``remat``."""
     check_supported(cfg)
-    x = embed_tokens(cfg, params, tokens)
+    x = shard_activation(embed_tokens(cfg, params, tokens), "residual")
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     auxs = []
     for i, bp in enumerate(params.blocks):
@@ -261,7 +289,7 @@ def lm_loss(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
     logits, aux = lm_forward(cfg, params, tokens, remat=remat)
     mask = labels >= 0
     lbl = torch.where(mask, labels, 0)
-    logz = torch.logsumexp(logits, dim=-1)
+    logz = logsumexp(logits)
     # the label logit by a mask-sum, as the reference takes it
     vocab = torch.arange(logits.shape[-1], device=logits.device)
     picked = torch.where(vocab == lbl[..., None], logits, 0.0).sum(-1)
@@ -282,32 +310,35 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
     """Per-layer caches: ``{"k", "v"}`` in ``cfg.dtype`` (local (SWA)
     layers get ring buffers of length ``window``), with ``"ssm"`` = (h
     float32, conv_tail ``cfg.dtype``) for hybrid layers; an xlstm layer's
-    ``{"state"}`` is its cell's, float32."""
+    ``{"state"}`` is its cell's, float32.  Zeros, sharded by the cache
+    rules inside an ``activation_context``."""
     check_supported(cfg)
     dev = resolve_device(device)
     adt = _DT[cfg.dtype]
-    f32 = dict(dtype=torch.float32, device=dev)
+    f32 = torch.float32
     di = cfg.ssm_expand * cfg.d_model
     cache = []
     for i in range(cfg.n_layers):
         kind = cfg.layer_kind(i)
         if cfg.family == "xlstm":
             if kind == "slstm":
-                z = torch.zeros((batch, cfg.d_model), **f32)
-                state = (z, z, z, z)
+                state = tuple(cache_zeros((batch, cfg.d_model), f32, dev)
+                              for _ in range(4))
             else:
-                state = ssm.mlstm_init_state_b(batch, cfg.n_heads,
-                                               di // cfg.n_heads, dev)
+                H, dh = cfg.n_heads, di // cfg.n_heads
+                state = (cache_zeros((batch, H, dh, dh), f32, dev),
+                         cache_zeros((batch, H, dh), f32, dev),
+                         cache_zeros((batch, H), f32, dev))
             cache.append({"state": state})
             continue
         L = min(cfg.window, max_len) if _is_ring(cfg, kind) else max_len
         shape = (batch, L, cfg.n_kv_heads, cfg.d_head)
-        entry = {"k": torch.zeros(shape, dtype=adt, device=dev),
-                 "v": torch.zeros(shape, dtype=adt, device=dev)}
+        entry = {"k": cache_zeros(shape, adt, dev),
+                 "v": cache_zeros(shape, adt, dev)}
         if cfg.family == "hybrid":
-            entry["ssm"] = (torch.zeros((batch, di, cfg.ssm_state), **f32),
-                            torch.zeros((batch, cfg.ssm_conv - 1, di),
-                                        dtype=adt, device=dev))
+            entry["ssm"] = (cache_zeros((batch, di, cfg.ssm_state), f32, dev),
+                            cache_zeros((batch, cfg.ssm_conv - 1, di), adt,
+                                        dev))
         cache.append(entry)
     return cache
 
@@ -325,10 +356,12 @@ def _cell(bp, kind: str, h, state=None):
 
 def _mlp_half(cfg: ModelConfig, bp: Block, x, attn, no_drop=False):
     """(the residual stream after a layer's attention output ``attn``,
-    the MoE's aux or None without experts)."""
+    the MoE's aux or None without experts).  The stream after the
+    attention passes :func:`shard_activation`, as in the reference's
+    training block."""
     if cfg.post_norm:
         attn = norm_apply(bp.ln1_post, attn, cfg.norm)
-    x = x + attn
+    x = shard_activation(x + attn, "residual")
     h2 = norm_apply(bp.ln2, x, cfg.norm)
     aux = None
     if cfg.n_experts:
@@ -391,7 +424,7 @@ def decode_step(cfg: ModelConfig, params: LM, cache, tokens: torch.Tensor,
     """One decode step: tokens (B,), position ``pos`` -> (logits (B, V),
     cache).  The cache is updated in place and returned."""
     check_supported(cfg)
-    x = embed_tokens(cfg, params, tokens[:, None])[:, 0]       # (B,D)
+    x = embed_tokens(cfg, params, tokens[:, None], pos)[:, 0]  # (B,D)
     for i, entry in enumerate(cache):
         bp = cast_params(params.blocks[i], _DT[cfg.dtype])
         kind = cfg.layer_kind(i)

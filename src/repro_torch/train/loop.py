@@ -18,8 +18,10 @@ the card the SWA layers run the forward and backward CUDA kernels,
 reference has a ``lax.scan``, and the AdamW update written in place where
 the reference donates its buffers.  The parameters are an
 :class:`~repro_torch.models.transformer.LM` on the card unless
-``device="cpu"``; sharded training (``rules=``) waits for the port's LM
-sharding rules, ROADMAP A16.
+``device="cpu"``; sharded training (``rules=``) waits for sharded
+execution, ROADMAP A16 (the rules themselves, and a dry run that traces
+the sharded step, are :mod:`repro_torch.dist` and
+:mod:`repro_torch.launch`).
 """
 
 from __future__ import annotations
@@ -39,8 +41,8 @@ from ..models.transformer import LM, init_lm, lm_loss
 from .compress import ef_compress_grads, ef_init
 from .optimizer import OptConfig, adamw_init, adamw_update, cosine_schedule
 
-_SHARDED = ("sharded training (rules=) waits for the port's LM sharding "
-            "rules, ROADMAP A16")
+_SHARDED = ("sharded training (rules=) waits for sharded execution, "
+            "ROADMAP A16")
 
 
 @dataclasses.dataclass

@@ -26,6 +26,8 @@ from typing import Callable, Mapping
 
 import torch
 
+from ..dist.sharding import STACKS
+
 
 @dataclasses.dataclass
 class OptConfig:
@@ -57,10 +59,11 @@ def cosine_schedule(cfg: OptConfig) -> Callable:
 
 def stacked_leaf(name: str) -> str:
     """The reference's leaf that holds parameter ``name``: its blocks are
-    stacked, so ``blocks.<i>.rest`` of every layer is one leaf there."""
+    stacked, so ``blocks.<i>.rest`` of every layer (a Whisper's
+    ``enc_blocks``, ``dec_blocks``) is one leaf there."""
     parts = name.split(".")
-    if parts[0] == "blocks":
-        return ".".join(["blocks", "*", *parts[2:]])
+    if parts[0] in STACKS:
+        return ".".join([parts[0], "*", *parts[2:]])
     return name
 
 

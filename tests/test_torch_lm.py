@@ -501,10 +501,16 @@ def test_entry_points_default_to_the_card(monkeypatch):
         init_lm(cfg, torch.Generator())
 
 
-@pytest.mark.parametrize("arch,item", [("whisper_small", "A14")])
-def test_unported_families_raise_naming_their_roadmap_item(arch, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        init_lm(configs.get_smoke(arch), torch.Generator(), device="cpu")
+@pytest.mark.parametrize("field,value", [("family", "vision"),
+                                         ("pos", "alibi")])
+def test_unknown_family_or_position_scheme_raises(field, value):
+    """Every family and position scheme of the reference's configs runs
+    (whisper's ``encdec`` config builds a learned-position decoder LM,
+    ``tests/test_torch_whisper.py``); anything else is refused."""
+    cfg = dataclasses.replace(configs.get_smoke("whisper_small"),
+                              **{field: value})
+    with pytest.raises(ValueError, match=value):
+        init_lm(cfg, torch.Generator(), device="cpu")
 
 
 def test_init_lm_has_the_reference_names_and_shapes():

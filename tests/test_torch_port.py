@@ -83,7 +83,11 @@ def test_port_sources_import_neither_jax_nor_the_reference():
     # so are the training, data and checkpoint packages
     for pkg, names in (("train", {"optimizer.py", "compress.py", "loop.py"}),
                        ("data", {"pipeline.py"}),
-                       ("checkpoint", {"store.py"})):
+                       ("checkpoint", {"store.py"}),
+                       # and the dry run's, the LM roofline and Whisper
+                       ("launch", {"dryrun.py", "mesh.py", "specs.py"}),
+                       ("analysis", {"roofline.py"}),
+                       ("models", {"whisper.py"})):
         assert names | {"__init__.py"} <= {
             f.name for f in files if f.parent.name == pkg}, pkg
     files += [ROOT / "chip_smoke.py", ROOT / "tools" / "lm_turns.py"]

@@ -122,6 +122,31 @@ cores for bfloat16, fed the log-sum-exp the forward stores, and
    the CPU path in float32; and a smoke trainer that fails at step 5,
    resumes from its step-4 checkpoint and must match an uninterrupted run.
 
+Sharded LM training (after the train phase; ``Trainer(rules=)`` over a
+``DeviceMesh``, one process a rank, this script run with
+``--sharded-rank``):
+
+8b. H2O-Danube-1.8B at full width cut to 2 of its 24 layers (4 took the
+   script past its time), two sequences of 8192 tokens from
+   ``SyntheticLM(seed=--seed)`` a step (one a data rank), remat, bf16 over
+   float32 masters, trained three steps by
+   4 ranks of a (2, 2) ``("data", "model")`` mesh under the dry run's
+   train rules (TP over ``model``, FSDP and the batch over ``data``): NCCL
+   with a card a rank, else every rank on ``cuda:0`` with gloo, each
+   collective staged through host memory
+   (``repro_torch.dist.host_staged``); the backend and card count are
+   logged.  Each step's loss and grad norm, and the gathered parameters
+   after the last, are held against a single-process ``Trainer`` on the
+   same card from the same parameters and batches (2e-2), the steps timed
+   in turns with its steps; every rank must launch the bf16 SWA forward
+   twice and the backward once a layer a step on its shard; the smoke
+   config in float32 sharded against unsharded (1e-4); rank 0's first
+   local SWA call (forward and backward) against its plain version
+   (2e-2), timed in turns with SDPA; each step's collectives by op and
+   mesh axis (a dispatch mode below DTensor, as the dry run counts them)
+   and each rank's peak memory are logged (``"sharded_train"`` in the
+   JSON).
+
 Whisper serving (after training, before the families; no hand-written
 kernel on its path: its attention is the reference's plain attention):
 
@@ -279,6 +304,14 @@ WHISPER_CHECK_DEPTH, WHISPER_CHECK_BATCH = 2, 2
 TRAIN_SEQ, TRAIN_STEPS = 8192, 3
 TRAIN_SMOKE_SEQ, TRAIN_SMOKE_STEPS, TRAIN_FAIL_AT = 64, 8, 5
 TRAIN_HEAD_DIMS = (80, 16)
+# the sharded training phase: full-width Danube cut to SHARDED_DEPTH of its
+# 24 layers, trained by Trainer(rules=) on a (2, 2) ("data", "model") mesh
+# of 4 rank processes under the dry run's train rules, one 8192-token
+# sequence a data rank; the float32 smoke check on the same mesh
+SHARDED_MESH, SHARDED_RANKS = ((2, 2), ("data", "model")), 4
+SHARDED_DEPTH, SHARDED_BATCH, SHARDED_SEQ, SHARDED_STEPS = 2, 2, 8192, 3
+SHARDED_SMOKE_BATCH, SHARDED_SMOKE_STEPS = 4, 3
+SHARDED_TIMEOUT_S = 420
 # (B, S, H, KV, D, window): the head dims, GQA, a window >= S, a last query
 # tile that is not full, a head dim that is not a multiple of 16, D 256
 # with a ragged last tile
@@ -511,10 +544,14 @@ def main() -> int:
     ap.add_argument("--out", default=str(ROOT / "build" /
                                          "chip_smoke.json"))
     ap.add_argument("--backward-parts", help=argparse.SUPPRESS)
+    ap.add_argument("--sharded-rank", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.backward_parts:
         print(json.dumps(backward_parts_child(json.loads(
             args.backward_parts))))
+        return 0
+    if args.sharded_rank:
+        sharded_rank_child(json.loads(args.sharded_rank))
         return 0
     t_smoke = time.perf_counter()
 
@@ -755,6 +792,11 @@ def main() -> int:
     rows += train_rows
     torch.cuda.empty_cache()
 
+    # ------------------------- sharded LM training over a (2, 2) mesh
+    sharded_rows, sharded = sharded_train_phase(args.seed, torch, swa)
+    rows += sharded_rows
+    torch.cuda.empty_cache()
+
     # -------------------------------- Whisper serving (no kernel on it)
     whisper = whisper_phase(args.seed, torch)
     torch.cuda.empty_cache()
@@ -771,7 +813,8 @@ def main() -> int:
               "torch": torch.__version__, "cuda": torch.version.cuda,
               "seed": args.seed, "kernels": rows, "paths": path_rows,
               "tuner": tuner, "serve": serve, "mesh": mesh, "lm": lm,
-              "families": families, "train": train, "whisper": whisper,
+              "families": families, "train": train,
+              "sharded_train": sharded, "whisper": whisper,
               "seconds": smoke_s}
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -3189,6 +3232,376 @@ def train_phase(seed, torch, swa):
     record["seconds"] = time.perf_counter() - t_phase
     log(f"train phase: {record['seconds']:.1f} s")
     return rows, record
+
+
+def sharded_rank_child(spec: dict) -> None:
+    """One rank of the sharded training phase (this script run with
+    ``--sharded-rank``): full-width Danube cut to ``spec["depth"]`` layers
+    trained by ``Trainer(rules=)`` over a (2, 2) mesh, in turns with a
+    single-process ``Trainer`` on rank 0 from the same parameters and
+    batches; the smoke config in float32 the same way; rank 0's first
+    local SWA call captured.  Writes ``rank<r>.json`` (and rank 0 the
+    captured call, ``swa_local.pt``) under ``spec["dir"]``."""
+    import contextlib
+    import dataclasses
+    import datetime
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.data import BatchSpec, SyntheticLM
+    from repro_torch.dist.host_staged import HostStagedCollectives
+    from repro_torch.kernels import swa
+    from repro_torch.launch.dryrun import CollectiveLog
+    from repro_torch.launch.mesh import make_rules
+    from repro_torch.train import OptConfig, TrainConfig, Trainer
+
+    rank, work = spec["rank"], Path(spec["dir"])
+    backend = spec["backend"]
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    dist.init_process_group(backend, init_method=f"file://{work}/store",
+                            rank=rank, world_size=SHARDED_RANKS,
+                            timeout=datetime.timedelta(
+                                seconds=SHARDED_TIMEOUT_S))
+    staged = (HostStagedCollectives() if backend == "gloo"
+              else contextlib.nullcontext())
+    mesh = init_device_mesh("cuda", SHARDED_MESH[0],
+                            mesh_dim_names=SHARDED_MESH[1])
+    rules = make_rules(mesh, kind="train")
+    rec = {"rank": rank, "device": str(torch.cuda.current_device()),
+           "rules": {"tp": rules.tp, "fsdp": rules.fsdp, "dp": rules.dp}}
+
+    captured = []
+    attention = swa.attention
+
+    def capture(q, k, v, *, window):
+        if not captured:
+            captured.append([t.detach().clone() for t in (q, k, v)]
+                            + [window])
+        return attention(q, k, v, window=window)
+    swa.attention = capture
+
+    def train(cfg, tcfg, data, tag):
+        """Steps of the sharded Trainer (every rank) and the single one
+        (rank 0) in turns; per sharded step its counts, time and
+        collectives on this rank."""
+        sharded = Trainer(cfg, dataclasses.replace(
+            tcfg, ckpt_dir=str(work / f"{tag}_sharded")), data, rules=rules)
+        single = (Trainer(cfg, dataclasses.replace(
+            tcfg, ckpt_dir=str(work / f"{tag}_single")), data)
+            if rank == 0 else None)
+        inner, steps = sharded.step_fn, []
+
+        def counted(*a):
+            swa.launches = swa.backward_launches = 0
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            e0.record()
+            with CollectiveLog(mesh) as comms:
+                out = inner(*a)
+            e1.record()
+            torch.cuda.synchronize()
+            steps.append({"host_ms": (time.perf_counter() - t0) * 1e3,
+                          "events": (e0, e1), "forward": swa.launches,
+                          "backward": swa.backward_launches,
+                          "collectives": comms.by_op_axis()})
+            return out
+        sharded.step_fn = counted
+        single_ms = []
+        for _ in range(spec[tag + "_steps"]):
+            sharded.run(1)
+            dist.barrier()
+            if single is not None:
+                torch.cuda.synchronize()
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                single.run(1)
+                e1.record()
+                e1.synchronize()
+                single_ms.append(e0.elapsed_time(e1))
+            dist.barrier()
+        for st in steps:
+            e0, e1 = st.pop("events")
+            st["ms"] = e0.elapsed_time(e1)
+        out = {"history": sharded.history, "steps": steps,
+               "single_ms": single_ms}
+        # the gathered parameters against the single run's (rank 0)
+        worst = {}
+        single_named = (dict(single.state["params"].named_parameters())
+                        if single is not None else {})
+        for k, p in sharded.state["params"].named_parameters():
+            full = p.full_tensor()
+            if single is not None:
+                worst[k] = rel_err(full, single_named[k])
+            del full
+        if single is not None:
+            out["single_history"] = single.history
+            out["params_max_rel_err"] = max(worst.values())
+            out["params_worst_leaf"] = max(worst, key=worst.get)
+        del sharded, single
+        torch.cuda.empty_cache()
+        return out
+
+    with staged:
+        cfg = dataclasses.replace(get_config(spec["arch"]),
+                                  n_layers=spec["depth"])
+        tcfg = TrainConfig(opt=OptConfig(lr=3e-4, warmup_steps=10,
+                                         total_steps=100),
+                           remat=True, ckpt_every=10**9, log_every=10**9,
+                           seed=spec["seed"])
+        data = SyntheticLM(BatchSpec(global_batch=spec["batch"],
+                                     seq_len=spec["seq"], vocab=cfg.vocab),
+                           seed=spec["seed"])
+        torch.cuda.reset_peak_memory_stats()
+        rec["full"] = train(cfg, tcfg, data, "full")
+        rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        swa.attention = attention
+        if rank == 0:
+            torch.save(captured[0], work / "swa_local.pt")
+        scfg = dataclasses.replace(get_smoke(spec["arch"]), dtype="float32")
+        stcfg = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=2,
+                                          total_steps=40),
+                            remat=True, ckpt_every=10**9, log_every=10**9,
+                            seed=spec["seed"])
+        sdata = SyntheticLM(BatchSpec(global_batch=SHARDED_SMOKE_BATCH,
+                                      seq_len=TRAIN_SMOKE_SEQ,
+                                      vocab=scfg.vocab), seed=spec["seed"])
+        rec["smoke"] = train(scfg, stcfg, sdata, "smoke")
+    if isinstance(staged, HostStagedCollectives):
+        rec["staged_collectives"] = staged.staged
+    dist.barrier()
+    dist.destroy_process_group()
+    (work / f"rank{rank}.json").write_text(json.dumps(rec))
+    os._exit(0)
+
+
+def sharded_train_phase(seed, torch, swa):
+    """Sharded training on the card: 4 rank processes (this script with
+    ``--sharded-rank``) train full-width Danube cut to ``SHARDED_DEPTH``
+    layers through ``Trainer(rules=)`` on a (2, 2) ``("data", "model")``
+    mesh under the dry run's train rules, NCCL with a card a rank, else
+    gloo (staged through host memory, ``repro_torch.dist.host_staged``)
+    with every rank on ``cuda:0``.  Checks each step's loss and grad norm
+    and the gathered parameters after the last against a single-process
+    Trainer on the same card (2e-2), the SWA launches of every rank (2
+    forward and 1 backward a layer a step, under remat), the smoke config
+    in float32 sharded against unsharded (1e-4), and rank 0's first local
+    SWA call (forward and backward) against its plain version, timed in
+    turns with SDPA.  Returns (the local SWA rows, the record)."""
+    import tempfile
+
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.kernels import build
+
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= SHARDED_RANKS else "gloo"
+    staged = ("collectives staged through host memory, "
+              if backend == "gloo" else "")
+    log(f"sharded_train: {SHARDED_RANKS} ranks on a {SHARDED_MESH[0]} mesh "
+        f"{SHARDED_MESH[1]}, backend {backend} ({staged}{cards} card(s)); "
+        f"{cfg.name} at full width cut to "
+        f"{SHARDED_DEPTH} of its {cfg.n_layers} layers, {SHARDED_BATCH} x "
+        f"{SHARDED_SEQ} tokens a step, remat, bf16 over float32 masters")
+    # the sources every rank loads (cached by the start of the run)
+    d_smoke = get_smoke(LM_ARCH).d_head
+    build.build_many(
+        [swa.kernel_source(torch.bfloat16, cfg.d_head),
+         swa.kernel_source(torch.float32, d_smoke),
+         swa.backward_source(torch.bfloat16, cfg.d_head),
+         swa.backward_source(torch.float32, d_smoke)],
+        tag=["swa", "swa", "swa_bwd", "swa_bwd"])
+    tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_")
+    work = Path(tmp_dir.name)
+    spec = {"dir": str(work), "backend": backend, "seed": seed,
+            "arch": LM_ARCH, "depth": SHARDED_DEPTH, "batch": SHARDED_BATCH,
+            "seq": SHARDED_SEQ, "full_steps": SHARDED_STEPS,
+            "smoke_steps": SHARDED_SMOKE_STEPS}
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--sharded-rank",
+         json.dumps(dict(spec, rank=r))], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(SHARDED_RANKS)]
+    deadline = time.monotonic() + SHARDED_TIMEOUT_S
+    outs = [None] * SHARDED_RANKS
+    try:
+        for r, p in enumerate(procs):
+            outs[r] = p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        for r in failed:
+            err = outs[r][1] if outs[r] else "(timed out)"
+            log(f"sharded rank {r} failed:\n{err[-3000:]}")
+        raise SystemExit(f"sharded_train: ranks {failed} failed")
+    ranks = [json.loads((work / f"rank{r}.json").read_text())
+             for r in range(SHARDED_RANKS)]
+    rec = {"ranks": SHARDED_RANKS, "mesh": list(SHARDED_MESH[0]),
+           "axes": list(SHARDED_MESH[1]), "backend": backend, "cards": cards,
+           "arch": LM_ARCH, "depth": SHARDED_DEPTH, "batch": SHARDED_BATCH,
+           "seq": SHARDED_SEQ, "steps": SHARDED_STEPS,
+           "rules": ranks[0]["rules"]}
+
+    # every rank ran the kernels: 2 forward (remat) and 1 backward a layer
+    for r in ranks:
+        for part, depth in (("full", SHARDED_DEPTH), ("smoke", 2)):
+            got = [(st["forward"], st["backward"])
+                   for st in r[part]["steps"]]
+            if any(f != 2 * depth or b != depth for f, b in got):
+                raise SystemExit(f"sharded_train rank {r['rank']} {part}: "
+                                 f"SWA launches {got} a step, want "
+                                 f"{(2 * depth, depth)}")
+    zero = ranks[0]
+    for part, tol in (("full", 2e-2), ("smoke", 1e-4)):
+        z = zero[part]
+        errs = {k: max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(
+            z["history"], z["single_history"])) for k in ("loss",
+                                                          "grad_norm")}
+        same = all(r[part]["history"][i][k] == zero[part]["history"][i][k]
+                   for r in ranks for i in range(len(z["history"]))
+                   for k in ("loss", "grad_norm"))
+        log(f"sharded_train {part}: losses "
+            f"{[round(h['loss'], 5) for h in z['history']]} vs single "
+            f"{[round(h['loss'], 5) for h in z['single_history']]}; max rel "
+            f"err loss {errs['loss']:.3e}, grad norm {errs['grad_norm']:.3e}"
+            f", gathered params {z['params_max_rel_err']:.3e} "
+            f"({z['params_worst_leaf']}) (tol {tol}); metrics equal on "
+            f"every rank: {same}")
+        if max(errs.values()) > tol or z["params_max_rel_err"] > tol \
+                or not same or len(z["history"]) != spec[part + "_steps"]:
+            raise SystemExit(f"sharded_train {part}: the sharded run "
+                             "disagrees with the single-process run")
+        rec[part] = {"history": z["history"],
+                     "single_history": z["single_history"],
+                     "loss_max_rel_err": errs["loss"],
+                     "grad_norm_max_rel_err": errs["grad_norm"],
+                     "params_max_rel_err": z["params_max_rel_err"]}
+    steps = zero["full"]["steps"]
+    tokens = SHARDED_BATCH * SHARDED_SEQ
+    for i, (st, single) in enumerate(zip(steps, zero["full"]["single_ms"])):
+        log(f"sharded step {i}: {st['ms']:.1f} ms (CUDA events, rank 0; "
+            f"host {st['host_ms']:.1f} ms), {tokens / st['ms'] * 1e3:.0f} "
+            f"tokens/s; single-process step {single:.1f} ms, "
+            f"{tokens / single * 1e3:.0f} tokens/s; SWA launches forward "
+            f"{st['forward']}, backward {st['backward']} a rank")
+    coll = steps[-1]["collectives"]
+    log("sharded step collectives a rank (op over axis: count, MB): "
+        + "; ".join(f"{k}: {v['count']}, {v['bytes'] / 1e6:.1f}"
+                    for k, v in sorted(coll.items())))
+    log("sharded peak memory a rank (GB): "
+        + ", ".join(f"{r['peak_memory_gb']:.2f}" for r in ranks))
+    step_ms = statistics.median(st["ms"] for st in steps[1:])
+    single_ms = statistics.median(zero["full"]["single_ms"][1:])
+    rec.update(step_ms=step_ms, single_step_ms=single_ms,
+               tokens_per_s=tokens / step_ms * 1e3,
+               single_tokens_per_s=tokens / single_ms * 1e3,
+               steps_record=steps, single_ms=zero["full"]["single_ms"],
+               collectives_per_step=coll,
+               peak_memory_gb=[r["peak_memory_gb"] for r in ranks],
+               staged_collectives=zero.get("staged_collectives"),
+               launches_forward=sum(st["forward"] for st in steps),
+               launches_backward=sum(st["backward"] for st in steps))
+
+    # rank 0's first local SWA call: its shard of layer 0's q, k, v
+    q, k, v, w = torch.load(work / "swa_local.pt")
+    tmp_dir.cleanup()
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    o, lse = swa.swa_cuda_lse(q, k, v, window=w)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    got = (o,) + swa.swa_cuda_backward(q, k, v, o, do, window=w, lse=lse)
+    torch.cuda.synchronize()
+    want, plain_ms = (), {}
+    for name, fn in (("forward", lambda: (swa.swa_plain(q, k, v, window=w),)),
+                     ("backward", lambda: swa.swa_plain_backward(
+                         q, k, v, do, window=w))):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        want += tuple(fn())
+        e1.record()
+        e1.synchronize()
+        plain_ms[name] = e0.elapsed_time(e1)
+    errs = [rel_err(a, b) for a, b in zip(got, want)]
+    abs_errs = [float((a.float() - b.float()).abs().max())
+                for a, b in zip(got, want)]
+    log(f"sharded rank 0 local SWA {(B, S, H, KV, D)} w {w} bf16: kernel vs "
+        f"plain max rel err out {errs[0]:.3e}, dq {errs[1]:.3e}, dk "
+        f"{errs[2]:.3e}, dv {errs[3]:.3e} (tol 2e-2)")
+    if max(errs) > 2e-2 or not all(bool(torch.isfinite(t.float()).all())
+                                   for t in got):
+        raise SystemExit("sharded_train: the local SWA kernels disagree "
+                         "with their plain versions")
+    del got, want
+    G = H // KV
+    i = torch.arange(S, device="cuda")
+    band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
+    qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+    kt = k.repeat_interleave(G, 2).transpose(1, 2).contiguous(
+        ).requires_grad_(True)
+    vt = v.repeat_interleave(G, 2).transpose(1, 2).contiguous(
+        ).requires_grad_(True)
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        fwd_ms, fwd_lib = time_in_turns([
+            lambda: swa.swa_cuda_lse(q, k, v, window=w),
+            lambda: F.scaled_dot_product_attention(
+                qt.detach(), kt.detach(), vt.detach(), attn_mask=band)],
+            reps=3)
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band)
+    dot = do.transpose(1, 2)
+    bwd_ms, bwd_lib = time_in_turns([
+        lambda: swa.swa_cuda_backward(q, k, v, o, do, window=w, lse=lse),
+        lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                    retain_graph=True)], reps=3)
+    rows = []
+    for part, ms, lib, (bound_ms, bound_by), err, src, fn in (
+            ("forward", fwd_ms, fwd_lib, swa_bound(B, S, H, KV, D, w,
+                                                   q.dtype),
+             abs_errs[0], swa.SOURCES[q.dtype], "swa_cuda_lse"),
+            ("backward", bwd_ms, bwd_lib, swa_backward_bound(
+                B, S, H, KV, D, w, q.dtype), max(abs_errs[1:]),
+             swa.BACKWARD_SOURCES[q.dtype], "swa_cuda_backward")):
+        launches = rec["launches_" + part]
+        log(f"sharded rank 0 local swa {part}: {ms:.4f} ms a call (bound "
+            f"{bound_ms:.4f} ms by {bound_by}), plain "
+            f"{plain_ms[part]:.3f} ms, SDPA {lib:.4f} ms (medians, in "
+            f"turns); {launches} launches on rank 0 in {SHARDED_STEPS} "
+            "sharded steps")
+        rows.append({
+            "name": f"swa.{fn}[{cfg.name} depth {SHARDED_DEPTH} sharded "
+                    f"(2,2) rank 0 shard B{B} S{S} H{H} KV{KV} D{D} w{w} "
+                    "bf16]",
+            "route": "cuda", "source": str(src.relative_to(ROOT)),
+            "replaces": swa.REPLACES, "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms[part],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib,
+            "on_sharded_training_path": True,
+            "backward_of_replaces": part == "backward"})
+    rec["local_swa"] = {"shape": [B, S, H, KV, D], "window": w,
+                        "max_rel_err": errs, "rows": rows}
+    del q, k, v, o, lse, do, qt, kt, vt, out, dot, band
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"sharded_train phase: {rec['seconds']:.1f} s")
+    return rows, rec
 
 
 if __name__ == "__main__":

@@ -20,8 +20,18 @@ step):
 A tree is nested dicts (and lists or tuples) whose leaves are tensors,
 numpy arrays or numbers.  numpy has no bfloat16, so a bfloat16 leaf is
 stored as its ``uint16`` view and the manifest records ``"bfloat16"``.
-Restoring onto another layout (the reference's ``shardings=``) waits for
-sharded execution, ROADMAP A16.
+
+**Sharded trees** (DTensor leaves, one process a rank).  A save gathers
+each DTensor whole (``full_tensor()``, a collective: every rank saves, and
+in the same order) and only rank 0 writes and collects old steps, so the
+files are the unsharded layout (``host0000.npz`` of whole arrays) and a
+checkpoint written under one mesh restores under another, or under none.
+``AsyncCheckpointer.wait`` ends with a barrier after a sharded save, so no
+rank reads ``latest_step`` before rank 0 has published; the directory is
+one every rank sees.  ``restore_checkpoint(..., shardings=)`` places each
+leaf given a ``dist.sharding.NamedSharding`` (every rank reads the whole
+array and keeps its slice, the reference's elastic path); a leaf without
+one stays whole.
 """
 
 from __future__ import annotations
@@ -63,8 +73,30 @@ def _unflatten(like, leaves: dict, prefix: str = ""):
     return leaves[prefix]
 
 
-def _host(leaf) -> torch.Tensor:
-    """A host copy of ``leaf`` that later in-place updates do not reach."""
+def _mesh_of(leaves):
+    """The mesh of the first DTensor among ``leaves``, or None."""
+    from torch.distributed.tensor import DTensor
+
+    return next((t.device_mesh for t in leaves if isinstance(t, DTensor)),
+                None)
+
+
+def _writes(mesh) -> bool:
+    """Whether this process writes a tree over ``mesh``: rank 0 of a
+    sharded tree, any process of an unsharded one."""
+    return mesh is None or torch.distributed.get_rank() == 0
+
+
+def _host(leaf, keep: bool = True):
+    """A host copy of ``leaf`` that later in-place updates do not reach;
+    a DTensor gathered whole first (a collective), and dropped when not
+    ``keep``."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
+        if not keep:
+            return None
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True)
     return torch.from_numpy(np.array(leaf))
@@ -86,20 +118,24 @@ def _from_numpy(arr: np.ndarray, dtype: str) -> torch.Tensor:
 
 def save_checkpoint(ckpt_dir: str, step: int, tree,
                     extra: dict | None = None) -> str:
-    """Synchronous save with atomic publish; returns the step's directory."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Synchronous save with atomic publish; returns the step's directory.
+    A tree of DTensors is saved from every rank, and written by rank 0."""
     name = f"step_{step:08d}"
     tmp = os.path.join(ckpt_dir, name + ".tmp")
     final = os.path.join(ckpt_dir, name)
+    flat = _flatten(tree)
+    writes = _writes(_mesh_of(flat.values()))
+    flat = {p: _host(v, keep=writes) for p, v in flat.items()}
+    if not writes:
+        return final
+    os.makedirs(ckpt_dir, exist_ok=True)
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
     arrays = {}
     manifest = {"step": step, "leaves": {}, "extra": extra or {},
                 "time": time.time()}
-    for path, leaf in _flatten(tree).items():
-        t = leaf.detach().cpu() if isinstance(leaf, torch.Tensor) \
-            else _host(leaf)
+    for path, t in flat.items():
         arr, dtype = _to_numpy(t)
         arrays[path.replace("/", "__")] = arr
         manifest["leaves"][path] = {"shape": list(arr.shape),
@@ -129,11 +165,19 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 def restore_checkpoint(ckpt_dir: str, step: int, like, shardings=None):
     """Restore into the structure of ``like``: each leaf a tensor in the
-    like leaf's dtype, on its device when it is a tensor.  Returns (tree,
-    extra, step)."""
-    if shardings is not None:
-        raise NotImplementedError("restoring onto shardings waits for "
-                                  "sharded execution, ROADMAP A16")
+    like leaf's dtype, on its device when it is a tensor.  ``shardings``
+    (a tree matching ``like``, or a prefix of it, whose leaves are
+    ``dist.sharding.NamedSharding`` or None) places a leaf as a DTensor on
+    its mesh; a leaf without one stays whole.  Returns (tree, extra,
+    step)."""
+    from ..dist.sharding import NamedSharding, place
+
+    shard_flat = _flatten(shardings) if shardings is not None else {}
+    bad = [p for p, v in shard_flat.items()
+           if v is not None and not isinstance(v, NamedSharding)]
+    if bad:
+        raise TypeError(f"shardings leaves {bad[:5]} are neither a "
+                        "NamedSharding nor None")
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
@@ -152,7 +196,10 @@ def restore_checkpoint(ckpt_dir: str, step: int, like, shardings=None):
                              f"{arr.dtype} != {want['shape']} "
                              f"{want['dtype']}")
         t = _from_numpy(arr, want["dtype"])
-        if isinstance(leaf, torch.Tensor):
+        sharding = shard_flat.get(path)
+        if isinstance(sharding, NamedSharding):
+            t = place(t.to(leaf.dtype), sharding)
+        elif isinstance(leaf, torch.Tensor):
             t = t.to(device=leaf.device, dtype=leaf.dtype)
         else:
             t = t.to(_host(leaf).dtype)
@@ -168,12 +215,19 @@ class AsyncCheckpointer:
         self.keep = keep
         self._thread: threading.Thread | None = None
         self._error: Exception | None = None
+        self._sharded = False
 
     def save(self, step: int, tree, extra: dict | None = None):
         self.wait()
         # snapshot to host synchronously: the tensors are updated in place
-        host_tree = _unflatten(tree, {p: _host(v) for p, v in
-                                      _flatten(tree).items()})
+        flat = _flatten(tree)
+        mesh = _mesh_of(flat.values())
+        writes = _writes(mesh)
+        host = {p: _host(v, keep=writes) for p, v in flat.items()}
+        self._sharded = mesh is not None
+        if not writes:
+            return
+        host_tree = _unflatten(tree, host)
 
         def work():
             try:
@@ -186,9 +240,14 @@ class AsyncCheckpointer:
         self._thread.start()
 
     def wait(self):
+        """Join the writer; after a sharded save, then meet every rank at a
+        barrier, so that rank 0's publish precedes any rank's next read."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._sharded:
+            self._sharded = False
+            torch.distributed.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err

@@ -45,6 +45,21 @@ spec of the per-layer shape itself (``per_layer=True``).
 :func:`shard_activation` is the reference's ``with_sharding_constraint``:
 inside an :func:`activation_context` it redistributes a DTensor activation
 to its spec; outside one, or on a plain tensor, it returns its input.
+
+**Placing live tensors.**  The reference is single-controller: one process
+``device_put``\\ s a tree onto ``NamedSharding``\\ s.  DTensor is SPMD: one
+process a rank, each holding its own shard.  The caller starts the ranks
+and opens the process group (``torchrun``, or ``torch.multiprocessing``),
+builds the ``DeviceMesh`` (``init_device_mesh``) and passes
+``ShardingRules(mesh=...)``; :func:`check_world` holds the mesh to the
+world.  Every rank computes the same full tensor (``init_lm`` from one
+seed, ``batch_at(step)`` of a step-addressable source) and :func:`place`
+keeps its own slice of it: nothing is scattered from rank 0.
+:func:`place_params` places a module's parameters by :func:`param_specs`,
+:func:`place_batch` a batch by :func:`batch_sharding`, and
+:class:`NamedSharding` (the mesh and placements of one tensor) is what
+:func:`named_shardings` gives each parameter and
+``checkpoint.restore_checkpoint(shardings=)`` places a leaf by.
 """
 
 from __future__ import annotations
@@ -52,10 +67,11 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
-from typing import Mapping, Sequence
+from typing import Callable, Mapping, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 
 class Mesh:
@@ -266,11 +282,137 @@ def placements(spec: tuple, mesh) -> tuple:
     return tuple(out)
 
 
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """The placements of one tensor over a ``DeviceMesh``: the port of
+    ``jax.sharding.NamedSharding``."""
+    mesh: object
+    placements: tuple
+
+
 def named_shardings(cfg, params, rules: ShardingRules,
                     per_layer: bool = False) -> dict:
-    """{parameter name: DTensor placements over ``rules.mesh``}."""
-    return {k: placements(s, rules.mesh)
+    """{parameter name: :class:`NamedSharding` over ``rules.mesh``}."""
+    return {k: NamedSharding(rules.mesh, placements(s, rules.mesh))
             for k, s in param_specs(cfg, params, rules, per_layer).items()}
+
+
+def check_world(mesh) -> None:
+    """Raise unless a process group is open whose world is the mesh's
+    size (one process a rank, every rank a coordinate of the mesh)."""
+    import torch.distributed as dist
+
+    world = (dist.get_world_size() if dist.is_available()
+             and dist.is_initialized() else 1)
+    if mesh.size() != world:
+        raise ValueError(
+            f"the mesh has {mesh.size()} ranks and the world {world}: "
+            "start one process a rank, open a process group of the mesh's "
+            "size in each (torch.distributed.init_process_group), then "
+            "build the mesh (init_device_mesh) and pass "
+            "ShardingRules(mesh=...)")
+
+
+def mesh_device(mesh) -> torch.device:
+    """The device of this rank's shards over ``mesh``: the mesh's device
+    type, on a card the current one (``torch.cuda.set_device``)."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def rules_device(rules: ShardingRules, device=None) -> torch.device:
+    """Where a step under ``rules`` runs: :func:`mesh_device` of the mesh,
+    after :func:`check_world`.  A ``device`` of another type raises: under
+    ``rules=`` the mesh decides."""
+    check_world(rules.mesh)
+    dev = mesh_device(rules.mesh)
+    if device is not None and torch.device(device).type != dev.type:
+        raise ValueError(f"device={str(device)!r} disagrees with the mesh's "
+                         f"device type {dev.type!r}; with rules= the mesh "
+                         "decides where the step runs")
+    return dev
+
+
+def place(t: torch.Tensor, sharding: NamedSharding):
+    """A DTensor of ``t`` placed by ``sharding``: this rank keeps its own
+    slice of ``t`` (every rank holds the same full ``t``; nothing is
+    communicated), copied so that ``t`` itself can be freed."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    mesh = sharding.mesh
+    d = distribute_tensor(t.detach().to(mesh_device(mesh)), mesh,
+                          sharding.placements, src_data_rank=None)
+    return DTensor.from_local(d.to_local().clone(), mesh, d.placements,
+                              run_check=False, shape=d.shape,
+                              stride=d.stride())
+
+
+def replace_params(model: nn.Module, make: Callable) -> nn.Module:
+    """``model`` with each parameter ``p`` named ``name`` replaced in place
+    by ``nn.Parameter(make(name, p))``, keeping its ``requires_grad``."""
+    for name, p in list(model.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(owner) if owner else model
+        mod._parameters[leaf] = nn.Parameter(make(name, p),
+                                             requires_grad=p.requires_grad)
+    return model
+
+
+def place_params(cfg, model: nn.Module, rules: ShardingRules,
+                 per_layer: bool = False) -> nn.Module:
+    """``model`` (the same full values on every rank) with every parameter
+    a DTensor placed by :func:`param_specs` over ``rules.mesh``."""
+    check_world(rules.mesh)
+    kind = rules.mesh.device_type
+    for name, p in model.named_parameters():
+        if p.device.type != kind:
+            raise ValueError(f"parameter {name} is on {p.device}; the mesh's "
+                             f"device type is {kind!r}")
+    shard = named_shardings(cfg, model, rules, per_layer)
+    return replace_params(model, lambda name, p: place(p, shard[name]))
+
+
+def place_batch(batch: Mapping[str, torch.Tensor],
+                rules: ShardingRules) -> dict:
+    """Each tensor of ``batch`` (the same global batch on every rank) as a
+    DTensor placed by :func:`batch_sharding`: this rank keeps its rows."""
+    sharding = NamedSharding(rules.mesh, batch_sharding(rules))
+    return {k: place(v, sharding) for k, v in batch.items()}
+
+
+def like_placements(t, like):
+    """``t`` redistributed to ``like``'s placements when both are DTensors
+    whose placements differ (a gradient still ``Partial`` over the batch
+    axes is reduced here); ``t`` itself otherwise."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, DTensor) and isinstance(like, DTensor) \
+            and tuple(t.placements) != tuple(like.placements):
+        return t.redistribute(like.device_mesh, like.placements)
+    return t
+
+
+def replicated(t):
+    """A DTensor ``t`` (a reduction still ``Partial``, say) redistributed
+    to ``Replicate`` on every mesh axis: one value on every rank; a plain
+    tensor as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(t, DTensor):
+        return t
+    return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim)
+
+
+def plain_replicated():
+    """DTensor's ``implicit_replication``: inside it a plain tensor that
+    meets a DTensor counts as replicated on every rank.  A sharded step
+    runs in it: the positions, masks and zeros a model makes, and the
+    optimizer's step count, learning rate and bias corrections, are plain
+    tensors with the same value on every rank."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    return implicit_replication()
 
 
 def _cache_spec(shape, rules: ShardingRules) -> tuple:
@@ -361,6 +503,46 @@ def activation_context(rules: ShardingRules | None):
         yield
     finally:
         _ACTIVE.reset(token)
+
+
+def fsdp_gather(t):
+    """A parameter ``t`` gathered over the FSDP axes of the active rules
+    (its other placements kept), for one use: FSDP's all-gather before a
+    layer runs, whose backward reduce-scatters the gradient back to ``t``'s
+    placements.  The reference's XLA gathers so by itself; DTensor would
+    otherwise contract over the FSDP-sharded dim and leave activations and
+    their gradients ``Partial`` over the batch axes.  Outside an
+    :func:`activation_context`, or for a plain tensor, ``t`` itself."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    rules = _ACTIVE.get()
+    if rules is None or not isinstance(t, DTensor) or not rules.fsdp_axes():
+        return t
+    names = tuple(t.device_mesh.mesh_dim_names)
+    places = list(t.placements)
+    for a in rules.fsdp_axes():
+        places[names.index(a)] = Replicate()
+    if tuple(places) == tuple(t.placements):
+        return t
+    return t.redistribute(t.device_mesh, places)
+
+
+def keep_rules(fn: Callable) -> Callable:
+    """``fn`` run inside the :func:`activation_context` active now, wherever
+    it is called: a remat block recomputed in the backward runs on
+    autograd's thread (a card's device thread), where the context of the
+    forward is not set."""
+    rules = _ACTIVE.get()
+
+    def run(*args, **kwargs):
+        with activation_context(rules):
+            return fn(*args, **kwargs)
+    return run
+
+
+def active_rules() -> ShardingRules | None:
+    """The rules of the innermost :func:`activation_context`, or None."""
+    return _ACTIVE.get()
 
 
 def _activation_spec(shape, kind: str, rules: ShardingRules) -> tuple | None:

@@ -61,26 +61,33 @@ def toolchain() -> list:
 
 
 def _start(source: str, tag: str):
-    """Write the source and start ``nvcc`` on it; None when cached."""
+    """Write the source and start ``nvcc`` on it; None when cached.  Every
+    file a build writes is the process's own until an atomic rename
+    publishes it, so processes building one source at once (the ranks of
+    a sharded run) neither read each other's partial files nor clash."""
     global runs
     so = library_path(source, tag)
     if so.exists():
         return None
     so.parent.mkdir(parents=True, exist_ok=True)
-    cu = so.with_suffix(".cu")
+    own = f".{os.getpid()}.tmp"
+    cu = so.with_suffix(own + ".cu")
     cu.write_text(source)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp.so")
+    tmp = so.with_suffix(own + ".so")
     runs += 1
     proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(cu)],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
-    return so, tmp, proc
+    return so, tmp, cu, proc
 
 
 def _finish(job) -> None:
-    so, tmp, proc = job
+    so, tmp, cu, proc = job
     out, _ = proc.communicate()
-    so.with_suffix(".log").write_text(out)
+    log = tmp.with_suffix(".log")
+    log.write_text(out)
+    os.replace(log, so.with_suffix(".log"))
+    os.replace(cu, so.with_suffix(".cu"))
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed ({proc.returncode}) on "

@@ -141,6 +141,66 @@ def local_bytes(tree) -> int:
                for t in _tensors(tree))
 
 
+class CollectiveLog:
+    """A dispatch mode below DTensor that records each functional
+    collective it issues on local shards: op (the reference's names),
+    result bytes, group size and the mesh axis of its group.  It runs under
+    the dry run's fake group and under a real one alike (the sharded
+    step's collectives by op and axis, ``tests/test_torch_sharded_train.py``
+    and ``chip_smoke.py``); ``during`` names the DTensor operation that
+    issues a collective when a mode above DTensor sets it."""
+
+    def __init__(self, mesh):
+        from torch.distributed.tensor import DTensor
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        groups = {mesh.get_group(d).group_name: d
+                  for d in mesh.mesh_dim_names}
+        log = self
+        self.collectives = []
+        # result bytes of each (collective, axis, DTensor op issuing it)
+        self.during, self.during_bytes = None, {}
+
+        class Comms(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
+                if any(issubclass(t, DTensor) for t in types):
+                    return NotImplemented
+                out = func(*args, **kwargs)
+                op = _COLLECTIVES.get(func._overloadpacket.__name__)
+                if op is not None:
+                    axis = next(groups[a] for a in args
+                                if isinstance(a, str) and a in groups)
+                    log.collectives.append(
+                        {"op": op, "bytes": _nbytes(out),
+                         "group": mesh.size(
+                             mesh.mesh_dim_names.index(axis)),
+                         "axes": [axis]})
+                    key = (op, axis, log.during)
+                    log.during_bytes[key] = log.during_bytes.get(
+                        key, 0) + _nbytes(out)
+                return out
+
+        self.mode = Comms()
+
+    def by_op_axis(self) -> dict:
+        """{"<op> over <axis>": {"count", "bytes"}} of what was recorded."""
+        out: dict = {}
+        for c in self.collectives:
+            a = out.setdefault(f"{c['op']} over {c['axes'][0]}",
+                               {"count": 0, "bytes": 0})
+            a["count"] += 1
+            a["bytes"] += c["bytes"]
+        return out
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.mode.__exit__(*exc)
+
+
 class StepTrace:
     """Records one step's collectives, FLOPs, bytes and implicit
     replications on one device of ``mesh`` (see the module docstring)."""
@@ -150,12 +210,11 @@ class StepTrace:
         from torch.utils._python_dispatch import TorchDispatchMode
         from torch.utils.flop_counter import flop_registry
 
-        groups = {mesh.get_group(d).group_name: d
-                  for d in mesh.mesh_dim_names}
         trace = self
-        self.collectives, self.implicit = [], []
-        # result bytes of each (collective, axis, DTensor op issuing it)
-        self.during, self.during_bytes = None, {}
+        self.comms = CollectiveLog(mesh)
+        self.collectives = self.comms.collectives
+        self.during_bytes = self.comms.during_bytes
+        self.implicit = []
         self.flops, self.bytes = 0.0, 0
 
         def split(out) -> int:
@@ -175,7 +234,7 @@ class StepTrace:
 
             def __torch_dispatch__(self, func, types, args=(), kwargs=None):
                 kwargs = kwargs or {}
-                trace.during = str(func)
+                trace.comms.during = str(func)
                 try:
                     out = func(*args, **kwargs)
                 except RuntimeError as err:
@@ -209,29 +268,7 @@ class StepTrace:
                                  "bytes": _nbytes(a)})
                 return out
 
-        class Comms(TorchDispatchMode):
-            """Below DTensor: the collectives it issues on local shards."""
-
-            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-                kwargs = kwargs or {}
-                if any(issubclass(t, DTensor) for t in types):
-                    return NotImplemented
-                out = func(*args, **kwargs)
-                op = _COLLECTIVES.get(func._overloadpacket.__name__)
-                if op is not None:
-                    axis = next(groups[a] for a in args
-                                if isinstance(a, str) and a in groups)
-                    trace.collectives.append(
-                        {"op": op, "bytes": _nbytes(out),
-                         "group": mesh.size(
-                             mesh.mesh_dim_names.index(axis)),
-                         "axes": [axis]})
-                    trace.during_bytes[(op, axis, trace.during)] = \
-                        trace.during_bytes.get((op, axis, trace.during),
-                                               0) + _nbytes(out)
-                return out
-
-        self._modes = (Comms(), Ops())
+        self._modes = (self.comms, Ops())
         self.fallbacks = []
         self.live = self.peak = 0
 

@@ -5,8 +5,9 @@ Everything here is allocation-free: parameters, optimizer moments, caches
 and inputs are DTensors over a ``DeviceMesh`` whose local shards are
 ``"meta"`` tensors, placed by the :mod:`repro_torch.dist.sharding` rules,
 and each step is the port's own program on them: ``lm_loss`` or
-``whisper_loss`` under ``torch.autograd.grad`` with gradient accumulation
-and AdamW, ``prefill`` / ``whisper_prefill``, or ``decode_step`` /
+``whisper_loss`` through the train step that ``train.Trainer(rules=)``
+runs (``train.loop.train_step``: gradients accumulated, AdamW),
+``prefill`` / ``whisper_prefill``, or ``decode_step`` /
 ``whisper_decode_step``.  A step runs inside ``activation_context(rules)``
 (the reference's ``with_sharding_constraint`` points) and DTensor's
 ``implicit_replication`` (the plain tensors a model makes: positions,
@@ -23,13 +24,15 @@ from torch import nn
 
 from ..configs.base import ModelConfig, ShapeConfig
 from ..dist.sharding import (ShardingRules, activation_context,
-                             param_specs, sharded_empty)
+                             param_specs, plain_replicated, replace_params,
+                             sharded_empty)
 from ..models.transformer import (LM, decode_step, init_cache, lm_loss,
                                   prefill)
 from ..models.whisper import (Whisper, whisper_decode_step,
                               whisper_init_cache, whisper_loss,
                               whisper_prefill)
-from ..train.optimizer import OptConfig, adamw_update
+from ..train.loop import TrainConfig, train_step
+from ..train.optimizer import OptConfig, adamw_init
 
 #: the device of every local shard: shapes only, nothing allocated
 META = torch.device("meta")
@@ -48,13 +51,9 @@ def shard_params(cfg: ModelConfig, model: nn.Module, rules: ShardingRules,
     """``model`` with every parameter replaced by a DTensor placed by
     ``param_specs`` (meta local shards)."""
     specs = param_specs(cfg, model, rules, per_layer)
-    for name, p in list(model.named_parameters()):
-        owner, _, leaf = name.rpartition(".")
-        mod = model.get_submodule(owner) if owner else model
-        mod._parameters[leaf] = nn.Parameter(
-            sharded_empty(p.shape, p.dtype, META, specs[name], rules.mesh),
-            requires_grad=requires_grad)
-    return model
+    model.requires_grad_(requires_grad)
+    return replace_params(model, lambda name, p: sharded_empty(
+        p.shape, p.dtype, META, specs[name], rules.mesh))
 
 
 def _batch_axes_spec(rules: ShardingRules, batch: int):
@@ -115,47 +114,12 @@ def auto_microbatches(cfg: ModelConfig, shape: ShapeConfig,
     return mb
 
 
-def _local_rows(x, i: int, mb: int):
-    """Microbatch ``i`` of ``mb``: rows of each device's batch shard
-    (no communication; the reference's reshape takes global rows, the
-    same work)."""
-    from torch.distributed.tensor import DTensor
-
-    local = x.to_local()
-    n = local.shape[0] // mb
-    return DTensor.from_local(local[i * n:(i + 1) * n], x.device_mesh,
-                              x.placements, run_check=False)
-
-
-def _moments(params: nn.Module) -> dict:
-    """AdamW's state beside DTensor parameters: float32 zero moments placed
-    as their parameters, and a step count."""
-    from torch.distributed.tensor import DTensor
-
-    def zeros(p):
-        local = torch.zeros(p.to_local().shape, dtype=torch.float32,
-                            device=META)
-        return DTensor.from_local(local, p.device_mesh, p.placements,
-                                  run_check=False, shape=p.shape,
-                                  stride=p.stride())
-    named = dict(params.named_parameters())
-    return {"mu": {k: zeros(p) for k, p in named.items()},
-            "nu": {k: zeros(p) for k, p in named.items()},
-            "count": torch.zeros((), dtype=torch.int32, device=META)}
-
-
-def _replicating():
-    from torch.distributed.tensor.experimental import implicit_replication
-
-    return implicit_replication()
-
-
 def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
                      rules: ShardingRules, remat: bool = True,
                      microbatches: int | None = None):
     """Returns (step, args): ``step(*args)`` runs one AdamW step of the
-    loss, gradients accumulated over ``step.microbatches``."""
-    opt_cfg = OptConfig()
+    loss, gradients accumulated over ``step.microbatches``: the step
+    ``Trainer(rules=)`` runs (``train.loop.train_step``), on meta shards."""
     mb = microbatches or auto_microbatches(cfg, shape, rules)
     params = shard_params(cfg, params_shapes(cfg), rules,
                           requires_grad=True)
@@ -163,37 +127,25 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
     if cfg.family == "encdec":
         names = ("frames", "tokens", "labels")
 
-        def loss_fn(p, frames, tokens, labels):
-            return whisper_loss(cfg, p, frames, tokens, labels, remat=remat)
+        def loss_fn(p, b):
+            return whisper_loss(cfg, p, b["frames"], b["tokens"],
+                                b["labels"], remat=remat)
     else:
         names = ("tokens", "labels")
 
-        def loss_fn(p, tokens, labels):
-            return lm_loss(cfg, p, tokens, labels, remat=remat)
+        def loss_fn(p, b):
+            return lm_loss(cfg, p, b["tokens"], b["labels"], remat=remat)
+    body = train_step(loss_fn, TrainConfig(opt=OptConfig(), microbatches=mb,
+                                           remat=remat), rules)
 
     def step(params, opt_state, *batch):
-        with activation_context(rules), _replicating():
-            named = dict(params.named_parameters())
-            grads, loss = None, 0.0
-            for i in range(mb):
-                part = [_local_rows(x, i, mb) if mb > 1 else x
-                        for x in batch]
-                loss_i, _ = loss_fn(params, *part)
-                g = torch.autograd.grad(loss_i, list(named.values()),
-                                        allow_unused=True)
-                g = {k: (torch.zeros_like(p) if gi is None else gi).float()
-                     for (k, p), gi in zip(named.items(), g)}
-                grads = g if grads is None else {k: grads[k] + g[k]
-                                                 for k in grads}
-                loss = loss + loss_i.detach()
-            if mb > 1:
-                grads = {k: g / mb for k, g in grads.items()}
-                loss = loss / mb
-            adamw_update(opt_cfg, named, grads, opt_state)
-        return params, opt_state, loss
+        params, opt_state, _, metrics = body(params, opt_state, None,
+                                             dict(zip(names, batch)))
+        return params, opt_state, metrics["loss"]
 
     step.microbatches = mb
-    return step, (params, _moments(params), *(ins[k] for k in names))
+    named = dict(params.named_parameters())
+    return step, (params, adamw_init(named), *(ins[k] for k in names))
 
 
 def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig,
@@ -204,12 +156,12 @@ def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig,
 
     if cfg.family == "encdec":
         def step(params, frames, tokens):
-            with activation_context(rules), _replicating():
+            with activation_context(rules), plain_replicated():
                 return whisper_prefill(cfg, params, frames, tokens, max_len)
         return step, (params, ins["frames"], ins["tokens"])
 
     def step(params, tokens):
-        with activation_context(rules), _replicating():
+        with activation_context(rules), plain_replicated():
             return prefill(cfg, params, tokens, max_len)
     return step, (params, ins["tokens"])
 
@@ -230,7 +182,7 @@ def build_decode_step(cfg: ModelConfig, shape: ShapeConfig,
     dec = whisper_decode_step if encdec else decode_step
 
     def step(params, cache, tokens, pos):
-        with activation_context(rules), _replicating():
+        with activation_context(rules), plain_replicated():
             return dec(cfg, params, cache, tokens, pos)
 
     return step, (params, cache, ins["tokens"], ins["pos"])

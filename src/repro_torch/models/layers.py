@@ -177,6 +177,73 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # attention
 # --------------------------------------------------------------------------
 
+def _local_heads(spec: AttnSpec, q, k) -> AttnSpec:
+    """``spec`` with the head counts of the local q and k of one rank."""
+    return dataclasses.replace(spec, n_heads=q.shape[2],
+                               n_kv_heads=k.shape[2])
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def flat_ready(t: torch.Tensor, first: int, last: int,
+               to: int | None = None) -> torch.Tensor:
+    """``t`` ready for an einsum that flattens its dims ``first..last``
+    into one: a DTensor whose mesh axes shard an inner dim of that group
+    (any but ``first``) is redistributed, each such axis moved to dim
+    ``to`` (``first`` by default) where it divides that dim and replicated
+    where not.  DTensor cannot flatten a group sharded on an inner dim
+    without redistributing, which a view may not do (torch 2.11 raises;
+    later releases keep a strided shard).  The rules put TP on a
+    projection's head dim, its innermost divisible dim, so ``wq``, ``wk``,
+    ``wv`` (d, heads, head dim) and ``wo`` (heads, head dim, d) arrive so;
+    and DTensor may shard an activation's sequence over TP, which the next
+    product's (batch, sequence) flatten cannot take.  A plain tensor is
+    returned as it is."""
+    if not _is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+
+    to = first if to is None else to
+    places, sizes = list(t.placements), list(t.device_mesh.shape)
+    moved = False
+    for i, pl in enumerate(places):
+        if isinstance(pl, Shard) and first < pl.dim <= last:
+            on_to = math.prod(sizes[j] for j, q in enumerate(places)
+                              if isinstance(q, Shard) and q.dim == to)
+            places[i] = (Shard(to) if t.shape[to] % (on_to * sizes[i]) == 0
+                         else Replicate())
+            moved = True
+    return t.redistribute(t.device_mesh, places) if moved else t
+
+
+class _RowsReady(torch.autograd.Function):
+    """:func:`flat_ready` over the leading dims, on the tensor and on its
+    gradient: a product's backward flattens the gradient of its output the
+    way its forward flattened the input."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return flat_ready(x, 0, x.dim() - 2, to=x.dim() - 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return flat_ready(g, 0, g.dim() - 2, to=g.dim() - 1)
+
+
+def rows_ready(x: torch.Tensor) -> torch.Tensor:
+    """An activation ready for a product that flattens its leading dims
+    (batch, sequence) into rows, forward and backward: :func:`flat_ready`
+    over them, an axis that shards an inner one moved to the feature dim
+    (the product's contraction) where it divides it, on ``x`` and on the
+    gradient that comes back to it.  A plain tensor is returned as it
+    is."""
+    return _RowsReady.apply(x) if _is_dtensor(x) else x
+
+
 def _repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
     kvh = k.shape[-2]
     if kvh == n_heads:
@@ -299,9 +366,10 @@ def project_qkv(p: Attention, x, spec: AttnSpec, positions=None,
     """q (B,S,H,Dh) and k, v (B,S,KV,Dh) of a self-attention block, after
     qk-norm and RoPE: what :func:`attention_apply` attends over, and what
     prefill writes to the cache."""
-    q = torch.einsum("bsd,dhk->bshk", x, p.wq)
-    k = torch.einsum("bsd,dhk->bshk", x, p.wk)
-    v = torch.einsum("bsd,dhk->bshk", x, p.wv)
+    x = rows_ready(x)
+    q = torch.einsum("bsd,dhk->bshk", x, flat_ready(p.wq, 1, 2))
+    k = torch.einsum("bsd,dhk->bshk", x, flat_ready(p.wk, 1, 2))
+    v = torch.einsum("bsd,dhk->bshk", x, flat_ready(p.wv, 1, 2))
     if spec.qk_norm:
         q = norm_apply(p.q_norm, q, norm_kind)
         k = norm_apply(p.k_norm, k, norm_kind)
@@ -316,7 +384,14 @@ def project_qkv(p: Attention, x, spec: AttnSpec, positions=None,
 def attend(q, k, v, spec: AttnSpec):
     """Causal self-attention of projected q, k, v, by sequence length: SWA
     beyond the window (the CUDA kernel on the card when the layer has no
-    softcap), flash beyond ``spec.chunk``, else dense."""
+    softcap), flash beyond ``spec.chunk``, else dense.  On DTensors
+    (sharded training) it runs on each rank's batch rows and heads
+    (``ops.on_shards``): DTensor cannot flatten the (batch, heads) of a
+    product sharded on both without redistributing, and the kernel reads
+    local tensors."""
+    if _is_dtensor(q):
+        return ops.on_shards(lambda q, k, v: attend(
+            q, k, v, _local_heads(spec, q, k)), q, k, v)
     S = q.shape[1]
     if spec.window and S > spec.window:
         if q.device.type == "cuda" and not spec.softcap:
@@ -340,8 +415,9 @@ def attention_apply(p: Attention, x, spec: AttnSpec, positions=None,
     if kv_override is None:
         q, k, v = project_qkv(p, x, spec, positions, rope_theta, use_rope,
                               norm_kind)
-        return torch.einsum("bshk,hkd->bsd", attend(q, k, v, spec), p.wo)
-    q = torch.einsum("bsd,dhk->bshk", x, p.wq)
+        return torch.einsum("bshk,hkd->bsd", attend(q, k, v, spec),
+                            flat_ready(p.wo, 0, 1))
+    q = torch.einsum("bsd,dhk->bshk", x, flat_ready(p.wq, 1, 2))
     k, v = kv_override
     if spec.qk_norm:
         q = norm_apply(p.q_norm, q, norm_kind)
@@ -350,9 +426,13 @@ def attention_apply(p: Attention, x, spec: AttnSpec, positions=None,
         if positions is None:
             positions = torch.arange(x.shape[1], device=x.device)
         q = apply_rope(q, positions, rope_theta)
-    out = dense_attention(q, k, v, dataclasses.replace(spec, causal=False,
-                                                       window=0))
-    return torch.einsum("bshk,hkd->bsd", out, p.wo)
+    cross = dataclasses.replace(spec, causal=False, window=0)
+    if _is_dtensor(q):
+        out = ops.on_shards(lambda q, k, v: dense_attention(
+            q, k, v, _local_heads(cross, q, k)), q, k, v)
+    else:
+        out = dense_attention(q, k, v, cross)
+    return torch.einsum("bshk,hkd->bsd", out, flat_ready(p.wo, 0, 1))
 
 
 # -------------------------------------------------------------------- decode
@@ -412,10 +492,12 @@ _ACTS = {
 
 
 def mlp_apply(p: MLP, x, act="silu"):
-    h = torch.einsum("...d,df->...f", x, p.w_in)
-    g = (torch.einsum("...d,df->...f", x, p.w_gate) if hasattr(p, "w_gate")
-         else None)
-    return torch.einsum("...f,fd->...d", _gated(h, g, act), p.w_out)
+    x = rows_ready(x)
+    h = rows_ready(torch.einsum("...d,df->...f", x, p.w_in))
+    g = (rows_ready(torch.einsum("...d,df->...f", x, p.w_gate))
+         if hasattr(p, "w_gate") else None)
+    return rows_ready(torch.einsum("...f,fd->...d",
+                                   rows_ready(_gated(h, g, act)), p.w_out))
 
 
 def _gated(h, g, act):

@@ -30,7 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Norm, _dense_init, norm_apply
+from ..kernels.ops import on_head_shards
+from .layers import Norm, _dense_init, _is_dtensor, flat_ready, norm_apply
 
 _CHUNK = 256
 #: positions a sub-block of :func:`_linear_scan` steps through in turn
@@ -262,9 +263,11 @@ def mlstm_apply(p: MLSTM, x, state=None, chunk=_CHUNK):
     B, S, _ = x.shape
     H, dh = p.wq.shape[1], p.wq.shape[2]
     xi, z = torch.einsum("bsd,de->bse", x, p.w_up).chunk(2, -1)
-    q = torch.einsum("bse,ehk->bshk", xi, p.wq) / math.sqrt(dh)
-    k = torch.einsum("bse,ehk->bshk", xi, p.wk) / math.sqrt(dh)
-    v = torch.einsum("bse,ehk->bshk", xi, p.wv)
+    q = torch.einsum("bse,ehk->bshk", xi, flat_ready(p.wq, 1, 2)
+                     ) / math.sqrt(dh)
+    k = torch.einsum("bse,ehk->bshk", xi, flat_ready(p.wk, 1, 2)
+                     ) / math.sqrt(dh)
+    v = torch.einsum("bse,ehk->bshk", xi, flat_ready(p.wv, 1, 2))
     gates = (torch.einsum("bse,eg->bsg", xi.float(), p.w_if.float())
              + p.if_bias)
     ig, fg = gates.chunk(2, -1)                               # (B,S,H)
@@ -290,14 +293,30 @@ def mlstm_apply(p: MLSTM, x, state=None, chunk=_CHUNK):
         c = min(chunk, S)
         if S % c:
             c = S
-        ys = []
-        for s0 in range(0, S, c):
-            sl = slice(s0, s0 + c)
-            st, y = _mlstm_chunk(st, q[:, sl], k[:, sl], v[:, sl],
-                                 log_f[:, sl], ig[:, sl])
-            ys.append(y)
-        y = torch.cat(ys, 1)
-        new_state = st
+
+        def chunks(q, k, v, log_f, ig, *st):
+            if not st:
+                st = mlstm_init_state_b(q.shape[0], q.shape[2], dh,
+                                        q.device)
+            ys = []
+            for s0 in range(0, S, c):
+                sl = slice(s0, s0 + c)
+                st, y = _mlstm_chunk(st, q[:, sl], k[:, sl], v[:, sl],
+                                     log_f[:, sl], ig[:, sl])
+                ys.append(y)
+            return (torch.cat(ys, 1), *st)
+        if _is_dtensor(q):
+            # per batch row and head, on each rank's shard: DTensor cannot
+            # flatten the (batch, heads) of the chunks' products when both
+            # are sharded
+            st = () if state is None else tuple(st)
+            y, *new_state = on_head_shards(
+                chunks, (q, k, v, log_f, ig, *st),
+                (2, 2, 2, 2, 2, 1, 1, 1)[:5 + len(st)],
+                [(4, 2), (4, 1), (3, 1), (2, 1)])
+        else:
+            y, *new_state = chunks(q, k, v, log_f, ig, *st)
+        new_state = tuple(new_state)
 
     y = norm_apply(p.out_norm, y.to(x.dtype))
     y = y.reshape(B, S, -1) * F.silu(z)

@@ -55,11 +55,12 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.pipeline import resolve_device
-from ..dist.sharding import cache_zeros, shard_activation
+from ..dist.sharding import (cache_zeros, fsdp_gather, keep_rules,
+                             shard_activation)
 from . import ssm
-from .layers import (MLP, Attention, AttnSpec, MoE, Norm, attend,
-                     attention_apply, decode_attention, mlp_apply, moe_apply,
-                     norm_apply, project_qkv)
+from .layers import (MLP, Attention, AttnSpec, MoE, Norm, _is_dtensor,
+                     attend, attention_apply, decode_attention, mlp_apply,
+                     moe_apply, norm_apply, project_qkv)
 
 _DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -179,10 +180,13 @@ def cast_params(p: nn.Module, dtype: torch.dtype) -> nn.Module:
 def train_cast(p: nn.Module, dtype: torch.dtype):
     """Mixed precision for training: ``p``'s structure (attribute by
     attribute) with every floating parameter ``.to(dtype)`` — a cast that
-    autograd differentiates, so the gradients reach the masters."""
+    autograd differentiates, so the gradients reach the masters.  Sharded,
+    each cast parameter is gathered over the FSDP axes
+    (``dist.sharding.fsdp_gather``), in ``dtype``."""
     out = types.SimpleNamespace()
     for name, t in p.named_parameters(recurse=False):
-        setattr(out, name, t.to(dtype) if t.is_floating_point() else t)
+        setattr(out, name, fsdp_gather(t.to(dtype))
+                if t.is_floating_point() else t)
     for name, child in p.named_children():
         setattr(out, name, train_cast(child, dtype))
     return out
@@ -199,7 +203,9 @@ def embed_tokens(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
     decode step).  The scaling and the sum run in float32, as the
     reference's do on float32 master weights: on ``params.embed_master``
     and ``params.pos_emb_master`` where a server's cast copy keeps them."""
-    x = getattr(params, "embed_master", params.embed)[tokens].float()
+    table = getattr(params, "embed_master", params.embed)
+    x = (_lookup_on_shards(table, tokens) if _is_dtensor(table)
+         else table[tokens]).float()
     if cfg.emb_scale:
         x = x * math.sqrt(cfg.d_model)
     if cfg.pos == "learned":
@@ -209,12 +215,47 @@ def embed_tokens(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
     return x.to(_DT[cfg.dtype])
 
 
+def _lookup_on_shards(table, tokens):
+    """``table[tokens]`` for a DTensor table (V, d) and tokens (B, S), on
+    each rank's shard: the table gathered over every mesh axis but those
+    that shard its d (FSDP's gather, for this use), each rank's rows of
+    tokens looked up in its columns; the table's gradient comes back
+    ``Partial`` over the axes that split the batch and is reduced to the
+    table's own placements (FSDP's reduce-scatter).  DTensor's own
+    strategy for the index's backward failed on torch 2.11 (an unnormalised
+    ``Shard(-1)``, then a ``Shard`` to ``Partial`` it cannot run)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    tok = tokens.placements if _is_dtensor(tokens) else \
+        (Replicate(),) * mesh.ndim
+    t_in, out, grad = [], [], []
+    for tp, kp in zip(table.placements, tok):
+        batch = isinstance(kp, Shard) and kp.dim == 0
+        cols = isinstance(tp, Shard) and tp.dim == 1 and not batch
+        t_in.append(Shard(1) if cols else Replicate())
+        out.append(Shard(2) if cols else Shard(0) if batch else Replicate())
+        grad.append(Shard(1) if cols else Partial() if batch else
+                    Replicate())
+    table = table.redistribute(mesh, t_in)
+    return local_map(lambda t, i: t[i], out_placements=out,
+                     in_placements=(tuple(t_in), tuple(tok)),
+                     in_grad_placements=(tuple(grad), tuple(tok)),
+                     device_mesh=mesh)(table, tokens)
+
+
 def unembed(cfg: ModelConfig, params: LM, x: torch.Tensor):
     """(B, S, d) -> float32 logits (B, S, vocab_padded): the product in
     ``x``'s dtype, the final softcap, padded vocab rows at -1e30."""
     x = norm_apply(train_cast(params.ln_f, _DT[cfg.dtype]), x, cfg.norm)
-    table = params.embed.T if cfg.tie_embeddings else params.lm_head
-    logits = torch.einsum("bsd,dv->bsv", x, table.to(x.dtype)).float()
+    if cfg.tie_embeddings:      # (v, d) as it is: no transposed view
+        logits = torch.einsum("bsd,vd->bsv", x,
+                              fsdp_gather(params.embed.to(x.dtype)))
+    else:
+        logits = torch.einsum("bsd,dv->bsv", x,
+                              fsdp_gather(params.lm_head.to(x.dtype)))
+    logits = logits.float()
     if cfg.final_softcap:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return shard_activation(mask_padded_vocab(cfg, logits), "logits")
@@ -272,8 +313,9 @@ def lm_forward(cfg: ModelConfig, params: LM, tokens: torch.Tensor,
     auxs = []
     for i, bp in enumerate(params.blocks):
         if remat:
-            x, aux = checkpoint(block_apply, cfg, bp, x, cfg.layer_kind(i),
-                                positions, use_reentrant=False)
+            x, aux = checkpoint(keep_rules(block_apply), cfg, bp, x,
+                                cfg.layer_kind(i), positions,
+                                use_reentrant=False)
         else:
             x, aux = block_apply(cfg, bp, x, cfg.layer_kind(i), positions)
         auxs.append(aux)

@@ -37,10 +37,10 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.pipeline import resolve_device
-from ..dist.sharding import cache_zeros, shard_activation
+from ..dist.sharding import cache_zeros, keep_rules, shard_activation
 from .layers import (MLP, Attention, AttnSpec, Norm, attend, attention_apply,
-                     decode_attention, dense_attention, mlp_apply, norm_apply,
-                     project_qkv)
+                     decode_attention, dense_attention, flat_ready,
+                     mlp_apply, norm_apply, project_qkv)
 from .transformer import (_DT, cast_params, logsumexp, mask_padded_vocab,
                           train_cast)
 
@@ -149,8 +149,10 @@ def _enc_block(cfg: ModelConfig, bp: EncBlock, x):
 def _cross_kv(bp, enc_out):
     """The cross-attention's k and v (B, enc_seq, KV, Dh) of the encoder's
     output."""
-    return (torch.einsum("bsd,dhk->bshk", enc_out, bp.xattn.wk),
-            torch.einsum("bsd,dhk->bshk", enc_out, bp.xattn.wv))
+    return (torch.einsum("bsd,dhk->bshk", enc_out,
+                         flat_ready(bp.xattn.wk, 1, 2)),
+            torch.einsum("bsd,dhk->bshk", enc_out,
+                         flat_ready(bp.xattn.wv, 1, 2)))
 
 
 def _dec_block(cfg: ModelConfig, bp: DecBlock, x, enc_out):
@@ -171,7 +173,8 @@ def _dec_block(cfg: ModelConfig, bp: DecBlock, x, enc_out):
 def _run(block, cfg, blocks, x, *extra, remat=False):
     for bp in blocks:
         if remat:
-            x = checkpoint(block, cfg, bp, x, *extra, use_reentrant=False)
+            x = checkpoint(keep_rules(block), cfg, bp, x, *extra,
+                           use_reentrant=False)
         else:
             x = block(cfg, bp, x, *extra)
     return x

@@ -5,9 +5,13 @@ with a per-tensor scale and dequantised; the quantisation residual is
 carried in an error-feedback buffer, so the scheme is unbiased over time.
 "Per tensor" is per leaf of the reference's tree, where a block parameter
 is one tensor stacked over the layers (``optimizer.stacked_leaf``).
-On one device this shows the numerics and the EF invariant; the byte
-saving belongs to a data-parallel all-reduce, which the port does not
-shard yet (ROADMAP A16).
+Sharded (DTensor gradients), the error buffers are DTensors placed as
+their parameters, each gradient is redistributed to them first (the
+data-parallel reduction), and a leaf's scale is the max over every shard
+of every layer of it, reduced to one replicated value: the numbers are the
+unsharded compression's.  As in the reference, what is compressed is the
+already-reduced gradient: no collective carries int8, and the byte saving
+the scheme is for (a data-parallel all-reduce of int8) is not taken.
 """
 
 from __future__ import annotations
@@ -16,12 +20,15 @@ from typing import Mapping
 
 import torch
 
+from ..dist.sharding import like_placements, replicated
 from .optimizer import stacked_leaf
 
 
 def ef_init(params: Mapping[str, torch.Tensor]) -> dict:
-    """A zero float32 error buffer beside each parameter."""
-    return {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    """A zero float32 error buffer beside each parameter (placed as it
+    is, when it is a DTensor)."""
+    return {k: torch.zeros_like(p, dtype=torch.float32,
+                                memory_format=torch.contiguous_format)
             for k, p in params.items()}
 
 
@@ -41,10 +48,11 @@ def ef_compress_grads(grads: Mapping[str, torch.Tensor],
                       err_state: Mapping[str, torch.Tensor]):
     """(dequantised grads, new error buffers), with a scale a leaf of the
     reference's tree: one scale spans a block parameter's layers."""
-    total = {k: g.float() + err_state[k] for k, g in grads.items()}
+    total = {k: like_placements(g, err_state[k]).float() + err_state[k]
+             for k, g in grads.items()}
     peak: dict = {}
     for k, t in total.items():
-        m = t.abs().max()
+        m = replicated(t.abs().max())
         leaf = stacked_leaf(k)
         peak[leaf] = m if leaf not in peak else torch.maximum(peak[leaf], m)
     out = {k: _quantise(t, torch.clamp(peak[stacked_leaf(k)], min=1e-12)

@@ -16,6 +16,17 @@ does not:
 :func:`adamw_update` writes the parameters and moments in place under
 ``torch.no_grad`` (the reference donates its buffers to the jitted step),
 so a step at full width never holds a second copy of the masters.
+
+Sharded (DTensor parameters, ``train.loop`` under ``rules=``): the moments
+are DTensors placed as their parameters (the reference's moments inherit
+the parameter sharding); each gradient is first redistributed to its
+parameter's placements (``dist.sharding.like_placements``: a gradient
+still ``Partial`` over the batch axes is reduced there, the data-parallel
+reduction), and the global norm is one replicated value on every rank.
+The step count, learning rate and bias corrections stay plain 0-d
+tensors, equal on every rank, which meet the DTensor moments under
+DTensor's ``implicit_replication`` (``dist.sharding.plain_replicated``),
+opened here for DTensor parameters.
 """
 
 from __future__ import annotations
@@ -26,7 +37,8 @@ from typing import Callable, Mapping
 
 import torch
 
-from ..dist.sharding import STACKS
+from ..dist.sharding import (STACKS, like_placements, plain_replicated,
+                             replicated)
 
 
 @dataclasses.dataclass
@@ -74,8 +86,10 @@ def leaf_rank(name: str, t: torch.Tensor) -> int:
 
 
 def adamw_init(params: Mapping[str, torch.Tensor]) -> dict:
-    """Zero float32 moments beside each parameter, and a step count."""
-    zeros = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    """Zero float32 moments beside each parameter (placed as it is, when
+    it is a DTensor), and a step count."""
+    zeros = {k: torch.zeros_like(p, dtype=torch.float32,
+                                 memory_format=torch.contiguous_format)
              for k, p in params.items()}
     dev = next(iter(params.values())).device if params else None
     return {"mu": zeros,
@@ -84,9 +98,10 @@ def adamw_init(params: Mapping[str, torch.Tensor]) -> dict:
 
 
 def global_norm(grads: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of every gradient's squares, in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in grads.values()))
+    """sqrt of the sum of every gradient's squares, in float32 (over
+    DTensors, one replicated value)."""
+    return replicated(torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                     for g in grads.values())))
 
 
 def _clip_scale(gnorm: torch.Tensor, max_norm) -> torch.Tensor:
@@ -109,6 +124,12 @@ def adamw_update(cfg: OptConfig, params: Mapping[str, torch.Tensor],
     ``params`` and the moments are updated in place; returns (params, the
     state with its new count, {"grad_norm", "lr"})."""
     lr_fn = lr_fn or cosine_schedule(cfg)
+    grads = {k: like_placements(grads[k], p) for k, p in params.items()}
+    with plain_replicated():
+        return _adamw_update(cfg, params, grads, state, lr_fn)
+
+
+def _adamw_update(cfg, params, grads, state, lr_fn):
     # clipped leaf by leaf below, so no second copy of the gradients
     gnorm = global_norm(grads)
     scale = _clip_scale(gnorm, cfg.clip_norm)

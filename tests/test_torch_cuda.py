@@ -775,3 +775,87 @@ def test_train_step_on_the_card_matches_the_cpu():
     assert out["cpu"][1:] == (0, 0)
     for k, p in out["cpu"][0].items():
         assert _rel_err(out["cuda"][0][k], p) <= 1e-5, k
+
+
+SHARDED_RANKS = r'''
+import contextlib, dataclasses, json, sys
+from pathlib import Path
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+WORLD = 4
+
+
+def rank_main(rank, work):
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_smoke
+    from repro_torch.data import BatchSpec, SyntheticLM
+    from repro_torch.dist.host_staged import HostStagedCollectives
+    from repro_torch.kernels import swa
+    from repro_torch.launch.mesh import make_rules
+    from repro_torch.train import OptConfig, TrainConfig, Trainer
+
+    nccl = torch.cuda.device_count() >= WORLD
+    torch.cuda.set_device(rank if nccl else 0)
+    dist.init_process_group("nccl" if nccl else "gloo",
+                            init_method=f"file://{work}/store", rank=rank,
+                            world_size=WORLD)
+    mesh = init_device_mesh("cuda", (2, 2), mesh_dim_names=("data", "model"))
+    cfg = dataclasses.replace(get_smoke("h2o_danube_1_8b"), dtype="float32")
+    data = SyntheticLM(BatchSpec(4, 64, cfg.vocab), seed=0)
+    tcfg = TrainConfig(opt=OptConfig(lr=1e-3, warmup_steps=2,
+                                     total_steps=40),
+                       ckpt_every=10**9, ckpt_dir=f"{work}/ck",
+                       log_every=10**9)
+    with (contextlib.nullcontext() if nccl else HostStagedCollectives()):
+        swa.launches = swa.backward_launches = 0
+        hist = Trainer(cfg, tcfg, data,
+                       rules=make_rules(mesh, kind="train")).run(1)
+        launches = [swa.launches, swa.backward_launches]
+    out = {"sharded": hist, "launches": launches}
+    if rank == 0:
+        out["single"] = Trainer(cfg, tcfg, data).run(1)
+    Path(f"{work}/rank{rank}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    mp.spawn(rank_main, args=(sys.argv[1],), nprocs=WORLD)
+'''
+
+
+@pytest.mark.cuda
+def test_sharded_smoke_step_on_the_card(tmp_path):
+    """One ``Trainer(rules=)`` step of the Danube smoke config in float32
+    on 4 ranks of a (2, 2) mesh on the card (NCCL with a card a rank, else
+    gloo staged through host memory), under the dry run's train rules:
+    the loss and grad norm equal on every rank and within 1e-4 of the
+    unsharded Trainer's on the card, and the float32 SWA kernels launched
+    on every rank's shard (a forward and a backward a layer)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    _needs_card()
+    script = tmp_path / "ranks.py"
+    script.write_text(SHARDED_RANKS)
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    res = subprocess.run([sys.executable, str(script), str(tmp_path)],
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert res.returncode == 0, res.stderr[-4000:]
+    ranks = [json.loads((tmp_path / f"rank{r}.json").read_text())
+             for r in range(4)]
+    want = ranks[0]["single"][0]
+    for r in ranks:
+        got = r["sharded"][0]
+        assert got["loss"] == ranks[0]["sharded"][0]["loss"]
+        for k in ("loss", "grad_norm"):
+            assert abs(got[k] - want[k]) <= 1e-4 * abs(want[k]), (k, got,
+                                                                 want)
+        assert r["launches"] == [2, 2], r["launches"]

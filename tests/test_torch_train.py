@@ -33,6 +33,7 @@ import json
 import os
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import jax
@@ -64,6 +65,7 @@ from repro_torch.data import (BatchSpec, MemmapCorpus, SyntheticLM,
 from repro_torch.interop import (lm_params_from_reference,
                                  lm_tree_to_reference,
                                  opt_state_from_reference)
+from repro_torch.dist import ShardingRules
 from repro_torch.models import ServeEngine, lm_loss
 from repro_torch.train import (OptConfig, TrainConfig, Trainer, adamw_init,
                                adamw_update, clip_by_global_norm,
@@ -340,7 +342,7 @@ def test_checkpoint_integrity_checks(tmp_path):
         json.dump(m, f)
     with pytest.raises(ValueError, match="corrupt shard"):
         restore_checkpoint(d, 1, {"a": torch.zeros(3)})
-    with pytest.raises(NotImplementedError, match="A16"):
+    with pytest.raises(TypeError, match="NamedSharding"):
         restore_checkpoint(d, 1, {"a": torch.zeros(3)}, shardings={"a": 0})
 
 
@@ -732,18 +734,23 @@ def test_full_lm_system_train_then_serve(tmp_path):
 
 def test_trainer_entry_points_need_a_card_or_the_cpu(tmp_path, monkeypatch):
     """Without a card and without ``device="cpu"`` the Trainer raises, as
-    every entry point does; ``rules=`` raises naming ROADMAP A16 (sharded
-    training; whisper's config trains, as
-    ``test_trainer_matches_reference_step_for_step_per_family`` holds)."""
+    every entry point does; ``rules=`` over a mesh that is not the world
+    (here a mesh of 4 ranks in a process with no process group) raises
+    before anything is built, from the Trainer and from make_train_step
+    (sharded training itself: ``tests/test_torch_sharded_train.py``)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = configs.get_smoke(ARCH)
     data = SyntheticLM(BatchSpec(2, 16, cfg.vocab))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(cfg, _tcfg(tmp_path), data)
-    with pytest.raises(NotImplementedError, match="A16"):
-        Trainer(cfg, _tcfg(tmp_path), data, rules=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A16"):
-        make_train_step(cfg, _tcfg(tmp_path), rules=object())
+    mesh = types.SimpleNamespace(size=lambda: 4, device_type="cpu",
+                                 mesh_dim_names=("data", "model"),
+                                 shape=(2, 2))
+    rules = ShardingRules(mesh=mesh, tp="model", fsdp="data", dp=("data",))
+    with pytest.raises(ValueError, match="4 ranks and the world 1"):
+        Trainer(cfg, _tcfg(tmp_path), data, rules=rules)
+    with pytest.raises(ValueError, match="4 ranks and the world 1"):
+        make_train_step(cfg, _tcfg(tmp_path), rules=rules)
 
 
 def test_training_imports_and_runs_without_jax(tmp_path):

@@ -83,11 +83,12 @@ tokens:
 
 7b. mixtral-8x7B cut to 8 of its 32 layers (d 4096, 8 experts top-2, 32
    heads over 8 KV heads, head dim 128, window 4096; prompts of 8192: the
-   kernel on every layer, 8 a prefill), hymba-1.5B whole (32 layers, d
-   1600, 25 heads over 5 KV heads, head dim 64, window 1024, the Mamba
-   head beside attention; prompts of 8192: the kernel on its 30 local
-   layers) and xlstm-350M whole (24 layers, d 1024; prompts of 4096; its
-   three sLSTM layers step token by token, as the reference's do).  Each
+   kernel on every layer, 8 a prefill), hymba-1.5B cut to 4 of its 32
+   layers (d 1600, 25 heads over 5 KV heads, head dim 64, window 1024,
+   the Mamba head beside attention; prompts of 8192: the kernel on its 3
+   local layers) and xlstm-350M whole (24 layers, d 1024; prompts of
+   4096; its three sLSTM layers step token by token, as the reference's
+   do).  Each
    logs its prefill and decode ms, peak memory, the profiler's device ms
    by class (SWA, matrix products, scan and recurrence, MoE dispatch,
    elementwise: ``record_function`` ranges around each module) and idle
@@ -109,7 +110,8 @@ cores for bfloat16, fed the log-sum-exp the forward stores, and
 8. the backward against ``swa_plain_backward`` on layer 0's shapes (B 1, S
    8192, H 32, KV 8, D 80, w 4096; bf16 at 2e-2, float32 at 1e-4 of each
    gradient's max abs; the forward's lse against ``swa_plain_lse`` at 1e-4
-   relative; no ptxas spill in either bf16 kernel at D 80), timed in turns
+   relative; no ptxas spill in either bf16 kernel at D 80, nor at the
+   families' D 128 and D 64), timed in turns
    with autograd through SDPA with the band mask, and each bf16 kernel's
    device time (dq, then dk/dv) under ``torch.profiler`` in a process of
    its own (``--backward-parts``); H2O-Danube-1.8B
@@ -145,6 +147,33 @@ Sharded LM training (after the train phase; ``Trainer(rules=)`` over a
    (2e-2), timed in turns with SDPA; each step's collectives by op and
    mesh axis (a dispatch mode below DTensor, as the dry run counts them)
    and each rank's peak memory are logged (``"sharded_train"`` in the
+   JSON).
+
+LM training of the families (the last phase, after their serving; the
+same bf16 kernels forward and backward, at D 128 and D 64):
+
+7c. mixtral-8x7B cut to 2 of 32 layers (one 8192-token sequence a step:
+   both layers past the window of 4096), hymba-1.5B cut to 2 of 32 (layer
+   0 global, layer 1 local; 8192 tokens) and xlstm-350M cut to 8 of 24
+   (its first sLSTM layer the last; 1024 tokens), each at full width
+   trained by ``repro_torch.train.Trainer`` for three steps from
+   ``--seed`` (remat,
+   bf16 over float32 masters, checkpoints off): each step's loss, grad
+   norm, CUDA-event time, tokens/s against the step's bound and SWA
+   launches (two forward and one backward a local layer, counted from 0
+   around each step), peak memory, and one step under ``torch.profiler``
+   by the families phase's classes (xlstm's at 512 tokens).  Checks:
+   losses and grad norms finite; the bf16 forward with lse and the
+   backward on the inputs the first local layer's backward was handed in
+   the first step, against ``swa_plain``, ``swa_plain_lse`` (1e-4) and
+   ``swa_plain_backward`` (2e-2), timed in turns with SDPA (autograd
+   through it for the backward); the smoke config's ``make_train_step``
+   step in float32 on the card against the CPU from non-zero moments
+   (1e-4).  Then whisper-small at full width and depth: ``whisper_loss``
+   (remat) on 8 utterances of 1500 frames and 448 decoder tokens, every
+   gradient, one ``adamw_update`` a step, three steps (the last
+   profiled), and at depth 2 + 2 the card's bf16 loss and gradients
+   against the CPU's float32 ones at 2e-2 (``"family_train"`` in the
    JSON).
 
 Whisper serving (after training, before the families; no hand-written
@@ -229,6 +258,7 @@ failure exits non-zero without a result line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import re
@@ -274,9 +304,12 @@ SWA_HEAD_DIMS = (40, 64, 80, 128, 256)
 SERVED_HEAD_DIMS = (64, 80, 128)
 # the families phase: (arch, depth (None: the config's), prompt tokens,
 # the prefill-vs-decode check's prompt, the profiled prefill's prompt),
-# served at full width (xlstm's prefill profiled at 512 tokens: its sLSTM
-# loop launches ~70 kernels a token, linear in the prompt, and a profile
-# of 4096 tokens holds ~1M events); then, at
+# served at full width (hymba cut to 4 of its 32 layers, layer 0 global,
+# for the family training phase's time: its 2 x 8192 prefill takes ~2 s
+# and launches ~62,000 kernels at full depth; xlstm's prefill profiled at
+# 512 tokens: its sLSTM loop launches
+# ~70 kernels a token, linear in the prompt, and a profile of 4096 tokens
+# holds ~1M events); then, at
 # depth 2, prefill against prefill + FAMILY_E2E_TAIL decode steps (mixtral
 # at capacity factor 8, so that the prefill drops nothing that decode
 # keeps; hymba at 2048 tokens: its global layers' blockwise attention
@@ -284,7 +317,7 @@ SERVED_HEAD_DIMS = (64, 80, 128)
 # each recurrent cell on FAMILY_MODULE_SEQ tokens in one call and in
 # FAMILY_STEPS more, one at a time
 FAMILY_RUNS = (("mixtral_8x7b", 8, 8192, 8192, 8192),
-               ("hymba_1_5b", None, 8192, 2048, 8192),
+               ("hymba_1_5b", 4, 8192, 2048, 8192),
                ("xlstm_350m", None, 4096, 4096, 512))
 FAMILY_E2E_DEPTH, FAMILY_E2E_TAIL, FAMILY_E2E_CF = 2, 256, 8.0
 FAMILY_MODULE_SEQ, FAMILY_STEPS = 512, 16
@@ -304,6 +337,24 @@ WHISPER_CHECK_DEPTH, WHISPER_CHECK_BATCH = 2, 2
 TRAIN_SEQ, TRAIN_STEPS = 8192, 3
 TRAIN_SMOKE_SEQ, TRAIN_SMOKE_STEPS, TRAIN_FAIL_AT = 64, 8, 5
 TRAIN_HEAD_DIMS = (80, 16)
+# the family training phase: (arch, depth (None: the config's), tokens of
+# the one sequence a step, tokens of the profiled step), full width, each
+# trained FAMILY_TRAIN_STEPS steps by the Trainer (remat); then
+# whisper-small's loss and gradients at full width and depth.  Cut to fit
+# the script's time (PERF.md, section 4): mixtral to 2 of 32 layers (one
+# layer holds 1.45e9 parameters: masters, moments and gradients of 2 and
+# the 8192-token activations fill the card); hymba to 2 of 32 (layer 0
+# global, layer 1 local: its Mamba scan under autograd launches ~19,000
+# kernels a layer a step, 0.5-0.9 s a layer); xlstm to 8 of 24 (layer 7
+# its first sLSTM) and 1024 tokens (its sLSTM loop launches ~110 kernels
+# a token a step), its profiled step at 512 tokens, as its serving
+# profile.  The bf16 backward at the families' head dims (mixtral 128 at
+# group 4, hymba 64 at group 5) builds with Danube's TRAIN_HEAD_DIMS
+FAMILY_TRAIN = (("mixtral_8x7b", 2, 8192, 8192),
+                ("hymba_1_5b", 2, 8192, 8192),
+                ("xlstm_350m", 8, 1024, 512))
+FAMILY_TRAIN_STEPS = 3
+FAMILY_TRAIN_HEAD_DIMS = (128, 64)
 # the sharded training phase: full-width Danube cut to SHARDED_DEPTH of its
 # 24 layers, trained by Trainer(rules=) on a (2, 2) ("data", "model") mesh
 # of 4 rank processes under the dry run's train rules, one 8192-token
@@ -626,6 +677,8 @@ def main() -> int:
                    for d in sorted(set(SWA_HEAD_DIMS + TRAIN_HEAD_DIMS))]
     bwd_sources = [swa.backward_source(getattr(torch, dt), d)
                    for dt in ("float32", "bfloat16") for d in TRAIN_HEAD_DIMS]
+    bwd_sources += [swa.backward_source(torch.bfloat16, d)
+                    for d in FAMILY_TRAIN_HEAD_DIMS]
     tags = (["stencil"] * len(sources) + ["swa"] * len(swa_sources)
             + ["swa_bwd"] * len(bwd_sources))
     swa_sources += bwd_sources
@@ -806,6 +859,13 @@ def main() -> int:
     # profile of the backward came back empty in two calls out of three)
     family_rows, families = families_phase(args.seed, torch, swa, swa_ptxas)
     rows += family_rows
+    torch.cuda.empty_cache()
+
+    # ------------- LM training: the MoE, hybrid and xLSTM families, whisper
+    # (after the families' serving profiles, which empty later short ones)
+    family_train_rows, family_train = family_train_phase(args.seed, torch,
+                                                         swa)
+    rows += family_train_rows
 
     smoke_s = time.perf_counter() - t_smoke
     log(f"chip_smoke: {smoke_s:.1f} s in all")
@@ -813,7 +873,8 @@ def main() -> int:
               "torch": torch.__version__, "cuda": torch.version.cuda,
               "seed": args.seed, "kernels": rows, "paths": path_rows,
               "tuner": tuner, "serve": serve, "mesh": mesh, "lm": lm,
-              "families": families, "train": train,
+              "families": families, "family_train": family_train,
+              "train": train,
               "sharded_train": sharded, "whisper": whisper,
               "seconds": smoke_s}
     out = Path(args.out)
@@ -1925,11 +1986,19 @@ def device_profile(fn, torch, ranges=None, swa_kernels=None) -> dict:
     class (the SWA kernel, its backward, matrix products, the rest) and
     of the eight kernels that took longest.  ``ranges`` ({label: class}):
     a kernel of the rest launched inside a ``record_function(label)``
-    range counts to that class, and each label's device ms and host ms
-    are kept apart.  ``swa_kernels``, a running count of the SWA kernels
-    launched (read before and after ``fn``): those of ``fn`` beside the
-    SWA kernel records the profile holds, which a profiler that lost
-    records shows (PERF.md, section 7)."""
+    range (the op that launched it started inside the range, on the
+    range's thread) counts to that class, and each label's device ms and
+    host ms are kept apart.  ``swa_kernels``, a running count of the SWA
+    kernels launched (read before and after ``fn``): those of ``fn``
+    beside the SWA kernel records the profile holds, which a profiler
+    that lost records shows (PERF.md, section 7).
+
+    The profile is read from its raw events (``kineto_results``): the
+    profiler's own event tree (``events()``, ``key_averages()``) takes
+    about 80 µs an event to build in Python, some 30 times as long, which
+    for a training step of 10^5 launches is tens of seconds."""
+    import bisect
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1941,26 +2010,57 @@ def device_profile(fn, torch, ranges=None, swa_kernels=None) -> dict:
         fn()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3
+    spans = {}      # thread -> [(start ns, end ns, label)] of the ranges
+    ops = {}        # correlation id of a CPU op -> (thread, start ns)
+    kernels = []    # (name, ns, correlation id of the op that launched it)
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == DeviceType.CPU:
+            if name in ranges:
+                spans.setdefault(e.start_thread_id(), []).append(
+                    (e.start_ns(), e.end_ns(), name))
+            elif e.linked_correlation_id() == 0:
+                ops[e.correlation_id()] = (e.start_thread_id(), e.start_ns())
+        elif e.device_type() == DeviceType.CUDA \
+                and not e.is_user_annotation() and not name.startswith("["):
+            # (a range's own device-side annotation is not a kernel, nor
+            # is a memory record)
+            kernels.append((name, e.duration_ns(),
+                            e.linked_correlation_id()))
+    for sp in spans.values():
+        sp.sort()
+    starts = {t: [a for a, _, _ in sp] for t, sp in spans.items()}
+
+    def range_of(corr):
+        thread, at = ops.get(corr, (None, 0))
+        i = bisect.bisect_right(starts.get(thread, ()), at) - 1
+        if i < 0:
+            return None
+        _, end, label = spans[thread][i]
+        return label if at <= end else None
+
     by = {"swa": 0.0, "swa_bwd": 0.0, "matmul": 0.0, "other": 0.0}
-    launches, kernels, swa_records = 0, [], 0
-    for e in prof.key_averages():
-        # (a range's own device-side annotation is not a kernel)
-        if e.device_type != DeviceType.CUDA or e.key in ranges:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        cls = kernel_class(e.key)
-        by[cls] += us / 1e3
-        launches += e.count
-        swa_records += e.count if cls in ("swa", "swa_bwd") else 0
-        kernels.append({"name": e.key[:120], "ms": us / 1e3,
-                        "launches": e.count, "class": cls})
+    dev_by = dict.fromkeys(ranges, 0.0)
+    per_name, swa_records = {}, 0
+    for name, ns, corr in kernels:
+        cls = kernel_class(name)
+        ms = ns / 1e6
+        by[cls] += ms
+        swa_records += cls in ("swa", "swa_bwd")
+        agg = per_name.setdefault(name, [0.0, 0, cls])
+        agg[0] += ms
+        agg[1] += 1
+        label = range_of(corr) if cls == "other" and spans else None
+        if label:
+            dev_by[label] += ms
     dev = sum(by.values())
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:8]
     out = {"host_ms": host_ms, "device_ms": dev,
            "idle_share": max(0.0, 1.0 - dev / host_ms),
-           "kernel_launches": launches, "device_ms_by": by,
-           "top_kernels": sorted(kernels, key=lambda k: -k["ms"])[:8]}
+           "kernel_launches": len(kernels), "device_ms_by": by,
+           "top_kernels": [{"name": torch._C._demangle(n)[:120], "ms": ms,
+                            "launches": k, "class": cls}
+                           for n, (ms, k, cls) in top]}
     if swa_kernels:
         out.update(swa_kernels=swa_kernels() - before,
                    swa_records=swa_records)
@@ -1969,23 +2069,10 @@ def device_profile(fn, torch, ranges=None, swa_kernels=None) -> dict:
                 f"{out['swa_kernels']} launched: its SWA device ms are "
                 "short by the rest")
     if ranges:
-        dev_by = dict.fromkeys(ranges, 0.0)
         host_by = dict.fromkeys(ranges, 0.0)
-        for ev in prof.events():
-            if ev.device_type != DeviceType.CPU:
-                continue
-            if ev.name in ranges:
-                host_by[ev.name] += ev.cpu_time_total / 1e3
-            if not ev.kernels:
-                continue
-            up = ev
-            while up is not None and up.name not in ranges:
-                up = up.cpu_parent
-            if up is None:
-                continue
-            for kern in ev.kernels:
-                if kernel_class(kern.name) == "other":
-                    dev_by[up.name] += kern.duration / 1e3
+        for sp in spans.values():
+            for a, b, label in sp:
+                host_by[label] += (b - a) / 1e6
         for label, ms in dev_by.items():
             by[ranges[label]] = by.get(ranges[label], 0.0) + ms
             by["other"] -= ms
@@ -2804,6 +2891,94 @@ def swa_backward_bound(B, S, H, KV, D, w, dtype):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def swa_pair_check(torch, swa, q, k, v, do, w, label, launches, where,
+                   flags) -> tuple:
+    """The bf16 SWA forward with its log-sum-exp (``swa_cuda_lse``) and its
+    backward (``swa_cuda_backward``) on q, k, v and the cotangent ``do``:
+    the output and each gradient against ``swa_plain`` and
+    ``swa_plain_backward`` at 2e-2 of its max abs, the lse against
+    ``swa_plain_lse`` at 1e-4; each call timed in turns with SDPA with the
+    band mask (the backward: autograd through it), and its plain version
+    once.  ``launches`` ({"forward", "backward"}: the main path's counts,
+    made ``where``) and ``flags`` go into the two rows, named from
+    ``label``.  Returns (the rows, a record)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    o, lse = swa.swa_cuda_lse(q, k, v, window=w)
+    got = (o,) + swa.swa_cuda_backward(q, k, v, o, do, window=w, lse=lse)
+    torch.cuda.synchronize()
+    lse_err = rel_err(lse, swa.swa_plain_lse(q, k, window=w))
+    want, plain_ms = (), {}
+    for name, fn in (("forward", lambda: (swa.swa_plain(q, k, v, window=w),)),
+                     ("backward", lambda: swa.swa_plain_backward(
+                         q, k, v, do, window=w))):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        want += tuple(fn())
+        e1.record()
+        e1.synchronize()
+        plain_ms[name] = e0.elapsed_time(e1)
+    errs = [rel_err(a, b) for a, b in zip(got, want)]
+    abs_errs = [float((a.float() - b.float()).abs().max())
+                for a, b in zip(got, want)]
+    log(f"{label} SWA {(B, S, H, KV, D)} (group {H // KV}) w {w} bf16: "
+        f"kernel vs plain max rel err out {errs[0]:.3e}, dq {errs[1]:.3e}, "
+        f"dk {errs[2]:.3e}, dv {errs[3]:.3e} (tol 2e-2); lse "
+        f"{lse_err:.3e} (tol 1e-4)")
+    if max(errs) > 2e-2 or lse_err > 1e-4 or not all(
+            bool(torch.isfinite(t.float()).all()) for t in got + (lse,)):
+        raise SystemExit(f"{label}: the SWA kernels disagree with their "
+                         "plain versions")
+    del got, want
+    G = H // KV
+    i = torch.arange(S, device="cuda")
+    band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
+    qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+    kt = k.repeat_interleave(G, 2).transpose(1, 2).contiguous(
+        ).requires_grad_(True)
+    vt = v.repeat_interleave(G, 2).transpose(1, 2).contiguous(
+        ).requires_grad_(True)
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        fwd_ms, fwd_lib = time_in_turns([
+            lambda: swa.swa_cuda_lse(q, k, v, window=w),
+            lambda: F.scaled_dot_product_attention(
+                qt.detach(), kt.detach(), vt.detach(), attn_mask=band)],
+            reps=3)
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band)
+    dot = do.transpose(1, 2)
+    bwd_ms, bwd_lib = time_in_turns([
+        lambda: swa.swa_cuda_backward(q, k, v, o, do, window=w, lse=lse),
+        lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                    retain_graph=True)], reps=3)
+    rows = []
+    for part, ms, lib, (bound_ms, bound_by), err, src, fn in (
+            ("forward", fwd_ms, fwd_lib, swa_bound(B, S, H, KV, D, w,
+                                                   q.dtype),
+             abs_errs[0], swa.SOURCES[q.dtype], "swa_cuda_lse"),
+            ("backward", bwd_ms, bwd_lib, swa_backward_bound(
+                B, S, H, KV, D, w, q.dtype), max(abs_errs[1:]),
+             swa.BACKWARD_SOURCES[q.dtype], "swa_cuda_backward")):
+        log(f"{label} swa {part}: {ms:.4f} ms a call (bound "
+            f"{bound_ms:.4f} ms by {bound_by}), plain "
+            f"{plain_ms[part]:.3f} ms, SDPA {lib:.4f} ms (medians, in "
+            f"turns); {launches[part]} launches in {where}")
+        rows.append({
+            "name": f"swa.{fn}[{label} B{B} S{S} H{H} KV{KV} D{D} w{w} "
+                    "bf16]",
+            "route": "cuda", "source": str(src.relative_to(ROOT)),
+            "replaces": swa.REPLACES, "launches": launches[part],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms[part],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib,
+            "backward_of_replaces": part == "backward", **flags})
+    del o, lse, qt, kt, vt, out, dot, band
+    return rows, {"shape": [B, S, H, KV, D], "window": w,
+                  "max_rel_err": errs, "lse_rel_err": lse_err, "rows": rows}
+
+
 def backward_parts(torch, swa, args, w, abs_err, shape, seed) -> list:
     """The bf16 backward's two kernels apart: each one's device time under
     ``torch.profiler`` over three calls, in a process of its own
@@ -2897,18 +3072,30 @@ def backward_parts_child(spec: dict) -> dict:
     return dev
 
 
+def train_step_ops(cfg, tokens: int) -> float:
+    """The operations of a training step on one sequence of ``tokens``:
+    6·N_active·T for the matrix products (forward and backward; a MoE's
+    active experts only), plus three times each attention layer's forward
+    attention operations (4·D a (query, key) pair a head: the forward and
+    the gradient's two matrix products per forward one) over its pairs by
+    ``cfg.layer_kind``: the band on a local layer, the causal triangle on
+    a global one, none on an xLSTM cell."""
+    ops = 6.0 * cfg.num_active_params() * tokens
+    for i in range(cfg.n_layers):
+        kind = cfg.layer_kind(i)
+        if kind not in ("local", "global"):
+            continue
+        w = cfg.window if kind == "local" and cfg.window else tokens
+        ops += 3 * swa_flops(1, tokens, cfg.n_heads, cfg.d_head, w)
+    return ops
+
+
 def train_step_bound_ms(cfg, tokens: int) -> float:
-    """The least time of a training step at the bf16 peak (989 TFLOP/s,
-    700 W): 6·N·T for the matrix products (forward and backward), plus
-    three times the band's forward attention operations (4·D a pair a
-    head a layer: the forward and the gradient's two matrix products per
-    forward one)."""
+    """The least time of a training step, :func:`train_step_ops` at the
+    bf16 peak (989 TFLOP/s, 700 W)."""
     from repro_torch import hw
 
-    ops = 6.0 * cfg.num_params() * tokens
-    ops += 3 * swa_flops(1, tokens, cfg.n_heads, cfg.d_head,
-                         cfg.window) * cfg.n_layers
-    return ops / hw.H100.peak_bf16_flops * 1e3
+    return train_step_ops(cfg, tokens) / hw.H100.peak_bf16_flops * 1e3
 
 
 def train_phase(seed, torch, swa):
@@ -2944,20 +3131,24 @@ def train_phase(seed, torch, swa):
     record = {"arch": LM_ARCH, "batch": B, "seq": S, "steps": TRAIN_STEPS,
               "remat": True}
 
-    for dt in (torch.bfloat16, torch.float32):
-        report = build.ptxas_report(swa.backward_source(dt, D), "swa_bwd")
+    # Danube's head dim in both dtypes, the families' (FAMILY_TRAIN) in
+    # bf16: a spill in either kernel fails the run
+    for dt, d in ([(torch.bfloat16, D), (torch.float32, D)]
+                  + [(torch.bfloat16, d) for d in FAMILY_TRAIN_HEAD_DIMS]):
+        report = build.ptxas_report(swa.backward_source(dt, d), "swa_bwd")
         name = "swa_bwd_mma" if dt == torch.bfloat16 else "swa_bwd"
         for chunk in report.split("Compiling entry function '")[1:]:
             kernel = "dkdv" if "dkdv" in chunk[:40] else "dq"
             st = ptxas_stats(chunk)
-            record[f"ptxas_{kernel}_{str(dt).removeprefix('torch.')}"] = st
+            key = f"ptxas_{kernel}_{str(dt).removeprefix('torch.')}"
+            record[key if d == D else f"{key}_d{d}"] = st
             log(f"ptxas {name}_{kernel} {str(dt).removeprefix('torch.')} D "
-                f"{D}: {st['registers']} registers, spill stores "
+                f"{d}: {st['registers']} registers, spill stores "
                 f"{st['spill_stores']} B, spill loads {st['spill_loads']} B; "
-                f"{swa.backward_smem_bytes(dt, D)} B of shared memory a CTA "
+                f"{swa.backward_smem_bytes(dt, d)} B of shared memory a CTA "
                 "at most")
             if st["spill_stores"] or st["spill_loads"]:
-                raise SystemExit(f"ptxas spills in {name}_{kernel} at D {D}")
+                raise SystemExit(f"ptxas spills in {name}_{kernel} at D {d}")
 
     # 1. the backward kernel on layer 0's shapes, against its plain
     # version, and in turns with autograd through SDPA with the band mask
@@ -3398,9 +3589,6 @@ def sharded_train_phase(seed, torch, swa):
     turns with SDPA.  Returns (the local SWA rows, the record)."""
     import tempfile
 
-    import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-
     from repro_torch.configs import get_config, get_smoke
     from repro_torch.kernels import build
 
@@ -3523,85 +3711,424 @@ def sharded_train_phase(seed, torch, swa):
     # rank 0's first local SWA call: its shard of layer 0's q, k, v
     q, k, v, w = torch.load(work / "swa_local.pt")
     tmp_dir.cleanup()
-    B, S, H, D = q.shape
-    KV = k.shape[2]
-    o, lse = swa.swa_cuda_lse(q, k, v, window=w)
     gen = torch.Generator(device="cuda").manual_seed(seed + 3)
     do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
-    got = (o,) + swa.swa_cuda_backward(q, k, v, o, do, window=w, lse=lse)
-    torch.cuda.synchronize()
-    want, plain_ms = (), {}
-    for name, fn in (("forward", lambda: (swa.swa_plain(q, k, v, window=w),)),
-                     ("backward", lambda: swa.swa_plain_backward(
-                         q, k, v, do, window=w))):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        want += tuple(fn())
-        e1.record()
-        e1.synchronize()
-        plain_ms[name] = e0.elapsed_time(e1)
-    errs = [rel_err(a, b) for a, b in zip(got, want)]
-    abs_errs = [float((a.float() - b.float()).abs().max())
-                for a, b in zip(got, want)]
-    log(f"sharded rank 0 local SWA {(B, S, H, KV, D)} w {w} bf16: kernel vs "
-        f"plain max rel err out {errs[0]:.3e}, dq {errs[1]:.3e}, dk "
-        f"{errs[2]:.3e}, dv {errs[3]:.3e} (tol 2e-2)")
-    if max(errs) > 2e-2 or not all(bool(torch.isfinite(t.float()).all())
-                                   for t in got):
-        raise SystemExit("sharded_train: the local SWA kernels disagree "
-                         "with their plain versions")
-    del got, want
-    G = H // KV
-    i = torch.arange(S, device="cuda")
-    band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
-    qt = q.transpose(1, 2).contiguous().requires_grad_(True)
-    kt = k.repeat_interleave(G, 2).transpose(1, 2).contiguous(
-        ).requires_grad_(True)
-    vt = v.repeat_interleave(G, 2).transpose(1, 2).contiguous(
-        ).requires_grad_(True)
-    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
-        fwd_ms, fwd_lib = time_in_turns([
-            lambda: swa.swa_cuda_lse(q, k, v, window=w),
-            lambda: F.scaled_dot_product_attention(
-                qt.detach(), kt.detach(), vt.detach(), attn_mask=band)],
-            reps=3)
-        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band)
-    dot = do.transpose(1, 2)
-    bwd_ms, bwd_lib = time_in_turns([
-        lambda: swa.swa_cuda_backward(q, k, v, o, do, window=w, lse=lse),
-        lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
-                                    retain_graph=True)], reps=3)
-    rows = []
-    for part, ms, lib, (bound_ms, bound_by), err, src, fn in (
-            ("forward", fwd_ms, fwd_lib, swa_bound(B, S, H, KV, D, w,
-                                                   q.dtype),
-             abs_errs[0], swa.SOURCES[q.dtype], "swa_cuda_lse"),
-            ("backward", bwd_ms, bwd_lib, swa_backward_bound(
-                B, S, H, KV, D, w, q.dtype), max(abs_errs[1:]),
-             swa.BACKWARD_SOURCES[q.dtype], "swa_cuda_backward")):
-        launches = rec["launches_" + part]
-        log(f"sharded rank 0 local swa {part}: {ms:.4f} ms a call (bound "
-            f"{bound_ms:.4f} ms by {bound_by}), plain "
-            f"{plain_ms[part]:.3f} ms, SDPA {lib:.4f} ms (medians, in "
-            f"turns); {launches} launches on rank 0 in {SHARDED_STEPS} "
-            "sharded steps")
-        rows.append({
-            "name": f"swa.{fn}[{cfg.name} depth {SHARDED_DEPTH} sharded "
-                    f"(2,2) rank 0 shard B{B} S{S} H{H} KV{KV} D{D} w{w} "
-                    "bf16]",
-            "route": "cuda", "source": str(src.relative_to(ROOT)),
-            "replaces": swa.REPLACES, "launches": launches,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms[part],
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib,
-            "on_sharded_training_path": True,
-            "backward_of_replaces": part == "backward"})
-    rec["local_swa"] = {"shape": [B, S, H, KV, D], "window": w,
-                        "max_rel_err": errs, "rows": rows}
-    del q, k, v, o, lse, do, qt, kt, vt, out, dot, band
+    rows, rec["local_swa"] = swa_pair_check(
+        torch, swa, q, k, v, do, w,
+        f"{cfg.name} depth {SHARDED_DEPTH} sharded (2,2) rank 0 shard",
+        {part: rec["launches_" + part] for part in ("forward", "backward")},
+        f"{SHARDED_STEPS} sharded steps on rank 0",
+        {"on_sharded_training_path": True})
+    del q, k, v, do
     rec["seconds"] = time.perf_counter() - t_phase
     log(f"sharded_train phase: {rec['seconds']:.1f} s")
     return rows, rec
+
+
+def family_train_phase(seed, torch, swa):
+    """The MoE, hybrid and xLSTM families trained on the card
+    (``FAMILY_TRAIN``), then whisper-small's loss and gradients.  Returns
+    (the SWA rows of the families with attention, the record)."""
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows, record = [], {}
+    for arch, depth, S, prof_S in FAMILY_TRAIN:
+        arch_rows, record[arch] = train_family(arch, depth, S, prof_S, seed,
+                                               torch, swa)
+        rows += arch_rows
+        torch.cuda.empty_cache()
+    record["whisper_small"] = train_whisper(seed, torch)
+    record["seconds"] = time.perf_counter() - t_phase
+    log(f"family_train phase: {record['seconds']:.1f} s")
+    return rows, record
+
+
+@contextlib.contextmanager
+def module_ranges(torch):
+    """Each family module's call (``moe_apply``, the Mamba scan, the mLSTM
+    and sLSTM cells) inside a ``record_function`` range of its
+    ``FAMILY_RANGES`` label, while the block is open."""
+    from repro_torch.models import ssm, transformer
+
+    patched = [(transformer, "moe_apply", "moe")] + [
+        (ssm, f"{c}_apply", c) for c in ("mamba", "mlstm", "slstm")]
+    saved = [(m, n, getattr(m, n)) for m, n, _ in patched]
+
+    def ranged(fn, label):
+        def run(*a, **kw):
+            with torch.profiler.record_function(label):
+                return fn(*a, **kw)
+        return run
+
+    for (m, n, label), (_, _, fn) in zip(patched, saved):
+        setattr(m, n, ranged(fn, label))
+    try:
+        yield
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+def train_family(arch, depth, S, prof_S, seed, torch, swa):
+    """One family at full width (depth cut to ``depth`` where given)
+    trained by ``Trainer`` for FAMILY_TRAIN_STEPS steps on one S-token
+    sequence of ``SyntheticLM``, remat on, bf16 over float32 masters, the
+    SWA counts zeroed just before each step and read just after; one step
+    of ``prof_S`` tokens under ``torch.profiler`` (the last Trainer step
+    when ``prof_S == S``, else one more step on a shorter sequence); then
+    the SWA forward with lse and backward on the inputs the first local
+    layer's backward was handed in the first step (:func:`swa_pair_check`)
+    and the smoke config's step on the card against the CPU
+    (:func:`smoke_step_check`).  Returns (the SWA rows, the record)."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import BatchSpec, SyntheticLM
+    from repro_torch.train import OptConfig, TrainConfig, Trainer
+
+    t_arch = time.perf_counter()
+    cfg = get_config(arch)
+    full_depth = cfg.n_layers
+    if depth:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+    local = [i for i, kind in enumerate(kinds) if kind == "local"
+             and cfg.window and S > cfg.window and not cfg.attn_softcap]
+    tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_family_")
+    tcfg = TrainConfig(opt=OptConfig(lr=3e-4, warmup_steps=10,
+                                     total_steps=100),
+                       remat=True, ckpt_every=10**9, ckpt_dir=tmp_dir.name,
+                       log_every=1, seed=seed)
+    data = SyntheticLM(BatchSpec(global_batch=1, seq_len=S,
+                                 vocab=cfg.vocab), seed=seed)
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, tcfg, data)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_arch
+    n_params = sum(p.numel() for p in tr.state["params"].parameters())
+    log(f"family_train {cfg.name}: {cfg.n_layers} of {full_depth} layers "
+        f"({kinds.count('global')} global, {len(local)} local with the SWA "
+        f"kernel), d {cfg.d_model}, {n_params / 1e9:.3f} B params, "
+        f"1 x {S} tokens a step, built in {init_s:.1f} s")
+
+    # the main path: the counts zeroed just before each step and read just
+    # after it; the first step's SWA backward calls captured (the layers
+    # run last to first, so the last one held is the first local layer's)
+    steps, captured = [], {}
+    inner, plain_bwd = tr.step_fn, swa.swa_cuda_backward
+
+    def capture_bwd(q, k, v, o, do, *, window, lse=None):
+        if not steps:
+            captured["swa"] = tuple(t.detach().clone()
+                                    for t in (q, k, v, do)) + (window,)
+        return plain_bwd(q, k, v, o, do, window=window, lse=lse)
+
+    def counted(*a):
+        swa.launches = swa.backward_launches = 0
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = inner(*a)
+        e1.record()
+        steps.append({"events": (e0, e1), "forward": swa.launches,
+                      "backward": swa.backward_launches})
+        return out
+
+    def swa_kernels():
+        # a backward launch runs two kernels
+        return sum(st["forward"] + 2 * st["backward"] for st in steps)
+
+    tr.step_fn = counted
+    swa.swa_cuda_backward = capture_bwd
+    try:
+        if prof_S == S:
+            tr.run(FAMILY_TRAIN_STEPS - 1)
+            with module_ranges(torch):
+                prof = device_profile(lambda: tr.run(1), torch,
+                                      FAMILY_RANGES, swa_kernels)
+        else:
+            tr.run(FAMILY_TRAIN_STEPS)
+            short = {k: torch.as_tensor(v, device="cuda").long()
+                     for k, v in SyntheticLM(BatchSpec(1, prof_S, cfg.vocab),
+                                             seed=seed).batch_at(0).items()}
+
+            def short_step():
+                ts = tr.state
+                ts["params"], ts["opt"], ts["ef"], m = inner(
+                    ts["params"], ts["opt"], ts["ef"], short)
+                return float(m["loss"])
+
+            with module_ranges(torch):
+                prof = device_profile(short_step, torch, FAMILY_RANGES)
+    finally:
+        swa.swa_cuda_backward = plain_bwd
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hist = tr.history
+    for st in steps:
+        e0, e1 = st.pop("events")
+        st["ms"] = e0.elapsed_time(e1)
+    bound_ms = train_step_bound_ms(cfg, S)
+    for h, st in zip(hist, steps):
+        log(f"family_train {cfg.name} step {h['step']}: loss "
+            f"{h['loss']:.4f}, grad norm {h['grad_norm']:.4f}, "
+            f"{st['ms']:.1f} ms (CUDA events; host {h['time_s'] * 1e3:.1f} "
+            f"ms), {S / st['ms'] * 1e3:.0f} tokens/s; SWA launches forward "
+            f"{st['forward']}, backward {st['backward']}")
+    log(f"family_train {cfg.name}: peak memory {peak_gb:.2f} GB; step "
+        f"bound {bound_ms:.2f} ms (6·N_active·T + 3x each attention "
+        f"layer's pairs at 989 TFLOP/s); profile of a step of {prof_S} "
+        f"tokens: host {prof['host_ms']:.1f} ms, device "
+        f"{prof['device_ms']:.1f} ms (idle {prof['idle_share']:.1%}), "
+        f"{prof['kernel_launches']} kernel launches; device ms: "
+        + ", ".join(f"{'elementwise' if c == 'other' else c} {v:.1f}"
+                    for c, v in prof["device_ms_by"].items()))
+    if len(hist) != FAMILY_TRAIN_STEPS or not all(
+            np.isfinite(h[k]) for h in hist for k in ("loss", "grad_norm")):
+        raise SystemExit(f"{cfg.name}: training gave {hist}")
+    if any(st["forward"] != 2 * len(local) or st["backward"] != len(local)
+           for st in steps):
+        raise SystemExit(f"{cfg.name}: a train step did not run the SWA "
+                         "forward kernel twice a local layer (remat) and its "
+                         "backward once")
+    step_ms = statistics.median(st["ms"] for st in steps[1:])
+    record = {"arch": arch, "depth": cfg.n_layers, "full_depth": full_depth,
+              "params": n_params, "batch": 1, "seq": S,
+              "steps": FAMILY_TRAIN_STEPS, "remat": True,
+              "local_layers": len(local),
+              "global_layers": kinds.count("global"), "history": hist,
+              "steps_record": steps, "step_ms": step_ms,
+              "tokens_per_s": S / step_ms * 1e3, "peak_memory_gb": peak_gb,
+              "step_bound_ms": bound_ms, "bound_share": bound_ms / step_ms,
+              "init_s": init_s, "profiled_seq": prof_S, "profile": prof,
+              "launches_forward": sum(st["forward"] for st in steps),
+              "launches_backward": sum(st["backward"] for st in steps)}
+    del tr, inner, counted, data
+    tmp_dir.cleanup()
+    torch.cuda.empty_cache()
+
+    rows = []
+    if local:
+        q, k, v, do, w = captured.pop("swa")
+        rows, record["swa"] = swa_pair_check(
+            torch, swa, q, k, v, do, w,
+            f"{cfg.name} train layer {local[0]}",
+            {"forward": record["launches_forward"],
+             "backward": record["launches_backward"]},
+            f"{FAMILY_TRAIN_STEPS} train steps",
+            {"on_training_path": True})
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    record["smoke_step"] = smoke_step_check(arch, seed, torch, swa)
+    record["seconds"] = time.perf_counter() - t_arch
+    log(f"family_train {cfg.name}: {record['seconds']:.1f} s")
+    return rows, record
+
+
+def smoke_step_check(arch, seed, torch, swa) -> dict:
+    """One ``make_train_step`` step of ``arch``'s smoke config in float32
+    on the card (the SWA kernels on its local layers) against the same
+    step on the CPU, from the same parameters and non-zero moments (so
+    the update is smooth in the gradients): every parameter at 1e-4 of
+    its max abs, and the kernels launched once a local layer each way on
+    the card, never on the CPU."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.data import BatchSpec, SyntheticLM
+    from repro_torch.models import init_lm
+    from repro_torch.train import (OptConfig, TrainConfig, adamw_init,
+                                   make_train_step)
+
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+    S = TRAIN_SMOKE_SEQ
+    local = sum(cfg.layer_kind(i) == "local" and 0 < cfg.window < S
+                for i in range(cfg.n_layers))
+    cpu = init_lm(cfg, torch.Generator().manual_seed(seed),
+                  "cpu").requires_grad_(True)
+    card = copy.deepcopy(cpu).to("cuda")
+    batch = SyntheticLM(BatchSpec(2, S, cfg.vocab), seed=seed).batch_at(0)
+    step = make_train_step(cfg, TrainConfig(opt=OptConfig(
+        lr=1e-3, warmup_steps=0)))
+    gen = torch.Generator().manual_seed(seed + 1)
+    state = adamw_init(dict(cpu.named_parameters()))
+    state["count"] += 5
+    for t in state["mu"].values():
+        t.copy_(torch.randn(t.shape, generator=gen) * 1e-2)
+    for t in state["nu"].values():
+        t.copy_(torch.randn(t.shape, generator=gen).square() * 1e-4 + 1e-6)
+    out = {}
+    for dev, lm in (("cpu", cpu), ("cuda", card)):
+        swa.launches = swa.backward_launches = 0
+        moved = {"mu": {k: t.to(dev, copy=True)
+                        for k, t in state["mu"].items()},
+                 "nu": {k: t.to(dev, copy=True)
+                        for k, t in state["nu"].items()},
+                 "count": state["count"].to(dev)}
+        *_, metrics = step(lm, moved, torch.zeros((), device=dev),
+                           {k: torch.as_tensor(v, device=dev).long()
+                            for k, v in batch.items()})
+        out[dev] = ({k: p.detach().cpu() for k, p in lm.named_parameters()},
+                    float(metrics["loss"]),
+                    (swa.launches, swa.backward_launches))
+    err = max(rel_err(out["cuda"][0][k], p) for k, p in out["cpu"][0].items())
+    loss_err = abs(out["cuda"][1] - out["cpu"][1]) / abs(out["cpu"][1])
+    log(f"smoke {cfg.name} float32 2 x {S}: one train step on the card vs "
+        f"the CPU, params max rel err {err:.3e}, loss rel err "
+        f"{loss_err:.3e} (tol 1e-4); card SWA launches forward, backward "
+        f"{out['cuda'][2]}")
+    if err > 1e-4 or loss_err > 1e-4 or out["cuda"][2] != (local, local) \
+            or out["cpu"][2] != (0, 0):
+        raise SystemExit(f"{cfg.name}: the smoke step on the card disagrees "
+                         "with the CPU")
+    return {"params_max_rel_err": err, "loss_rel_err": loss_err,
+            "launches": out["cuda"][2]}
+
+
+def whisper_step_ops(cfg, batch: int, tokens: int) -> float:
+    """The operations of a whisper training step on ``batch`` utterances
+    of ``cfg.enc_seq`` frames and ``tokens`` decoder tokens: 6 times each
+    weight a token passes through (the frontend's projection, the
+    encoder's layers and the cross-attention's keys and values on the
+    frames; the decoder's layers and the tied logits on the tokens), plus
+    three times the forward attention's 4·D a (query, key) pair a head:
+    all frame pairs in the encoder, the causal triangle and every
+    (token, frame) pair in the decoder."""
+    d, f, h, kv, dh = (cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.d_head)
+    F_, T = cfg.enc_seq, tokens
+    attn = 2 * d * h * dh + 2 * d * kv * dh
+    mlp = d * f * (2 if cfg.glu else 1) + f * d
+    per_frame = d * d + cfg.n_enc_layers * (attn + mlp) \
+        + cfg.n_layers * 2 * d * kv * dh
+    per_token = cfg.n_layers * (attn + 2 * d * h * dh + mlp) \
+        + cfg.vocab_padded * d
+    pairs = cfg.n_enc_layers * F_ * F_ + cfg.n_layers * (
+        T * (T + 1) // 2 + T * F_)
+    return 6.0 * batch * (F_ * per_frame + T * per_token) \
+        + 3 * 4 * dh * h * batch * pairs
+
+
+def train_whisper(seed, torch) -> dict:
+    """whisper-small at full width and depth, float32 masters from
+    ``--seed`` computed in bf16: ``whisper_loss`` (remat) on WHISPER_BATCH
+    utterances of precomputed frames and WHISPER_MAX_LEN decoder tokens,
+    every gradient by autograd, one ``adamw_update`` step from them;
+    FAMILY_TRAIN_STEPS such steps, the last under ``torch.profiler``.
+    Then at depth 2 + 2, full width, on WHISPER_CHECK_BATCH utterances:
+    the loss and every gradient of the card's bf16 run against the CPU's
+    float32 run from the same masters, at 2e-2 of each one's max abs."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import hw
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_whisper, whisper_loss
+    from repro_torch.train import OptConfig, adamw_init, adamw_update
+    from repro_torch.train.optimizer import cosine_schedule
+
+    t0 = time.perf_counter()
+    cfg = get_config("whisper_small")
+    B, T = WHISPER_BATCH, WHISPER_MAX_LEN
+    rng = np.random.default_rng(seed)
+    frames_np = rng.standard_normal((B, cfg.enc_seq, cfg.d_model),
+                                    dtype=np.float32)
+    toks_np = rng.integers(0, cfg.vocab, (B, T + 1))
+    frames = torch.as_tensor(frames_np, device="cuda")
+    tokens = torch.as_tensor(toks_np[:, :-1], device="cuda")
+    labels = torch.as_tensor(toks_np[:, 1:], device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    torch.cuda.reset_peak_memory_stats()
+    masters = init_whisper(cfg, gen).requires_grad_(True)
+    named = dict(masters.named_parameters())
+    opt = OptConfig(lr=3e-4, warmup_steps=10, total_steps=100)
+    lr_fn = cosine_schedule(opt)
+    state = {"opt": adamw_init(named)}
+    hist = []
+
+    def step():
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        loss, _ = whisper_loss(cfg, masters, frames, tokens, labels,
+                               remat=True)
+        grads = torch.autograd.grad(loss, list(named.values()))
+        _, state["opt"], om = adamw_update(
+            opt, named, dict(zip(named, grads)), state["opt"], lr_fn)
+        e1.record()
+        hist.append({"loss": float(loss.detach()), "grad_norm": float(
+            om["grad_norm"]), "events": (e0, e1)})
+
+    for _ in range(FAMILY_TRAIN_STEPS - 1):
+        step()
+    prof = device_profile(step, torch)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for h in hist:
+        e0, e1 = h.pop("events")
+        h["ms"] = e0.elapsed_time(e1)
+    step_ms = statistics.median(h["ms"] for h in hist[1:])
+    bound_ms = whisper_step_ops(cfg, B, T) / hw.H100.peak_bf16_flops * 1e3
+    for i, h in enumerate(hist):
+        log(f"family_train {cfg.name} step {i}: loss {h['loss']:.4f}, grad "
+            f"norm {h['grad_norm']:.4f}, {h['ms']:.1f} ms (CUDA events), "
+            f"{B * T / h['ms'] * 1e3:.0f} decoder tokens/s")
+    log(f"family_train {cfg.name}: {B} x {cfg.enc_seq} frames, {B} x {T} "
+        f"tokens, remat; peak memory {peak_gb:.2f} GB; step bound "
+        f"{bound_ms:.2f} ms; profile of the last step: host "
+        f"{prof['host_ms']:.1f} ms, device {prof['device_ms']:.1f} ms (idle "
+        f"{prof['idle_share']:.1%}), {prof['kernel_launches']} kernel "
+        "launches; device ms: "
+        + ", ".join(f"{'elementwise' if c == 'other' else c} {v:.1f}"
+                    for c, v in prof["device_ms_by"].items()))
+    if not all(np.isfinite(h[k]) for h in hist for k in ("loss",
+                                                          "grad_norm")):
+        raise SystemExit(f"whisper training gave {hist}")
+    record = {"arch": "whisper_small", "batch": B, "frames": cfg.enc_seq,
+              "tokens": T, "remat": True, "history": hist,
+              "step_ms": step_ms, "tokens_per_s": B * T / step_ms * 1e3,
+              "utterances_per_s": B / step_ms * 1e3,
+              "peak_memory_gb": peak_gb, "step_bound_ms": bound_ms,
+              "bound_share": bound_ms / step_ms, "profile": prof}
+    del masters, named, state
+    torch.cuda.empty_cache()
+
+    # depth 2 + 2, full width: the card's bf16 loss and gradients against
+    # the CPU's float32 ones, the same masters
+    small = dataclasses.replace(cfg, n_layers=WHISPER_CHECK_DEPTH,
+                                n_enc_layers=WHISPER_CHECK_DEPTH)
+    masters = init_whisper(small, gen).requires_grad_(True)
+    b = WHISPER_CHECK_BATCH
+    res = {}
+    for dev, c in (("cuda", small),
+                   ("cpu", dataclasses.replace(small, dtype="float32"))):
+        masters = masters.to(dev)
+        loss, _ = whisper_loss(c, masters, frames[:b].to(dev),
+                               tokens[:b].to(dev), labels[:b].to(dev))
+        named = dict(masters.named_parameters())
+        grads = torch.autograd.grad(loss, list(named.values()))
+        res[dev] = (float(loss), {k: g.cpu() for k, g in zip(named, grads)})
+    loss_err = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    grad_errs = {k: rel_err(res["cuda"][1][k], g)
+                 for k, g in res["cpu"][1].items()}
+    worst = max(grad_errs, key=grad_errs.get)
+    log(f"whisper depth {WHISPER_CHECK_DEPTH}+{WHISPER_CHECK_DEPTH} card "
+        f"bf16 vs CPU float32 ({b} x {cfg.enc_seq} frames, {b} x {T} "
+        f"tokens): loss rel err {loss_err:.3e}, worst gradient {worst} max "
+        f"rel err {grad_errs[worst]:.3e} (tol 2e-2)")
+    if loss_err > 2e-2 or grad_errs[worst] > 2e-2:
+        raise SystemExit("whisper: the card's gradients depart from the "
+                         "CPU's")
+    record.update(cpu_loss_rel_err=loss_err, cpu_grad_max_rel_err=grad_errs,
+                  seconds=time.perf_counter() - t0)
+    del masters, res
+    torch.cuda.empty_cache()
+    log(f"family_train {cfg.name}: {record['seconds']:.1f} s")
+    return record
 
 
 if __name__ == "__main__":

@@ -777,6 +777,66 @@ def test_train_step_on_the_card_matches_the_cpu():
         assert _rel_err(out["cuda"][0][k], p) <= 1e-5, k
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mixtral_8x7b", "hymba_1_5b",
+                                  "xlstm_350m"])
+def test_family_train_step_on_the_card_matches_the_cpu(arch):
+    """One ``make_train_step`` step of a family's smoke config in float32
+    (S 64 > window 16: its local layers run the SWA forward and backward
+    kernels; the MoE's float32 router, capacity dispatch and aux loss, the
+    Mamba scan and the xLSTM cells under autograd) against the same step
+    on the CPU, from the same non-zero moments: params at 1e-5 of each
+    leaf's max abs, and the kernels launched once a local layer each
+    way."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels import swa
+    from repro_torch.models import init_lm
+    from repro_torch.train import (OptConfig, TrainConfig, adamw_init,
+                                   make_train_step)
+
+    _needs_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+    local = sum(cfg.layer_kind(i) == "local" for i in range(cfg.n_layers))
+    cpu = init_lm(cfg, torch.Generator().manual_seed(0),
+                  "cpu").requires_grad_(True)
+    card = copy.deepcopy(cpu).to("cuda")
+    rng = np.random.default_rng(0)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab, (2, 64)))
+             for k in ("tokens", "labels")}
+    step = make_train_step(cfg, TrainConfig(opt=OptConfig(
+        lr=1e-3, warmup_steps=0)))
+    gen = torch.Generator().manual_seed(1)
+    state = adamw_init(dict(cpu.named_parameters()))
+    state["count"] += 5
+    for t in state["mu"].values():
+        t.copy_(torch.randn(t.shape, generator=gen) * 1e-2)
+    for t in state["nu"].values():
+        t.copy_(torch.randn(t.shape, generator=gen).square() * 1e-4 + 1e-6)
+    out = {}
+    for name, lm in (("cpu", cpu), ("cuda", card)):
+        before = (swa.launches, swa.backward_launches)
+        named = dict(lm.named_parameters())
+        moved = {"mu": {k: t.to(name, copy=True)
+                        for k, t in state["mu"].items()},
+                 "nu": {k: t.to(name, copy=True)
+                        for k, t in state["nu"].items()},
+                 "count": state["count"].to(name)}
+        *_, metrics = step(lm, moved, torch.zeros((), device=name),
+                           {k: v.to(name) for k, v in batch.items()})
+        assert np.isfinite(float(metrics["loss"]))
+        out[name] = ({k: p.detach().cpu() for k, p in named.items()},
+                     swa.launches - before[0],
+                     swa.backward_launches - before[1])
+    assert out["cuda"][1:] == (local, local)
+    assert out["cpu"][1:] == (0, 0)
+    for k, p in out["cpu"][0].items():
+        assert _rel_err(out["cuda"][0][k], p) <= 1e-5, k
+
+
 SHARDED_RANKS = r'''
 import contextlib, dataclasses, json, sys
 from pathlib import Path

@@ -547,12 +547,16 @@ def test_kernel_source_matches_plain_version_on_the_host(B, S, H, KV, D, w,
 
 # (B, S, H, KV, D, window, dtype): the log-sum-exp each source stores for
 # the backward, at Danube's head dim with GQA and interior chunks, a
-# ragged last tile, window 1 and a window >= S
+# ragged last tile, window 1 and a window >= S; the trained families'
+# groups with ragged last tiles: hymba's 5 query heads a KV head at D 64,
+# mixtral's 4 at D 128
 LSE_CASES = [
     (1, 320, 4, 1, 80, 128, "bfloat16"),
     (1, 100, 2, 2, 40, 30, "bfloat16"),
     (1, 128, 2, 2, 16, 1, "bfloat16"),
     (2, 100, 2, 1, 32, 500, "bfloat16"),
+    (1, 136, 5, 1, 64, 60, "bfloat16"),
+    (1, 136, 4, 1, 128, 60, "bfloat16"),
     (1, 192, 4, 1, 80, 96, "float32"),
     (2, 100, 2, 1, 32, 500, "float32"),
 ]

@@ -264,7 +264,10 @@ def run_emulated_backward(q, k, v, o, do, window, lse=None):
 # that does not divide S; MQA with a ragged tile at D 40 (not a multiple
 # of 16); window 1; a window >= S over two batch rows; D 20 (staged element
 # by element); D 128 (q's and dout's fragments re-read from shared memory);
-# a window of 200 with lower-edge and interior chunks in both kernels
+# a window of 200 with lower-edge and interior chunks in both kernels; the
+# trained families' groups with ragged last tiles: hymba's 5 query heads a
+# KV head at D 64, mixtral's 4 at D 128 (the dk/dv kernel at the register
+# cap)
 EMU_CASES = [
     (1, 192, 4, 1, 80, 96, "float32"),
     (1, 160, 2, 2, 24, 40, "float32"),
@@ -278,6 +281,8 @@ EMU_CASES = [
     (1, 96, 2, 1, 20, 50, "bfloat16"),
     (1, 128, 2, 1, 128, 80, "bfloat16"),
     (1, 384, 2, 1, 64, 200, "bfloat16"),
+    (1, 136, 5, 1, 64, 60, "bfloat16"),
+    (1, 136, 4, 1, 128, 60, "bfloat16"),
 ]
 
 

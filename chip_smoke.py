@@ -66,7 +66,7 @@ LM serving (the hand-written CUDA sliding-window attention kernels:
    and the kernel held against ``swa_plain`` on them (bf16 at 2e-2, and
    the float32 kernel on the same values cast up at 2e-5); at a depth of 4
    layers the last-position logits of an 8192-token prefill (the kernel)
-   are held against a 7168-token prefill and 1024 teacher-forced decode
+   are held against a 7936-token prefill and 256 teacher-forced decode
    steps (the ring cache, no kernel) at 2e-2; the kernels are also held
    against ``swa_plain`` at head dims 40/64/80/128/256 with GQA, ragged
    last tiles and a window >= S in both dtypes.
@@ -244,6 +244,22 @@ it.  One prefill and one decode step also run under ``torch.profiler`` for
 their device time, idle share and kernel launches, beside the SWA kernels
 launched and the SWA kernel records the profile holds.
 
+Regions whose rings a coefficient alone feeds (the mesh phase): ``t =
+cf0<0>; o3 = t[-1,0,0]`` and ``o2 = square(cf0<-1>); o3 =
+square(o2[-2,2,-1])`` at 256x64x128 over (2,) and (4,) meshes on
+``cuda:0`` that cut the stream axis, a single step and a fused loop of 3,
+each held against the local stream compile (1e-4, 1e-5), one sweep a
+shard a step.  A group that reads nothing, served (the serve phase):
+``o0 = s0`` at 64x64x128, three requests in one batch, under the block
+and the stream schedule, each answer bit-equal to its compile.
+
+The port's examples (``examples_torch/``), last: ``quickstart`` (the
+block kernel), ``stream_schedule`` (the sweep kernel), ``trace_compile``
+(both) and ``serve_lm --arch gemma3_1b`` (whose 8-token window reaches
+the SWA kernel) run at their default sizes, one after another in this
+process; each must end with its closing line and launch the kernels it
+reaches.  The other six run in ``tests/test_torch_examples.py`` only.
+
 Usage, from the root of a checkout (the kernels build with nvcc into
 ``build/repro_torch_kernels/`` on first use):
 
@@ -293,10 +309,16 @@ MESH_22 = ((2, 2), ("X", "Y"), ("X", "Y", None))
 MESH_222 = ((2, 2, 2), ("X", "Y", "Z"), ("X", "Y", "Z"))
 MESH_111 = ((1, 1, 1), ("X", "Y", "Z"), ("X", "Y", "Z"))
 MESH_TUNE_MEASURED = 4
+# the mesh phase's rings fed by a coefficient alone, over meshes that cut
+# the stream axis into 2 and 4 shards on cuda:0
+RING_GRID, RING_MESHES, RING_STEPS = (256, 64, 128), (2, 4), 3
+# the serve phase's group that reads nothing (o0 = s0): three requests,
+# served in one batch
+NOTHING_SERVE_GRID, NOTHING_SERVE_WINDOW_S = (64, 64, 128), 0.05
 
 LM_ARCH = "h2o_danube_1_8b"
 LM_BATCH, LM_PROMPT, LM_NEW = 2, 8192, 16
-LM_E2E_DEPTH, LM_E2E_SPLIT = 4, 7168     # prefill 7168, decode 1024
+LM_E2E_DEPTH, LM_E2E_SPLIT = 4, 7936     # prefill 7936, decode 256
 SWA_HEAD_DIMS = (40, 64, 80, 128, 256)
 #: the bf16 SWA libraries the LMs serve (hymba, Danube, mixtral): a ptxas
 #: spill fails the run, but at D 128, the q fragments' limit, where it is
@@ -377,24 +399,29 @@ def log(*a):
 
 
 def make_inputs(p, grid, seed):
-    """Seeded numpy inputs as the repo's benchmarks make them: normal
+    """Seeded inputs as numpy arrays, as a request holds them: normal
     fields, ``e3t`` >= 1, ``msk`` in {0, 1}, scalars 0.1, normal coeffs;
-    pw fields scaled by 0.1 so ten Euler steps stay bounded."""
+    pw fields scaled by 0.1 so ten Euler steps stay bounded.  Drawn on
+    the card from ``seed`` (a host draw of the serve phase's requests
+    took seconds)."""
     import numpy as np
+    import torch
 
-    rng = np.random.default_rng(seed)
-    scale = 0.1 if p.name == "pw_advection" else 1.0
-    fields = {f: rng.standard_normal(size=grid, dtype=np.float32) * scale
-              for f in p.input_fields()}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def normal(shape):
+        return torch.randn(shape, generator=gen, device="cuda").cpu().numpy()
+
+    scale = np.float32(0.1 if p.name == "pw_advection" else 1.0)
+    fields = {f: normal(grid) * scale for f in p.input_fields()}
     if "e3t" in fields:
-        fields["e3t"] = np.abs(fields["e3t"]) + 1.0
+        fields["e3t"] = np.abs(fields["e3t"]) + np.float32(1.0)
     if "msk" in fields:
         fields["msk"] = (fields["msk"] > 0).astype(np.float32)
     if "t" in fields:
-        fields["t"] += 15.0
+        fields["t"] += np.float32(15.0)
     scalars = {s: np.float32(0.1) for s in p.scalars}
-    coeffs = {c: rng.standard_normal(size=(grid[ax],), dtype=np.float32)
-              for c, ax in p.coeffs.items()}
+    coeffs = {c: normal((grid[ax],)) for c, ax in p.coeffs.items()}
     return fields, scalars, coeffs
 
 
@@ -605,6 +632,13 @@ def main() -> int:
         sharded_rank_child(json.loads(args.sharded_rank))
         return 0
     t_smoke = time.perf_counter()
+    laps, t_lap = {}, [t_smoke]
+
+    def lap(name):
+        """The seconds since the last lap, as ``name``'s."""
+        now = time.perf_counter()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
 
     import torch
     if not torch.cuda.is_available():
@@ -755,14 +789,27 @@ def main() -> int:
             raise SystemExit(f"{ph['name']}: disagrees with torch_fused")
     del wants, block_out
 
-    # small grids against the CPU oracle
+    # small grids against the CPU oracle, and a group that reads no field
+    # or coefficient (o0 = s0) under every schedule: all compiled first,
+    # so that their kernels build at once
+    small = {(app, schedule): compile_program(app(), SMALL_GRID,
+                                              schedule=schedule)
+             for app in (pw_advection, tracer_advection)
+             for schedule in ("block", "stream")}
+    b = ProgramBuilder("scalar_only", ndim=3, boundary="zero")
+    b.inputs("in0")
+    b.define(b.outputs("o0")[0], b.scalars("s0")[0])
+    nothing = b.build()
+    nothing_kw = ({}, {"strategy": "per_field"}, {"schedule": "stream"})
+    nothing_ex = [compile_program(nothing, NOTHING_GRID, **kw)
+                  for kw in nothing_kw]
     for app in (pw_advection, tracer_advection):
         p = app()
         f, s, c = make_inputs(p, SMALL_GRID, args.seed)
         want = compile_program(p, SMALL_GRID, backend="torch_naive",
                                device="cpu")(f, s, c)
         for schedule in ("block", "stream"):
-            got = compile_program(p, SMALL_GRID, schedule=schedule)(f, s, c)
+            got = small[app, schedule](f, s, c)
             err = max(rel_err(got[k].cpu(), want[k]) for k in want)
             log(f"{p.name} {SMALL_GRID} {schedule}: card vs CPU oracle max "
                 f"rel err {err:.3e} (tol 1e-5)")
@@ -770,23 +817,17 @@ def main() -> int:
                 raise SystemExit(f"{p.name} {schedule}: card disagrees with "
                                  "the CPU oracle")
 
-    # a group that reads no field or coefficient (o0 = s0) runs on the
-    # card under every schedule
-    b = ProgramBuilder("scalar_only", ndim=3, boundary="zero")
-    b.inputs("in0")
-    b.define(b.outputs("o0")[0], b.scalars("s0")[0])
-    nothing = b.build()
-    for kw in ({}, {"strategy": "per_field"}, {"schedule": "stream"}):
+    for kw, ex in zip(nothing_kw, nothing_ex):
         stencil3d.launches = stream3d.launches = 0
-        got = compile_program(nothing, NOTHING_GRID, **kw)(
-            {"in0": torch.zeros(NOTHING_GRID, device="cuda")},
-            {"s0": 0.5})["o0"]
+        got = ex({"in0": torch.zeros(NOTHING_GRID, device="cuda")},
+                 {"s0": 0.5})["o0"]
         torch.cuda.synchronize()
         n = stencil3d.launches + stream3d.launches
         log(f"o0 = s0 on {NOTHING_GRID} {kw or 'block'}: sum "
             f"{float(got.sum())} (want 768), {n} kernel launches")
         if float(got.sum()) != 768.0 or n < 1 or got.device.type != "cuda":
             raise SystemExit(f"a group that reads nothing failed under {kw}")
+    del small, nothing_ex
 
     # ------------------------------- kernel vs plain version, and timings
     rows, plain_step = [], {}
@@ -821,43 +862,52 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------- measured plan search
+    lap("main_path")
     tuner = tuner_phase(args.seed, torch)
+    lap("tuner")
     torch.cuda.empty_cache()
 
     # ------------------------------------------------ stencil serving path
     serve_rows, serve = serve_phase(args.seed, torch, card)
+    lap("serve")
     rows += serve_rows
     torch.cuda.empty_cache()
 
     # ------------------------------------------- distribution over a mesh
     mesh_rows, mesh = mesh_phase(args.seed, torch, card)
+    lap("mesh")
     rows += mesh_rows
     torch.cuda.empty_cache()
 
     # --------------------------------------------------- LM serving path
     lm_rows, lm = lm_phase(args.seed, torch, swa)
+    lap("lm")
     rows += lm_rows
     lm["swa_ptxas"] = swa_ptxas
     torch.cuda.empty_cache()
 
     # -------------------------------------------------- LM training path
     train_rows, train = train_phase(args.seed, torch, swa)
+    lap("train")
     rows += train_rows
     torch.cuda.empty_cache()
 
     # ------------------------- sharded LM training over a (2, 2) mesh
     sharded_rows, sharded = sharded_train_phase(args.seed, torch, swa)
+    lap("sharded_train")
     rows += sharded_rows
     torch.cuda.empty_cache()
 
     # -------------------------------- Whisper serving (no kernel on it)
     whisper = whisper_phase(args.seed, torch)
+    lap("whisper")
     torch.cuda.empty_cache()
 
     # ------------------ LM serving: the MoE, hybrid and xLSTM families
     # (last: after xlstm's profile of ~1M events, the train phase's short
     # profile of the backward came back empty in two calls out of three)
     family_rows, families = families_phase(args.seed, torch, swa, swa_ptxas)
+    lap("families")
     rows += family_rows
     torch.cuda.empty_cache()
 
@@ -865,10 +915,17 @@ def main() -> int:
     # (after the families' serving profiles, which empty later short ones)
     family_train_rows, family_train = family_train_phase(args.seed, torch,
                                                          swa)
+    lap("family_train")
     rows += family_train_rows
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------- the port's examples
+    examples = examples_phase(card, torch)
+    lap("examples")
 
     smoke_s = time.perf_counter() - t_smoke
-    log(f"chip_smoke: {smoke_s:.1f} s in all")
+    log(f"chip_smoke: {smoke_s:.1f} s in all; by phase "
+        + ", ".join(f"{k} {v:.1f}" for k, v in laps.items()))
     result = {"card": card, "card_properties": card_props,
               "torch": torch.__version__, "cuda": torch.version.cuda,
               "seed": args.seed, "kernels": rows, "paths": path_rows,
@@ -876,7 +933,8 @@ def main() -> int:
               "families": families, "family_train": family_train,
               "train": train,
               "sharded_train": sharded, "whisper": whisper,
-              "seconds": smoke_s}
+              "examples": examples, "seconds": smoke_s,
+              "phase_seconds": laps}
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=1))
@@ -1334,7 +1392,7 @@ def serve_phase(seed, torch, card) -> tuple:
     t_phase = time.perf_counter()
     traffic = serve_traffic(seed)
     # the first request of each phase compiled on its exact grid with the
-    # generated kernels; their sources built together
+    # generated kernels (their builds start at once)
     direct = {}
     for name, ph in traffic.items():
         r = ph["reqs"][0]
@@ -1343,8 +1401,6 @@ def serve_phase(seed, torch, card) -> tuple:
         direct[name] = compile_program(r.program, r.grid(),
                                        schedule=ph["engine"].get("schedule"),
                                        **kw)
-    build.build_many([ex.kernels[0].module.source
-                      for ex in direct.values()])
     rows, record = [], {"card": card, "batch": SERVE_BATCH,
                         "window_s": SERVE_WINDOW_S, "phases": {}}
     for name, ph in traffic.items():
@@ -1461,6 +1517,7 @@ def serve_phase(seed, torch, card) -> tuple:
         finally:
             eng.close()
         record["phases"][name] = rec
+    record["phases"]["reads_nothing"] = serve_reads_nothing(seed, torch, card)
     record["seconds"] = time.perf_counter() - t_phase
     log(f"serve phase: {record['seconds']:.1f} s")
     return rows, record
@@ -1844,6 +1901,10 @@ def mesh_phase(seed, torch, card) -> tuple:
     del inputs, paths
     torch.cuda.empty_cache()
 
+    # ----------- rings a coefficient alone feeds, the stream axis sharded
+    record["rows"]["coeff_rings"] = mesh_coeff_rings(seed, torch, card)
+    torch.cuda.empty_cache()
+
     # ---------------------------------------- the plan search under a mesh
     p = pw_advection("zero")
     upd = pw_advection_update(0.1)
@@ -1967,6 +2028,215 @@ def mesh_phase(seed, torch, card) -> tuple:
     record["seconds"] = time.perf_counter() - t_phase
     log(f"mesh phase: {record['seconds']:.1f} s")
     return rows, record
+
+
+def coeff_ring_programs() -> list:
+    """``t = cf0<0>; o3 = t[-1,0,0]`` and ``o2 = square(cf0<-1>);
+    o3 = square(o2[-2,2,-1])``: regions that read no field, whose temp
+    rings a coefficient on axis 2 alone feeds (``in0`` is read by
+    nothing; a fused loop sets it to half of ``o3``)."""
+    from repro_torch.core import ProgramBuilder
+    from repro_torch.core.ir import Access, CoeffRef, UnOp, UnOpKind
+
+    b = ProgramBuilder("coeff_ring", ndim=3, boundary="zero")
+    b.inputs("in0")
+    cf0 = b.coeff("cf0", axis=2)
+    t = b.temp("t")
+    b.define(t, cf0[0])
+    b.define(b.outputs("o3")[0], t[-1, 0, 0])
+    ring = b.build()
+    b = ProgramBuilder("coeff_ring_chain", ndim=3, boundary="zero")
+    b.inputs("in0")
+    b.coeff("cf0", axis=2)
+    o2 = b.temp("o2")
+    b.define(o2, UnOp(UnOpKind.SQUARE, CoeffRef("cf0", -1)))
+    b.define(b.outputs("o3")[0],
+             UnOp(UnOpKind.SQUARE, Access("o2", (-2, 2, -1))))
+    return [ring, b.build()]
+
+
+def mesh_coeff_rings(seed, torch, card) -> dict:
+    """Each of :func:`coeff_ring_programs` under the stream schedule over
+    meshes of ``RING_MESHES`` shards on ``cuda:0`` that cut the stream
+    axis, a single step and a fused loop of ``RING_STEPS``, against the
+    local stream compile on the card (1e-4 and 1e-5 of its max abs): each
+    shard's sweep warms its rings up below its first plane.  Launches are
+    counted over the sharded run (one sweep a shard a step)."""
+    from repro_torch import compile_program
+    from repro_torch.interop import inputs_from_numpy
+
+    def halve(fields, out):
+        return {"in0": 0.5 * out["o3"]}
+
+    cases = []          # (program, steps, tol, local, {shards: sharded})
+    for p in coeff_ring_programs():
+        for steps, tol in ((None, 1e-4), (RING_STEPS, 1e-5)):
+            kw = {} if steps is None else dict(steps=steps, update=halve)
+            local = compile_program(p, RING_GRID, schedule="stream", **kw)
+            sharded = {n: compile_program(p, RING_GRID, schedule="stream",
+                                          mesh=card_mesh((n,), ("X",)),
+                                          mesh_axes=("X", None, None), **kw)
+                       for n in RING_MESHES}
+            cases.append((p, steps, tol, local, sharded))
+    rec, inputs = {}, {}
+    for p, steps, tol, local, sharded in cases:
+        if p.name not in inputs:
+            f, s, c = make_inputs(p, RING_GRID, seed)
+            inputs[p.name] = inputs_from_numpy(f, s, c, "cuda", "float32")
+        args = inputs[p.name]
+        want = local(*args)
+        for n, ex in sharded.items():
+            got, launches, _, _, _ = mesh_run(torch, lambda: ex(*args))
+            err = max(rel_err(got[k], want[k]) for k in want)
+            name = (f"{p.name} mesh ({n},) "
+                    f"{f'x{steps}' if steps else 'single'}")
+            log(f"coeff rings {name}: {RING_GRID}, stream axis cut in "
+                f"{n}, max rel err vs the local stream compile "
+                f"{err:.3e} (tol {tol}), {launches} sweep launches "
+                f"({card})")
+            if err > tol or launches != n * (steps or 1):
+                raise SystemExit(f"coeff rings {name}: max rel err "
+                                 f"{err:.3e}, {launches} launches")
+            rec[name] = {"grid": list(RING_GRID), "shards": n,
+                         "steps": steps, "max_rel_err": err,
+                         "launches": launches}
+            del got
+    return rec
+
+
+def serve_reads_nothing(seed, torch, card) -> dict:
+    """``o0 = s0`` (its only group reads no field or coefficient) served
+    by ``StencilEngine`` on the card under the block and the stream
+    schedule: three requests with their own ``s0`` in one batch (the
+    batch taken from the scalar rows), after a warm-up pass, launches
+    counted over the measured pass; each answer bit-equal to
+    ``compile_program`` of its grid on the card."""
+    import numpy as np
+
+    from repro_torch import compile_program
+    from repro_torch.core import ProgramBuilder
+    from repro_torch.kernels import stencil3d, stream3d
+    from repro_torch.serve import StencilEngine, StencilRequest
+
+    b = ProgramBuilder("scalar_only", ndim=3, boundary="zero")
+    b.inputs("in0")
+    b.define(b.outputs("o0")[0], b.scalars("s0")[0])
+    p = b.build()
+    rng = np.random.default_rng(seed)
+    reqs = [StencilRequest(program=p, fields={"in0": rng.standard_normal(
+        NOTHING_SERVE_GRID, dtype=np.float32)}, scalars={"s0": 0.5 + k})
+        for k in range(3)]
+    scheds = {"block": None, "stream": "stream"}
+    engines = {k: StencilEngine(max_batch=SERVE_BATCH,
+                                window_s=NOTHING_SERVE_WINDOW_S, schedule=v)
+               for k, v in scheds.items()}
+    rec = {}
+    try:
+        # the warm-up: both engines build their executors' kernels while
+        # the direct compiles build theirs
+        warm = [eng.submit(r) for eng in engines.values() for r in reqs]
+        direct = {k: compile_program(p, NOTHING_SERVE_GRID, schedule=v)
+                  for k, v in scheds.items()}
+        for fut in warm:
+            fut.result(600)
+        torch.cuda.synchronize()
+        for schedule, eng in engines.items():
+            stencil3d.launches = stream3d.launches = 0
+            res, wall = serve_pass(eng, reqs, torch)
+            launched = (stencil3d.launches if schedule == "block"
+                        else stream3d.launches)
+            rec[schedule] = check_reads_nothing(
+                schedule, reqs, res, wall, launched, direct[schedule],
+                torch, card)
+    finally:
+        for eng in engines.values():
+            eng.close()
+    return rec
+
+
+def check_reads_nothing(schedule, reqs, res, wall, launched, direct, torch,
+                        card) -> dict:
+    """A served pass of ``o0 = s0`` held to ``direct`` (its compile on the
+    card): bit-equal answers, a batch of two or more, a launch."""
+    exact = all(torch.equal(out.outputs["o0"],
+                            direct(r.fields, r.scalars)["o0"])
+                for r, out in zip(reqs, res))
+    batch = max(out.batch_size for out in res)
+    log(f"serve reads_nothing ({schedule}): o0 = s0 on "
+        f"{NOTHING_SERVE_GRID}, {len(reqs)} requests in {wall:.3f} s, "
+        f"largest batch {batch}, {launched} kernel launches, every answer "
+        f"bit-equal to compile_program: {exact} ({card})")
+    if not exact or launched < 1 or batch < 2:
+        raise SystemExit(f"serve reads_nothing ({schedule}): exact {exact},"
+                         f" {launched} launches, batch {batch}")
+    return {"requests": len(reqs), "seconds": wall, "largest_batch": batch,
+            "launches": launched, "bit_equal": exact}
+
+
+# the port's examples run on the card: (example, arguments beyond its
+# defaults, the kernel modules whose launches it must make).  The other six
+# (pw_advection, tracer_advection, autotune, distributed_stencil,
+# serve_stencils, train_lm) run only in tests/test_torch_examples.py, on
+# the CPU: the script's time does not hold them
+EXAMPLES = (
+    ("quickstart", [], ("stencil3d",)),
+    ("stream_schedule", [], ("stream3d",)),
+    ("trace_compile", [], ("stencil3d", "stream3d")),
+    ("serve_lm", ["--arch", "gemma3_1b"], ("swa",)),
+)
+# an example's last line (its counterpart in examples/ ends alike)
+EXAMPLE_CLOSING = {"stream_schedule": r"\s*stream/P=4/T=4: .* steps/s .*",
+                   "trace_compile": r"}"}
+
+
+def examples_phase(card, torch) -> dict:
+    """The examples of :data:`EXAMPLES` on the card at their default sizes,
+    one after another in this process, each ``main`` with its standard
+    output captured and every kernel count zeroed just before and read
+    just after: each must end with its closing line (``... OK``) and
+    launch the kernels it names; its seconds (``nvcc`` of the programs it
+    compiles included) are logged.  Any failure fails the script."""
+    import importlib.util
+    import io
+    import tempfile
+
+    from repro_torch.kernels import stencil3d, stream3d, swa
+
+    t_phase = time.perf_counter()
+    record = {"card": card, "examples": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as tmp:
+        extra = {"trace_compile": ["--out", f"{tmp}/TRACE_compile.json"]}
+        for name, argv, kernels in EXAMPLES:
+            path = ROOT / "examples_torch" / f"{name}.py"
+            spec = importlib.util.spec_from_file_location(
+                f"example_{name}", path)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            buf = io.StringIO()
+            stencil3d.launches = stream3d.launches = swa.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                mod.main(argv + extra.get(name, []))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = {"stencil3d": stencil3d.launches,
+                        "stream3d": stream3d.launches, "swa": swa.launches}
+            lines = buf.getvalue().rstrip("\n").splitlines()
+            closing = lines[-1] if lines else ""
+            log(f"example {name} {' '.join(argv)}: {seconds:.1f} s; "
+                f"launches {launches}; last line {closing.strip()[:60]!r} "
+                f"({card})")
+            if not re.fullmatch(EXAMPLE_CLOSING.get(name, rf"{name} OK"),
+                                closing):
+                raise SystemExit(f"example {name}: last line {closing!r}")
+            if sum(launches[k] for k in kernels) < 1:
+                raise SystemExit(f"example {name}: no {'/'.join(kernels)} "
+                                 "kernel launch")
+            record["examples"][name] = {"argv": argv, "seconds": seconds,
+                                        "launches": launches}
+    record["seconds"] = time.perf_counter() - t_phase
+    log(f"examples phase: {record['seconds']:.1f} s")
+    return record
 
 
 def kernel_class(name: str) -> str:
@@ -2481,11 +2751,16 @@ def serve_family(arch, depth, S, e2e_prompt, prof_prompt, seed, torch, swa,
         if cfg.n_experts and len(dropped) != cfg.n_layers:
             raise SystemExit(f"{arch}: {len(dropped)} MoE prefill calls")
 
-        # end-to-end times and one profiled prefill and decode step
+        # end-to-end times (generate's prefill was the warm-up) and one
+        # profiled prefill and decode step
         toks = prompts
-        prefill_ms = time_ms(lambda: prefill(cfg, eng.params, toks, S + 64),
-                             reps=3, warmup=1)
-        _, cache = prefill(cfg, eng.params, toks, S + 64)
+        last = {}
+
+        def timed_prefill():
+            last["cache"] = prefill(cfg, eng.params, toks, S + 64)[1]
+
+        prefill_ms = time_ms(timed_prefill, reps=3, warmup=0)
+        cache = last.pop("cache")          # the last timed prefill's
         step = {"pos": S}
         tok = toks[:, -1]
 

@@ -461,6 +461,10 @@ def stream_halo(p: Program, region: Sequence[int],
     for i in region:
         op = p.ops[i]
         m = margins[i]
+        # a sharded sweep starts ``smargin`` planes below the shard so the
+        # rings warm up with true values, also for an op that reads no
+        # field (a temp fed by a coefficient or a scalar alone)
+        halo[0, 0] = max(halo[0, 0], smargin[i])
         for a in op.accesses():
             if a.field in producer:
                 continue

@@ -500,7 +500,7 @@ def lower_sharded(p: Program, plan: DataflowPlan, global_grid,
             blocks = {f: shards.scatter(torch.as_tensor(
                 fields[f], dtype=dtype, device=shards.home), lead)
                 for f in p.input_fields()}
-            svec = {d: scalar_vector(p, scalars, d, batched)
+            svec = {d: scalar_vector(p, scalars, d, batched, fields)
                     for d in shards.devices}
             cdev = _host_coeffs(p, coeffs, dtype, reach, shards.devices)
             pcs = {idx: _coeff_windows(calls, cdev[shards.device[idx]],
@@ -683,7 +683,7 @@ def lower_sharded_time_loop(p: Program, plan: DataflowPlan, global_grid,
         sdev = {d: (update_scalars(p, scalars, True, d) if batched
                     else _scalars_on(scalars, d)) for d in shards.devices}
         if backend == "cuda":
-            svec = {d: scalar_vector(p, scalars, d, batched)
+            svec = {d: scalar_vector(p, scalars, d, batched, fields)
                     for d in shards.devices}
             pcs = {idx: _coeff_windows(calls + epilogue,
                                        cdev[shards.device[idx]],

@@ -76,23 +76,29 @@ def _run_groups(p: Program, calls, svec, pc_per_call, resolve_input,
     return outputs
 
 
-def scalar_vector(p: Program, scalars, device, batched: bool = False
-                  ) -> torch.Tensor:
+def scalar_vector(p: Program, scalars, device, batched: bool = False,
+                  fields: Mapping | None = None) -> torch.Tensor:
     """Runtime scalars as the kernels read them, in program order: a
-    float32 ``(n_scalars,)`` tensor on ``device``, or ``(B, n_scalars)``
-    for a batch whose scalars are ``(B,)`` each."""
+    float32 ``(n_scalars,)`` tensor on ``device`` for one request, or
+    ``(B, n_scalars)`` for a batch whose scalars are ``(B,)`` each.  A
+    batched program without scalars gets ``(B, 0)``, ``B`` the leading
+    extent of ``fields``, so that a group reading nothing still sees the
+    batch."""
     raw = [scalars[s] for s in p.scalars]
     # values on the host cross to the card in one copy
     where = device if any(isinstance(v, torch.Tensor) and v.device.type
                           != "cpu" for v in raw) else "cpu"
     vals = [torch.as_tensor(v, dtype=torch.float32, device=where)
             for v in raw]
-    if not vals:
-        out = torch.zeros((0,), dtype=torch.float32)
-    elif batched:
+    if vals and batched:
         out = torch.stack([v.reshape(-1) for v in vals], dim=1)
-    else:
+    elif vals:
         out = torch.stack([v.reshape(()) for v in vals])
+    elif batched:
+        out = torch.zeros((next(iter(fields.values())).shape[0], 0),
+                          dtype=torch.float32)
+    else:
+        out = torch.zeros((0,), dtype=torch.float32)
     return out.to(device)
 
 
@@ -138,7 +144,7 @@ def lower_from_calls(p: Program, dtype, calls, device):
                                 align_hi=call.align_hi).contiguous(), None
 
         return _run_groups(p, calls,
-                           scalar_vector(p, scalars, device, batched),
+                           scalar_vector(p, scalars, device, batched, ext),
                            _pad_coeffs(p, calls, coeffs, dtype, device),
                            resolve, device)
 
@@ -210,7 +216,7 @@ def time_loop_from_calls(p: Program, dtype, grid_shape, spec: TimeLoopSpec,
             coeffs: Mapping | None = None, *, batched: bool = False):
         scalars = scalars or {}
         coeffs = coeffs or {}
-        svec = scalar_vector(p, scalars, device, batched)
+        svec = scalar_vector(p, scalars, device, batched, fields)
         upd_scalars = update_scalars(p, scalars, batched, device)
         pc_per_call = _pad_coeffs(p, calls, coeffs, dtype, device)
         pc_epilogue = (_pad_coeffs(p, epilogue, coeffs, dtype, device)

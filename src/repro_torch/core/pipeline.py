@@ -32,6 +32,7 @@ from typing import Mapping
 
 import torch
 
+from ..kernels import build
 from ..obs.events import ChainDemoted, PlanChosen
 from ..obs.metrics import global_metrics
 from ..obs.trace import resolve_tracer
@@ -360,10 +361,17 @@ def _compile(p: Program, grid, o: CompileOptions, tracer,
                 modeled_us=rec.get("modeled_us"),
                 measured_us=rec.get("us_fused") or rec.get("us_single"),
                 roofline_fraction=rec.get("roofline_fraction")))
-    return CompiledStencil(program=p, plan=plan, grid=grid, _fn=fn,
-                           device=device, time_spec=time_spec,
-                           kernels=list(getattr(fn, "calls", [])),
-                           shard=shard)
+    ex = CompiledStencil(program=p, plan=plan, grid=grid, _fn=fn,
+                         device=device, time_spec=time_spec,
+                         kernels=list(getattr(fn, "calls", [])),
+                         shard=shard)
+    if backend == "cuda" and device.type == "cuda":
+        # nvcc starts now, in the background: programs compiled one after
+        # another build at once, and a build overlaps the caller's work
+        # before the first launch
+        build.start(k.module.source for k in ex.kernels
+                    if getattr(k, "module", None) is not None)
+    return ex
 
 
 def mesh_device(mesh, device) -> torch.device:

@@ -9,16 +9,20 @@ is cached by the hash of its source and flags under
 ``build/repro_torch_kernels/`` at the root of the checkout
 (``REPRO_TORCH_BUILD`` overrides the directory), so a second compile of the
 same program loads without calling ``nvcc``.  Several sources build in
-parallel through :func:`build_many`.
+parallel through :func:`build_many`, or start building in the background
+through :func:`start` (``compile_program`` does so for the kernels of a
+program it compiles for the card).
 """
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -27,6 +31,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: dict = {}
+#: builds :func:`start` began and no build has waited for yet
+#: (library path -> job)
+_STARTED: dict = {}
+_STARTED_LOCK = threading.Lock()
 
 #: ``nvcc`` processes started (sources that were not cached yet)
 runs = 0
@@ -95,6 +103,36 @@ def _finish(job) -> None:
     os.replace(tmp, so)
 
 
+def start(sources, tag="stencil") -> None:
+    """Start ``nvcc`` on each source that is neither cached nor started
+    and return without waiting; a later :func:`build_many` or
+    :func:`load` of the source waits for that build instead of starting
+    another.  Without ``nvcc`` nothing starts (the launch raises then).
+    Builds still running when the process exits are waited for."""
+    try:
+        nvcc()
+    except RuntimeError:
+        return
+    with _STARTED_LOCK:
+        for s in dict.fromkeys(sources):
+            so = library_path(s, tag)
+            if so not in _STARTED:
+                job = _start(s, tag)
+                if job is not None:
+                    _STARTED[so] = job
+
+
+@atexit.register
+def _wait_started() -> None:
+    """Publish the builds no launch waited for, so that no ``nvcc``
+    outlives the process (a failed one is left to the next build)."""
+    while _STARTED:
+        try:
+            _finish(_STARTED.popitem()[1])
+        except RuntimeError:
+            pass
+
+
 def build_many(sources, tag="stencil") -> list:
     """Compile every source not yet cached, all ``nvcc`` processes running
     at once; returns the library paths in order.  ``tag`` names the
@@ -103,7 +141,9 @@ def build_many(sources, tag="stencil") -> list:
     tags = [tag] * len(sources) if isinstance(tag, str) else list(tag)
     if len(tags) != len(sources):
         raise ValueError(f"{len(tags)} tags for {len(sources)} sources")
-    jobs = [_start(s, t) for s, t in dict.fromkeys(zip(sources, tags))]
+    with _STARTED_LOCK:
+        jobs = [_STARTED.pop(library_path(s, t), None) or _start(s, t)
+                for s, t in dict.fromkeys(zip(sources, tags))]
     errors = []
     for job in jobs:
         if job is None:

@@ -211,12 +211,15 @@ def _cdiv(a: int, b: int) -> int:
 MAX_BATCH = 65535
 
 
-def batch_of(call, padded_inputs: dict, padded_coeffs: dict | None):
+def batch_of(call, padded_inputs: dict, padded_coeffs: dict | None,
+             scalars_vec=None):
     """The batch size of a kernel call's arguments: ``None`` when every
     input has the program's rank (one request), else the leading extent
     that every input, and every coefficient given per element as a
     ``(batch, n)`` array, shares.  A 1-D coefficient serves every
-    element."""
+    element.  When no field or coefficient carries a batch, the rows of
+    a ``(batch, n)`` ``scalars_vec`` give it (a call that reads nothing,
+    or only 1-D coefficients)."""
     sizes, ranks = set(), set()
     for f in call.group_inputs:
         x = padded_inputs[f]
@@ -237,6 +240,9 @@ def batch_of(call, padded_inputs: dict, padded_coeffs: dict | None):
     if len(ranks) > 1 or len(sizes) > 1:
         raise ValueError(f"the arguments disagree on the batch: ranks "
                          f"{sorted(ranks)}, batch sizes {sorted(sizes)}")
+    if not ranks and not sizes and isinstance(
+            scalars_vec, torch.Tensor) and scalars_vec.ndim == 2:
+        return int(scalars_vec.shape[0])
     return sizes.pop() if sizes else None
 
 
@@ -282,7 +288,7 @@ def per_element(reference, call, padded_inputs: dict, scalars_vec=None,
     row, the results stacked along a leading axis.  Arguments without a
     batch axis go straight through."""
     padded_coeffs = padded_coeffs or {}
-    batch = batch_of(call, padded_inputs, padded_coeffs)
+    batch = batch_of(call, padded_inputs, padded_coeffs, scalars_vec)
     if batch is None:
         return reference(call, padded_inputs, scalars_vec, padded_coeffs,
                          origin, input_pad, device)
@@ -498,7 +504,7 @@ def launch(call, padded_inputs: dict, scalars_vec, padded_coeffs: dict,
         raise NotImplementedError(
             f"the CUDA kernels take float32 or bfloat16, not "
             f"{call.dtype_name}")
-    batch = batch_of(call, padded_inputs, padded_coeffs)
+    batch = batch_of(call, padded_inputs, padded_coeffs, scalars_vec)
     nb = 1 if batch is None else batch
     if not 1 <= nb <= MAX_BATCH:
         raise ValueError(f"a batch of {nb} elements; the kernels take 1 to "

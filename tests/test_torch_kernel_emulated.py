@@ -175,7 +175,7 @@ def _emulated_launch(call, nblocks, padded, svec, pcoeffs, origin,
     argument marshalling, a batch axis or none), on CPU tensors, through
     the emulated entry."""
     fn = _emulated(call, queued)
-    batch = stencil3d.batch_of(call, padded, pcoeffs)
+    batch = stencil3d.batch_of(call, padded, pcoeffs, svec)
     nb = 1 if batch is None else batch
     outs = {f: torch.full((nb,) + call.grid_shape, float("nan"),
                           dtype=call.dtype) for f in call.group_outputs}
@@ -530,10 +530,38 @@ def test_generated_sweep_kernel_with_queued_copies_matches_plain_version(
                       chunk, queued=True)
 
 
+def _coeff_ring(boundary="zero"):
+    """t = cf0<0>; o3 = t[-1,0,0]: a ring fed by a coefficient alone, so
+    the region reads no field and its warm-up planes come from the ring's
+    stream margin alone."""
+    b = ProgramBuilder("coeff_ring", ndim=3, boundary=boundary)
+    b.inputs("in0")
+    cf0 = b.coeff("cf0", axis=2)
+    t = b.temp("t")
+    (o3,) = b.outputs("o3")
+    b.define(t, cf0[0])
+    b.define(o3, t[-1, 0, 0])
+    return b.build()
+
+
+def _coeff_ring_chain(boundary="zero"):
+    """o2 = cf0<-1> * cf0<-1>; o3 = o2[-2,2,-1] * o2[-2,2,-1]: a ring read
+    two planes back, fed by a coefficient alone."""
+    b = ProgramBuilder("coeff_ring_chain", ndim=3, boundary=boundary)
+    b.inputs("in0")
+    cf0 = b.coeff("cf0", axis=2)
+    o2 = b.temp("o2")
+    (o3,) = b.outputs("o3")
+    b.define(o2, cf0[-1] * cf0[-1])
+    b.define(o3, o2[-2, 2, -1] * o2[-2, 2, -1])
+    return b.build()
+
+
 # app, boundary, time_tile, tile, chunk, origin on axis 0 of a global
 # extent of three shards: the first, a middle and the last shard, a chain
-# with its T-fold ghost planes, and chunks whose warm-up reaches below the
-# shard's first plane (and below its padded input)
+# with its T-fold ghost planes, chunks whose warm-up reaches below the
+# shard's first plane (and below its padded input), and regions that read
+# no field, whose rings a coefficient feeds
 SHARDED_SWEEP_CASES = [
     (pw_advection, "zero", 1, None, None, 7),
     (pw_advection, "zero", 1, (2, 32), 3, 0),
@@ -542,6 +570,9 @@ SHARDED_SWEEP_CASES = [
     (pw_advection, "periodic", 1, (4, 32), 3, 7),
     (tracer_advection, "zero", 1, (2, 32), 3, 7),
     (tracer_advection, "zero", 1, None, None, 14),
+    (_coeff_ring, "zero", 1, None, None, 7),
+    (_coeff_ring, "zero", 1, (2, 32), 3, 14),
+    (_coeff_ring_chain, "zero", 1, (4, 32), 2, 7),
 ]
 
 

@@ -71,8 +71,8 @@ def test_port_imports_and_compiles_without_jax():
 
 
 def test_port_sources_import_neither_jax_nor_the_reference():
-    """(b) Static check over every port file, chip_smoke.py and
-    tools/lm_turns.py."""
+    """(b) Static check over every port file, chip_smoke.py,
+    tools/lm_turns.py and the port's examples (examples_torch/*.py)."""
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     # the serving and mesh packages are scanned with the rest
     assert {"bucket.py", "engine.py", "stats.py", "__init__.py"} <= {
@@ -91,6 +91,12 @@ def test_port_sources_import_neither_jax_nor_the_reference():
         assert names | {"__init__.py"} <= {
             f.name for f in files if f.parent.name == pkg}, pkg
     files += [ROOT / "chip_smoke.py", ROOT / "tools" / "lm_turns.py"]
+    examples = sorted((ROOT / "examples_torch").glob("*.py"))
+    assert {f.stem for f in examples} >= {
+        "quickstart", "pw_advection", "tracer_advection", "stream_schedule",
+        "autotune", "distributed_stencil", "serve_stencils", "trace_compile",
+        "serve_lm", "train_lm"}
+    files += examples
     pat = re.compile(r"^\s*(?:import|from)\s+(jax|repro)(?:\.|\s|$)", re.M)
     for f in files:
         hits = pat.findall(f.read_text())

@@ -128,10 +128,20 @@ Sharded LM training (after the train phase; ``Trainer(rules=)`` over a
 ``DeviceMesh``, one process a rank, this script run with
 ``--sharded-rank``):
 
+8a. The strict-view guard under the card's torch
+   (``repro_torch.launch.strict_views``, CPU only, no card visible):
+   gemma3, mixtral, whisper and hymba's train steps traced at full width
+   on a fake world of 256 ranks under the (32, 8) mesh's train rules,
+   three niced child processes started after the main path (their CPU
+   work overlaps the phases between) and collected here; each one's
+   trace seconds and its
+   ``_StridedShard``, graph-plan and fallback counts are logged, and a
+   count that is not zero fails the run (``"strict_views"`` in the JSON).
+
 8b. H2O-Danube-1.8B at full width cut to 2 of its 24 layers (4 took the
    script past its time), two sequences of 8192 tokens from
    ``SyntheticLM(seed=--seed)`` a step (one a data rank), remat, bf16 over
-   float32 masters, trained three steps by
+   float32 masters, trained two steps by
    4 ranks of a (2, 2) ``("data", "model")`` mesh under the dry run's
    train rules (TP over ``model``, FSDP and the batch over ``data``): NCCL
    with a card a rank, else every rank on ``cuda:0`` with gloo, each
@@ -147,7 +157,18 @@ Sharded LM training (after the train phase; ``Trainer(rules=)`` over a
    (2e-2), timed in turns with SDPA; each step's collectives by op and
    mesh axis (a dispatch mode below DTensor, as the dry run counts them)
    and each rank's peak memory are logged (``"sharded_train"`` in the
-   JSON).
+   JSON).  Then, on the same ranks: hymba-1.5B at full width cut to 2 of
+   its 32 layers (layer 0 global, layer 1 local), one 2048-token sequence
+   a data rank (past its window: the bf16 SWA pair at D 64), two steps'
+   losses and grad norms held to a single-process ``Trainer`` (2e-2);
+   and the smoke configs of mixtral, hymba, xlstm and whisper in float32,
+   two steps sharded against unsharded (1e-4).  Their gathered
+   parameters are held after one ``make_train_step`` call from non-zero
+   moments (a Trainer's first steps from zero moments move an element by
+   about lr times the sign of its gradient, so a zero-initialised bias
+   whose gradient has elements near 0 differs by reduction order alone,
+   as hymba's conv bias and xlstm's gate bias do); the Trainer's are
+   logged.
 
 LM training of the families (the last phase, after their serving; the
 same bf16 kernels forward and backward, at D 128 and D 64):
@@ -277,6 +298,7 @@ import argparse
 import contextlib
 import hashlib
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -382,9 +404,27 @@ FAMILY_TRAIN_HEAD_DIMS = (128, 64)
 # of 4 rank processes under the dry run's train rules, one 8192-token
 # sequence a data rank; the float32 smoke check on the same mesh
 SHARDED_MESH, SHARDED_RANKS = ((2, 2), ("data", "model")), 4
-SHARDED_DEPTH, SHARDED_BATCH, SHARDED_SEQ, SHARDED_STEPS = 2, 2, 8192, 3
-SHARDED_SMOKE_BATCH, SHARDED_SMOKE_STEPS = 4, 3
+SHARDED_DEPTH, SHARDED_BATCH, SHARDED_SEQ, SHARDED_STEPS = 2, 2, 8192, 2
+SHARDED_SMOKE_BATCH, SHARDED_SMOKE_STEPS = 4, 2
+# then hymba at full width, layer 0 global and layer 1 local (its pattern's
+# two kinds), one 2048-token sequence a data rank (past its window: the
+# bf16 SWA pair at D 64) for SHARDED_HYMBA_STEPS steps, held to the single
+# process at 2e-2; and the smoke configs of SHARDED_SMOKES in float32,
+# sharded against unsharded at 1e-4 (their full widths are the
+# strict_views phase's: one mixtral layer does not fit the phase's time)
+SHARDED_HYMBA_DEPTH, SHARDED_HYMBA_SEQ, SHARDED_HYMBA_STEPS = 2, 2048, 2
+SHARDED_SMOKES, SHARDED_OTHER_STEPS = (("mixtral_8x7b", "hymba_1_5b",
+                                        "xlstm_350m", "whisper_small"), 2)
 SHARDED_TIMEOUT_S = 420
+# the strict_views phase: the strict-view guard (repro_torch.launch.
+# strict_views) under the card's torch, each group of architectures in a
+# child process of its own, all at once, with no card visible to them,
+# started after the main path and collected before sharded_train (~30 s
+# of CPU as a phase of its own); xlstm (~24 s alone) and the others run
+# in the card-side pytest of tests/test_torch_strict_views*.py
+STRICT_GROUPS = (("gemma3_1b", "mixtral_8x7b"), ("whisper_small",),
+                 ("hymba_1_5b",))
+STRICT_TIMEOUT_S = 45
 # (B, S, H, KV, D, window): the head dims, GQA, a window >= S, a last query
 # tile that is not full, a head dim that is not a multiple of 16, D 256
 # with a ragged last tile
@@ -863,6 +903,8 @@ def main() -> int:
 
     # ------------------------------------------------- measured plan search
     lap("main_path")
+    # the guard's CPU traces, collected before the sharded training phase
+    strict_started = strict_views_start()
     tuner = tuner_phase(args.seed, torch)
     lap("tuner")
     torch.cuda.empty_cache()
@@ -891,6 +933,10 @@ def main() -> int:
     lap("train")
     rows += train_rows
     torch.cuda.empty_cache()
+
+    # ------------------ the sharded train step's views, under this torch
+    strict = strict_views_phase(strict_started)
+    lap("strict_views")
 
     # ------------------------- sharded LM training over a (2, 2) mesh
     sharded_rows, sharded = sharded_train_phase(args.seed, torch, swa)
@@ -932,6 +978,7 @@ def main() -> int:
               "tuner": tuner, "serve": serve, "mesh": mesh, "lm": lm,
               "families": families, "family_train": family_train,
               "train": train,
+              "strict_views": strict,
               "sharded_train": sharded, "whisper": whisper,
               "examples": examples, "seconds": smoke_s,
               "phase_seconds": laps}
@@ -3383,7 +3430,6 @@ def train_phase(seed, torch, swa):
     float32; the training record)."""
     import copy
     import dataclasses
-    import os
     import tempfile
 
     import numpy as np
@@ -3700,18 +3746,81 @@ def train_phase(seed, torch, swa):
     return rows, record
 
 
+def strict_views_start() -> tuple:
+    """Start the strict-view guard under this machine's torch: each group
+    of ``STRICT_GROUPS`` traced by ``python -m repro_torch.launch.
+    strict_views`` in a child process (no card visible: a fake world of
+    256 ranks on the (32, 8) mesh, full widths), the children at once and
+    niced, CPU work that overlaps the phases until
+    :func:`strict_views_phase` collects it.  Returns (start time,
+    children)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    return time.perf_counter(), [subprocess.Popen(
+        ["nice", "-n", "10", sys.executable, "-m",
+         "repro_torch.launch.strict_views"]
+        + [f"--arch={a}" for a in group], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for group in STRICT_GROUPS]
+
+
+def strict_views_phase(started: tuple) -> dict:
+    """The guard's children of :func:`strict_views_start`, collected:
+    each architecture's trace seconds and its three counts
+    (``_StridedShard`` constructed, graph-based plans, dry-run fallbacks)
+    logged; a count that is not zero, a child that fails or children that
+    outlast ``STRICT_TIMEOUT_S`` from their start fail the run."""
+    t0, procs = started
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(
+                1.0, STRICT_TIMEOUT_S - (time.perf_counter() - t0))))
+    except subprocess.TimeoutExpired:
+        raise SystemExit(f"strict_views: past {STRICT_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    recs = {}
+    for group, p, (out, err) in zip(STRICT_GROUPS, procs, outs):
+        for ln in out.splitlines():
+            if ln.startswith("STRICT "):
+                rec = json.loads(ln[len("STRICT "):])
+                recs[rec["arch"]] = rec
+        if p.returncode not in (0, 1) or not set(group) <= set(recs):
+            log(err[-3000:])
+            raise SystemExit(f"strict_views: {group} failed")
+    for arch, rec in recs.items():
+        log(f"strict_views {arch}: layers {rec['layers']} + "
+            f"{rec['enc_layers']} encoder, {rec['batch']} x {rec['seq']} "
+            f"tokens, trace {rec['trace_s']:.2f} s (CPU); _StridedShard "
+            f"{rec['strided_shards']}, graph plans {rec['graph_plans']}, "
+            f"fallbacks {sum(f['count'] for f in rec['fallbacks'].values())}"
+            + (f" {rec['fallbacks']}" if rec["fallbacks"] else ""))
+    bad = [a for a, r in recs.items() if r["strided_shards"]
+           or r["graph_plans"] or r["fallbacks"]]
+    if bad:
+        raise SystemExit(f"strict_views: {bad} would not train sharded "
+                         "with no strided view")
+    log(f"strict_views: the children's wall {wall:.1f} s from their start")
+    return {"records": recs, "children_wall_s": wall}
+
+
 def sharded_rank_child(spec: dict) -> None:
     """One rank of the sharded training phase (this script run with
     ``--sharded-rank``): full-width Danube cut to ``spec["depth"]`` layers
     trained by ``Trainer(rules=)`` over a (2, 2) mesh, in turns with a
     single-process ``Trainer`` on rank 0 from the same parameters and
-    batches; the smoke config in float32 the same way; rank 0's first
-    local SWA call captured.  Writes ``rank<r>.json`` (and rank 0 the
+    batches; the smoke config in float32 the same way; then hymba cut to
+    ``SHARDED_HYMBA_DEPTH`` layers at full width and the smoke configs of
+    ``SHARDED_SMOKES`` the same way; rank 0's first local SWA call
+    captured.  Writes ``rank<r>.json`` (and rank 0 the
     captured call, ``swa_local.pt``) under ``spec["dir"]``."""
     import contextlib
     import dataclasses
     import datetime
-    import os
 
     import torch
     import torch.distributed as dist
@@ -3752,10 +3861,11 @@ def sharded_rank_child(spec: dict) -> None:
         return attention(q, k, v, window=window)
     swa.attention = capture
 
-    def train(cfg, tcfg, data, tag):
-        """Steps of the sharded Trainer (every rank) and the single one
-        (rank 0) in turns; per sharded step its counts, time and
-        collectives on this rank."""
+    def train(cfg, tcfg, data, tag, n_steps):
+        """``n_steps`` steps of the sharded Trainer (every rank) and the
+        single one (rank 0) in turns; per sharded step its counts, time
+        and collectives on this rank."""
+        t_part = time.perf_counter()
         sharded = Trainer(cfg, dataclasses.replace(
             tcfg, ckpt_dir=str(work / f"{tag}_sharded")), data, rules=rules)
         single = (Trainer(cfg, dataclasses.replace(
@@ -3781,7 +3891,7 @@ def sharded_rank_child(spec: dict) -> None:
             return out
         sharded.step_fn = counted
         single_ms = []
-        for _ in range(spec[tag + "_steps"]):
+        for _ in range(n_steps):
             sharded.run(1)
             dist.barrier()
             if single is not None:
@@ -3798,7 +3908,8 @@ def sharded_rank_child(spec: dict) -> None:
             e0, e1 = st.pop("events")
             st["ms"] = e0.elapsed_time(e1)
         out = {"history": sharded.history, "steps": steps,
-               "single_ms": single_ms}
+               "single_ms": single_ms,
+               "seconds": time.perf_counter() - t_part}
         # the gathered parameters against the single run's (rank 0)
         worst = {}
         single_named = (dict(single.state["params"].named_parameters())
@@ -3812,9 +3923,70 @@ def sharded_rank_child(spec: dict) -> None:
             out["single_history"] = single.history
             out["params_max_rel_err"] = max(worst.values())
             out["params_worst_leaf"] = max(worst, key=worst.get)
+            out["params_worst"] = sorted(worst.items(),
+                                         key=lambda kv: -kv[1])[:4]
+            out["params_worst_max_abs"] = float(
+                single_named[out["params_worst_leaf"]].abs().max())
         del sharded, single
         torch.cuda.empty_cache()
         return out
+
+    def moment_step(cfg, tcfg, data, tag):
+        """One ``make_train_step`` call from fresh parameters (``tcfg.
+        seed``) and non-zero moments (count 5), sharded (every rank) and
+        single (rank 0), on batch 0: each leaf's gathered parameters'
+        rel err (rank 0).  A Trainer's first steps from zero moments move
+        each element by about lr times the sign of its gradient, so a
+        leaf that starts at zero and whose gradient has elements near 0
+        (hymba's conv bias, xlstm's gate bias) differs by the order of a
+        reduction alone; non-zero moments make the update smooth in the
+        gradients, as ``smoke_step_check`` does."""
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch.dist.sharding import (NamedSharding, place,
+                                               place_batch)
+        from repro_torch.train import adamw_init, make_train_step
+
+        t_part, after = time.perf_counter(), {}
+        for name, on in [("sharded", rules)] + (
+                [("single", None)] if rank == 0 else []):
+            tr = Trainer(cfg, dataclasses.replace(
+                tcfg, ckpt_dir=str(work / f"{tag}_moments_{name}")), data,
+                rules=on)
+            named = dict(tr.state["params"].named_parameters())
+            state = adamw_init(named)
+            state["count"] += 5
+            gen = torch.Generator().manual_seed(spec["seed"] + 5)
+            for k, p in named.items():
+                for kind, t in (("mu", torch.randn(p.shape, generator=gen)
+                                 * 1e-2),
+                                ("nu", torch.randn(p.shape, generator=gen)
+                                 .square() * 1e-4 + 1e-6)):
+                    t = t.cuda()
+                    state[kind][k] = (place(t, NamedSharding(
+                        p.device_mesh, p.placements))
+                        if isinstance(p, DTensor) else t)
+            batch = {k: torch.as_tensor(v, device="cuda").long()
+                     for k, v in data.batch_at(0).items()}
+            if on is not None:
+                batch = place_batch(batch, on)
+            make_train_step(cfg, tcfg, on)(
+                tr.state["params"], state, torch.zeros((), device="cuda"),
+                batch)
+            after[name] = {k: (p.full_tensor() if isinstance(p, DTensor)
+                               else p).detach() for k, p in named.items()}
+            del tr, state
+        dist.barrier()
+        if rank != 0:
+            return {}
+        worst = {k: rel_err(p, after["single"][k])
+                 for k, p in after["sharded"].items()}
+        del after
+        torch.cuda.empty_cache()
+        return {"params_max_rel_err": max(worst.values()),
+                "params_worst": sorted(worst.items(),
+                                       key=lambda kv: -kv[1])[:4],
+                "seconds": time.perf_counter() - t_part}
 
     with staged:
         cfg = dataclasses.replace(get_config(spec["arch"]),
@@ -3827,7 +3999,7 @@ def sharded_rank_child(spec: dict) -> None:
                                      seq_len=spec["seq"], vocab=cfg.vocab),
                            seed=spec["seed"])
         torch.cuda.reset_peak_memory_stats()
-        rec["full"] = train(cfg, tcfg, data, "full")
+        rec["full"] = train(cfg, tcfg, data, "full", SHARDED_STEPS)
         rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
         swa.attention = attention
         if rank == 0:
@@ -3840,13 +4012,38 @@ def sharded_rank_child(spec: dict) -> None:
         sdata = SyntheticLM(BatchSpec(global_batch=SHARDED_SMOKE_BATCH,
                                       seq_len=TRAIN_SMOKE_SEQ,
                                       vocab=scfg.vocab), seed=spec["seed"])
-        rec["smoke"] = train(scfg, stcfg, sdata, "smoke")
+        rec["smoke"] = train(scfg, stcfg, sdata, "smoke",
+                             SHARDED_SMOKE_STEPS)
+        hcfg = dataclasses.replace(get_config("hymba_1_5b"),
+                                   n_layers=SHARDED_HYMBA_DEPTH)
+        hdata = SyntheticLM(BatchSpec(
+            global_batch=spec["batch"], seq_len=SHARDED_HYMBA_SEQ,
+            vocab=hcfg.vocab), seed=spec["seed"])
+        rec["hymba"] = dict(train(hcfg, tcfg, hdata, "hymba",
+                                  SHARDED_HYMBA_STEPS),
+                            moments=moment_step(hcfg, tcfg, hdata, "hymba"))
+        for arch in SHARDED_SMOKES:
+            ocfg = dataclasses.replace(get_smoke(arch), dtype="float32")
+            odata = SyntheticLM(BatchSpec(
+                global_batch=SHARDED_SMOKE_BATCH, seq_len=TRAIN_SMOKE_SEQ,
+                vocab=ocfg.vocab), seed=spec["seed"])
+            rec["smoke_" + arch] = dict(
+                train(ocfg, stcfg, odata, "smoke_" + arch,
+                      SHARDED_OTHER_STEPS),
+                moments=moment_step(ocfg, stcfg, odata, "smoke_" + arch))
     if isinstance(staged, HostStagedCollectives):
         rec["staged_collectives"] = staged.staged
     dist.barrier()
     dist.destroy_process_group()
     (work / f"rank{rank}.json").write_text(json.dumps(rec))
     os._exit(0)
+
+
+def swa_layers(cfg, seq: int) -> int:
+    """Layers of ``cfg`` whose attention takes the SWA kernel on a
+    ``seq``-token sequence: local, and past the window."""
+    return sum(cfg.layer_kind(i) == "local" and 0 < cfg.window < seq
+               for i in range(cfg.n_layers))
 
 
 def sharded_train_phase(seed, torch, swa):
@@ -3858,10 +4055,14 @@ def sharded_train_phase(seed, torch, swa):
     with every rank on ``cuda:0``.  Checks each step's loss and grad norm
     and the gathered parameters after the last against a single-process
     Trainer on the same card (2e-2), the SWA launches of every rank (2
-    forward and 1 backward a layer a step, under remat), the smoke config
-    in float32 sharded against unsharded (1e-4), and rank 0's first local
-    SWA call (forward and backward) against its plain version, timed in
-    turns with SDPA.  Returns (the local SWA rows, the record)."""
+    forward and 1 backward a layer past its window a step, under remat),
+    the smoke config in float32 sharded against unsharded (1e-4), full-
+    width hymba (2e-2) and the smoke configs of ``SHARDED_SMOKES`` (1e-4)
+    the same way but for their parameters, held after a step from
+    non-zero moments (``moment_step`` in the rank child), and rank 0's
+    first local SWA call (forward and backward) against its plain
+    version, timed in turns with SDPA.  Returns (the local SWA rows, the record)."""
+    import dataclasses
     import tempfile
 
     from repro_torch.configs import get_config, get_smoke
@@ -3878,20 +4079,32 @@ def sharded_train_phase(seed, torch, swa):
         f"{cfg.name} at full width cut to "
         f"{SHARDED_DEPTH} of its {cfg.n_layers} layers, {SHARDED_BATCH} x "
         f"{SHARDED_SEQ} tokens a step, remat, bf16 over float32 masters")
+    # (part, config, tokens a sequence, steps, tolerance) of the ranks'
+    # runs, in their order
+    hcfg = dataclasses.replace(get_config("hymba_1_5b"),
+                               n_layers=SHARDED_HYMBA_DEPTH)
+    parts = ([("full", dataclasses.replace(cfg, n_layers=SHARDED_DEPTH),
+               SHARDED_SEQ, SHARDED_STEPS, 2e-2),
+              ("smoke", get_smoke(LM_ARCH), TRAIN_SMOKE_SEQ,
+               SHARDED_SMOKE_STEPS, 1e-4),
+              ("hymba", hcfg, SHARDED_HYMBA_SEQ, SHARDED_HYMBA_STEPS, 2e-2)]
+             + [("smoke_" + a, get_smoke(a), TRAIN_SMOKE_SEQ,
+                 SHARDED_OTHER_STEPS, 1e-4) for a in SHARDED_SMOKES])
     # the sources every rank loads (cached by the start of the run)
     d_smoke = get_smoke(LM_ARCH).d_head
     build.build_many(
         [swa.kernel_source(torch.bfloat16, cfg.d_head),
          swa.kernel_source(torch.float32, d_smoke),
+         swa.kernel_source(torch.bfloat16, hcfg.d_head),
          swa.backward_source(torch.bfloat16, cfg.d_head),
-         swa.backward_source(torch.float32, d_smoke)],
-        tag=["swa", "swa", "swa_bwd", "swa_bwd"])
+         swa.backward_source(torch.float32, d_smoke),
+         swa.backward_source(torch.bfloat16, hcfg.d_head)],
+        tag=["swa"] * 3 + ["swa_bwd"] * 3)
     tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_")
     work = Path(tmp_dir.name)
     spec = {"dir": str(work), "backend": backend, "seed": seed,
             "arch": LM_ARCH, "depth": SHARDED_DEPTH, "batch": SHARDED_BATCH,
-            "seq": SHARDED_SEQ, "full_steps": SHARDED_STEPS,
-            "smoke_steps": SHARDED_SMOKE_STEPS}
+            "seq": SHARDED_SEQ}
     procs = [subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()), "--sharded-rank",
          json.dumps(dict(spec, rank=r))], stdout=subprocess.PIPE,
@@ -3924,16 +4137,18 @@ def sharded_train_phase(seed, torch, swa):
            "rules": ranks[0]["rules"]}
 
     # every rank ran the kernels: 2 forward (remat) and 1 backward a layer
+    # past its window
     for r in ranks:
-        for part, depth in (("full", SHARDED_DEPTH), ("smoke", 2)):
+        for part, pcfg, seq, _, _ in parts:
+            depth = swa_layers(pcfg, seq)
             got = [(st["forward"], st["backward"])
                    for st in r[part]["steps"]]
             if any(f != 2 * depth or b != depth for f, b in got):
                 raise SystemExit(f"sharded_train rank {r['rank']} {part}: "
                                  f"SWA launches {got} a step, want "
                                  f"{(2 * depth, depth)}")
-    zero = ranks[0]
-    for part, tol in (("full", 2e-2), ("smoke", 1e-4)):
+    zero, bad = ranks[0], []
+    for part, _, _, n_steps, tol in parts:
         z = zero[part]
         errs = {k: max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(
             z["history"], z["single_history"])) for k in ("loss",
@@ -3941,22 +4156,44 @@ def sharded_train_phase(seed, torch, swa):
         same = all(r[part]["history"][i][k] == zero[part]["history"][i][k]
                    for r in ranks for i in range(len(z["history"]))
                    for k in ("loss", "grad_norm"))
+        # the parameters are held after the Trainer's steps (Danube), or
+        # after a step from non-zero moments (the others: see moment_step)
+        held = z.get("moments", z)
         log(f"sharded_train {part}: losses "
             f"{[round(h['loss'], 5) for h in z['history']]} vs single "
             f"{[round(h['loss'], 5) for h in z['single_history']]}; max rel "
             f"err loss {errs['loss']:.3e}, grad norm {errs['grad_norm']:.3e}"
-            f", gathered params {z['params_max_rel_err']:.3e} "
-            f"({z['params_worst_leaf']}) (tol {tol}); metrics equal on "
-            f"every rank: {same}")
-        if max(errs.values()) > tol or z["params_max_rel_err"] > tol \
-                or not same or len(z["history"]) != spec[part + "_steps"]:
-            raise SystemExit(f"sharded_train {part}: the sharded run "
-                             "disagrees with the single-process run")
+            f" (tol {tol}); metrics equal on every rank: {same}; steps "
+            f"{[round(st['ms'], 1) for st in z['steps']]} ms (CUDA events, "
+            f"rank 0) vs single {[round(t, 1) for t in z['single_ms']]}; "
+            f"{z['seconds']:.1f} s on rank 0"
+            + ("" if held is z else f" (+ {held['seconds']:.1f} s)")
+            + "; gathered "
+            f"params after the Trainer's steps {z['params_max_rel_err']:.3e}"
+            " (worst leaves "
+            + ", ".join(f"{k} {v:.3e}" for k, v in z["params_worst"])
+            + f"; the worst's max abs {z['params_worst_max_abs']:.3e})"
+            + ("" if held is z else
+               f", not held; after a step from non-zero moments "
+               f"{held['params_max_rel_err']:.3e} (worst leaves "
+               + ", ".join(f"{k} {v:.3e}" for k, v in held["params_worst"])
+               + f"), held at {tol}"))
+        if max(errs.values()) > tol or held["params_max_rel_err"] > tol \
+                or not same or len(z["history"]) != n_steps:
+            bad.append(part)
         rec[part] = {"history": z["history"],
                      "single_history": z["single_history"],
                      "loss_max_rel_err": errs["loss"],
                      "grad_norm_max_rel_err": errs["grad_norm"],
-                     "params_max_rel_err": z["params_max_rel_err"]}
+                     "params_max_rel_err": z["params_max_rel_err"],
+                     "held_params_max_rel_err": held["params_max_rel_err"],
+                     "step_ms": [st["ms"] for st in z["steps"]],
+                     "single_step_ms": z["single_ms"],
+                     "seconds": z["seconds"] + (0.0 if held is z
+                                                else held["seconds"])}
+    if bad:
+        raise SystemExit(f"sharded_train {bad}: the sharded run disagrees "
+                         "with the single-process run")
     steps = zero["full"]["steps"]
     tokens = SHARDED_BATCH * SHARDED_SEQ
     for i, (st, single) in enumerate(zip(steps, zero["full"]["single_ms"])):

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..dist.sharding import like_placements, replicated
 from ..kernels import ops
 
 
@@ -135,14 +136,49 @@ class MLP(nn.Module):
 # norms
 # --------------------------------------------------------------------------
 
+def _reduced(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor ``Partial`` on some mesh axes (a product that contracted a
+    sharded dim) reduced where it is made: onto its last dim where the
+    axis divides it (a reduce-scatter), replicated where not.  DTensor's
+    own choice may reduce onto the sequence (unevenly where the axis does
+    not divide it), or turn a ``Shard`` it meets into a ``Partial``, which
+    torch 2.11 cannot.  A plain tensor is returned as it is."""
+    if not _is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+
+    places, sizes = list(t.placements), list(t.device_mesh.shape)
+    if not any(pl.is_partial() for pl in places):
+        return t
+    last = t.dim() - 1
+    for i, pl in enumerate(places):
+        if pl.is_partial():
+            on = math.prod(sizes[j] for j, q in enumerate(places)
+                           if isinstance(q, Shard) and q.dim == last)
+            places[i] = (Shard(last) if t.shape[last] % (on * sizes[i]) == 0
+                         else Replicate())
+    return t.redistribute(t.device_mesh, places)
+
+
+def _feature_mean(t: torch.Tensor) -> torch.Tensor:
+    """The mean over the last dim (kept).  On a DTensor, a sum made whole
+    by :func:`_reduced` (an all-reduce of the (..., 1) statistic where TP
+    shards the features), then divided: DTensor would reduce a sharded
+    mean onto the sequence, and cannot carry the gradient back through a
+    reduction of its ``Partial(avg)``."""
+    if not _is_dtensor(t):
+        return t.mean(-1, keepdim=True)
+    return _reduced(t.sum(-1, keepdim=True)) / t.shape[-1]
+
+
 def norm_apply(p: Norm, x: torch.Tensor, kind: str = "rmsnorm",
                eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     if kind == "rmsnorm":
-        nrm = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+        nrm = xf * torch.rsqrt(_feature_mean(xf * xf) + eps)
         return (nrm * p.scale.float()).to(x.dtype)
-    mu = xf.mean(-1, keepdim=True)
-    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    mu = _feature_mean(xf)
+    var = _feature_mean((xf - mu) ** 2)
     out = (xf - mu) * torch.rsqrt(var + eps)
     return (out * p.scale + p.bias).to(x.dtype)
 
@@ -220,28 +256,54 @@ def flat_ready(t: torch.Tensor, first: int, last: int,
     return t.redistribute(t.device_mesh, places) if moved else t
 
 
-class _RowsReady(torch.autograd.Function):
-    """:func:`flat_ready` over the leading dims, on the tensor and on its
-    gradient: a product's backward flattens the gradient of its output the
-    way its forward flattened the input."""
+def batch_only(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor sharded on its batch dim alone: every placement but
+    ``Shard(0)`` made ``Replicate`` (a ``Partial`` reduced).  For a small
+    activation every channel of which each rank reads (the Mamba scan's
+    B and C), which DTensor would otherwise reduce-scatter over the
+    sequence.  A plain tensor is returned as it is."""
+    if not _is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+
+    places = [pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+              for pl in t.placements]
+    return t.redistribute(t.device_mesh, places)
+
+
+class _FlatReady(torch.autograd.Function):
+    """:func:`flat_ready` on the tensor and on its gradient: a product's
+    backward flattens the gradient of its output the way its forward
+    flattened the input."""
 
     @staticmethod
-    def forward(ctx, x):
-        return flat_ready(x, 0, x.dim() - 2, to=x.dim() - 1)
+    def forward(ctx, x, first, last, to):
+        ctx.group = (first, last, to)
+        return flat_ready(x, first, last, to)
 
     @staticmethod
     def backward(ctx, g):
-        return flat_ready(g, 0, g.dim() - 2, to=g.dim() - 1)
+        return flat_ready(g, *ctx.group), None, None, None
+
+
+def group_ready(x: torch.Tensor, first: int, last: int,
+                to: int | None = None) -> torch.Tensor:
+    """:func:`flat_ready` of dims ``first..last`` on ``x`` and on the
+    gradient that comes back to it: for a tensor a view or a product's
+    backward flattens so (a projection's (heads, head dim), whose
+    gradient the projection's backward flattens).  A plain tensor is
+    returned as it is."""
+    return _FlatReady.apply(x, first, last, to) if _is_dtensor(x) else x
 
 
 def rows_ready(x: torch.Tensor) -> torch.Tensor:
     """An activation ready for a product that flattens its leading dims
-    (batch, sequence) into rows, forward and backward: :func:`flat_ready`
+    (batch, sequence) into rows, forward and backward: :func:`group_ready`
     over them, an axis that shards an inner one moved to the feature dim
-    (the product's contraction) where it divides it, on ``x`` and on the
-    gradient that comes back to it.  A plain tensor is returned as it
-    is."""
-    return _RowsReady.apply(x) if _is_dtensor(x) else x
+    (the product's contraction) where it divides it.  A product's output
+    passes it too, so that the gradient its backward flattens comes back
+    so.  A plain tensor is returned as it is."""
+    return group_ready(x, 0, x.dim() - 2, x.dim() - 1)
 
 
 def _repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -361,15 +423,32 @@ def swa_attention(q, k, v, spec: AttnSpec):
     return torch.cat(out, dim=1)
 
 
+def to_heads(x, w):
+    """x (B, S, d) times a projection ``w`` (d, heads, head dim): (B, S,
+    heads, head dim).  Sharded, ``x`` passes :func:`rows_ready`, ``w``
+    :func:`flat_ready` over its (heads, head dim), and the output
+    :func:`group_ready` over them: the product's backward flattens the
+    gradient's (heads, head dim), which a norm or RoPE over the head dim
+    may hand back sharded on it."""
+    return group_ready(torch.einsum("bsd,dhk->bshk", rows_ready(x),
+                                    flat_ready(w, 1, 2)), 2, 3)
+
+
+def from_heads(o, w):
+    """o (B, S, heads, head dim) times an out-projection ``w`` (heads,
+    head dim, d): (B, S, d), which passes :func:`rows_ready` (sharded, the
+    stream it joins and the gradient the product's backward flattens keep
+    the sequence whole)."""
+    return rows_ready(torch.einsum("bshk,hkd->bsd", o, flat_ready(w, 0, 1)))
+
+
 def project_qkv(p: Attention, x, spec: AttnSpec, positions=None,
                 rope_theta=10000.0, use_rope=True, norm_kind="rmsnorm"):
     """q (B,S,H,Dh) and k, v (B,S,KV,Dh) of a self-attention block, after
     qk-norm and RoPE: what :func:`attention_apply` attends over, and what
     prefill writes to the cache."""
     x = rows_ready(x)
-    q = torch.einsum("bsd,dhk->bshk", x, flat_ready(p.wq, 1, 2))
-    k = torch.einsum("bsd,dhk->bshk", x, flat_ready(p.wk, 1, 2))
-    v = torch.einsum("bsd,dhk->bshk", x, flat_ready(p.wv, 1, 2))
+    q, k, v = to_heads(x, p.wq), to_heads(x, p.wk), to_heads(x, p.wv)
     if spec.qk_norm:
         q = norm_apply(p.q_norm, q, norm_kind)
         k = norm_apply(p.k_norm, k, norm_kind)
@@ -415,9 +494,8 @@ def attention_apply(p: Attention, x, spec: AttnSpec, positions=None,
     if kv_override is None:
         q, k, v = project_qkv(p, x, spec, positions, rope_theta, use_rope,
                               norm_kind)
-        return torch.einsum("bshk,hkd->bsd", attend(q, k, v, spec),
-                            flat_ready(p.wo, 0, 1))
-    q = torch.einsum("bsd,dhk->bshk", x, flat_ready(p.wq, 1, 2))
+        return from_heads(attend(q, k, v, spec), p.wo)
+    q = to_heads(x, p.wq)
     k, v = kv_override
     if spec.qk_norm:
         q = norm_apply(p.q_norm, q, norm_kind)
@@ -432,7 +510,7 @@ def attention_apply(p: Attention, x, spec: AttnSpec, positions=None,
             q, k, v, _local_heads(cross, q, k)), q, k, v)
     else:
         out = dense_attention(q, k, v, cross)
-    return torch.einsum("bshk,hkd->bsd", out, flat_ready(p.wo, 0, 1))
+    return from_heads(out, p.wo)
 
 
 # -------------------------------------------------------------------- decode
@@ -491,8 +569,25 @@ _ACTS = {
 }
 
 
+def _whole_features(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor with its last (feature) dim whole on every rank, its other
+    placements kept: the input of a column-parallel product, whose output
+    then takes TP on the product's columns.  A norm's scale hands the
+    stream over sharded on its features, and the product would leave its
+    hidden ``Partial``, which DTensor reduces onto the sequence: unevenly
+    where TP does not divide it (Whisper's 1500 frames), and a view of such
+    a shard fails.  A plain tensor is returned as it is."""
+    if not _is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+
+    last = Shard(t.dim() - 1)
+    places = [Replicate() if pl == last else pl for pl in t.placements]
+    return t.redistribute(t.device_mesh, places)
+
+
 def mlp_apply(p: MLP, x, act="silu"):
-    x = rows_ready(x)
+    x = _whole_features(rows_ready(x))
     h = rows_ready(torch.einsum("...d,df->...f", x, p.w_in))
     g = (rows_ready(torch.einsum("...d,df->...f", x, p.w_gate))
          if hasattr(p, "w_gate") else None)
@@ -522,7 +617,7 @@ def moe_apply(p: MoE, x, top_k=2, act="silu", capacity_factor=1.25,
     B, S, D = x.shape
     E = p.router.shape[-1]
     T = B * S
-    xf = x.reshape(T, D)
+    xf = rows_ready(x).reshape(T, D)
     probs = torch.softmax(xf.float() @ p.router.float(), -1)
     top_p, top_i = torch.topk(probs, top_k, dim=-1)             # (T,k)
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
@@ -542,7 +637,7 @@ def moe_apply(p: MoE, x, top_k=2, act="silu", capacity_factor=1.25,
         if stats is not None:
             stats["dropped"] = torch.zeros((), dtype=torch.long,
                                            device=x.device)
-        return y.reshape(B, S, D), aux
+        return like_placements(y.reshape(B, S, D), x), aux
 
     eid = top_i.reshape(-1)                                     # (T*k,)
     tid = torch.arange(T, device=x.device).repeat_interleave(top_k)
@@ -554,16 +649,85 @@ def moe_apply(p: MoE, x, top_k=2, act="silu", capacity_factor=1.25,
     if stats is not None:
         stats["dropped"] = (~keep).sum()
 
-    buf = torch.zeros((E, cap, D), dtype=x.dtype, device=x.device)
-    buf = buf.index_put((eid, rank), torch.where(keep[:, None], xf[tid], 0),
-                        accumulate=True)
+    buf = (_scatter_whole(xf, tid, keep, eid, rank, (E, cap, D),
+                          x.placements) if _is_dtensor(xf)
+           else _scatter(xf, tid, keep, eid, rank, (E, cap, D)))
     h = torch.einsum("ecd,edf->ecf", buf, p.w_in)
     g = torch.einsum("ecd,edf->ecf", buf, p.w_gate) if gated else None
     out_e = torch.einsum("ecf,efd->ecd", _gated(h, g, act), p.w_out)
-    gathered = torch.where(keep[:, None], out_e[eid, rank], 0)
+    picked = (_gather_whole(out_e, eid, rank) if _is_dtensor(out_e)
+              else out_e[eid, rank])
+    gathered = torch.where(keep[:, None], picked, 0)
     # tid groups each token's k assignments together, in order
     y = (gathered * top_p.reshape(-1, 1).to(x.dtype)).reshape(T, top_k, D)
-    return y.sum(1).reshape(B, S, D), aux
+    return like_placements(y.sum(1).reshape(B, S, D), x), aux
+
+
+def _scatter(xf, tid, keep, eid, rank, shape):
+    """The MoE's dispatch: zeros of ``shape`` (E, cap, D) with each kept
+    assignment's token row (``xf[tid]``) added at its (expert ``eid``,
+    ``rank``)."""
+    src = torch.where(keep[:, None], xf[tid], 0)
+    return xf.new_zeros(shape).index_put((eid, rank), src, accumulate=True)
+
+
+def _scatter_whole(xf, tid, keep, eid, rank, shape, rows):
+    """:func:`_scatter` on DTensors, run on local tensors with every
+    operand whole on every rank (the capacity ranks run over every token;
+    torch 2.11's ``index_put`` on DTensors, here and in the gather's
+    backward, split the values over the batch axes and not the indices).
+    Each rank fills only its share of every expert's capacity slots, split
+    over the axes that split the batch (``rows``: the placements of the
+    tokens' (B, S, D)) where they divide them, so that the experts'
+    products are split as the tokens were; the tokens' gradient then comes
+    back ``Partial`` over those axes."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = xf.device_mesh
+    E, cap, D = shape
+    whole = [Replicate()] * mesh.ndim
+    batch = [pl == Shard(0) for pl in rows]
+    split = math.prod(n for n, b in zip(mesh.shape, batch) if b)
+    if split > 1 and cap % split == 0:
+        # this rank's slice: DTensor nests a dim's shards in mesh order
+        part, coord = 0, mesh.get_coordinate()
+        for n, b, c in zip(mesh.shape, batch, coord):
+            part = part * n + c if b else part
+        n_slots, lo = cap // split, part * (cap // split)
+        out = [Shard(1) if b else Replicate() for b in batch]
+        grad = [Partial() if b else Replicate() for b in batch]
+    else:
+        n_slots, lo, out, grad = cap, 0, whole, whole
+
+    def scatter(xf, keep, eid, rank):
+        mine = keep & (rank >= lo) & (rank < lo + n_slots)
+        return _scatter(xf, tid, mine, eid, torch.where(mine, rank - lo, 0),
+                        (E, n_slots, D))
+    return local_map(scatter, out_placements=out,
+                     in_placements=(whole,) * 4,
+                     in_grad_placements=(grad, whole, whole, whole),
+                     device_mesh=mesh)(
+        *(replicated(t) for t in (xf, keep, eid, rank)))
+
+
+def _gather_whole(out_e, eid, rank):
+    """The MoE's combine on DTensors: ``out_e[eid, rank]``, the indices
+    whole on every rank and ``out_e`` (E, cap, D) whole but for a shard of
+    D (a ``Partial`` reduced onto it), the gather run on the local tensors:
+    its backward, an ``index_put``, met torch 2.11's split as the
+    dispatch did."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    out_e = _reduced(out_e)
+    mesh = out_e.device_mesh
+    whole = [Replicate()] * mesh.ndim
+    keep = [pl if pl == Shard(2) else Replicate() for pl in out_e.placements]
+    rows = [Shard(1) if pl == Shard(2) else Replicate() for pl in keep]
+    return local_map(lambda t, e, r: t[e, r], out_placements=rows,
+                     in_placements=(keep, whole, whole), device_mesh=mesh)(
+        out_e.redistribute(mesh, keep), replicated(eid), replicated(rank))
 
 
 def _load_balance_loss(probs, top_i, E):

@@ -31,7 +31,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.ops import on_head_shards
-from .layers import Norm, _dense_init, _is_dtensor, flat_ready, norm_apply
+from .layers import (Norm, _dense_init, _is_dtensor, _reduced, batch_only,
+                     group_ready, norm_apply, rows_ready, to_heads)
 
 _CHUNK = 256
 #: positions a sub-block of :func:`_linear_scan` steps through in turn
@@ -115,9 +116,52 @@ class SLSTM(nn.Module):
 # Mamba
 # --------------------------------------------------------------------------
 
+def _on_shards(fn, roles_of, args, outs):
+    """``fn(*args)`` on each rank's shards through ``local_map``, for a
+    recurrence by batch row and channel (sharded training, the dry run).
+    ``roles_of``: placements of a (B, S, C) activation: a mesh axis that
+    shards its dim 0 splits the batch, one that shards its dim 2 the
+    channels, any other leaves every tensor whole.  ``args``: (tensor,
+    batch dim, channel dim), a dim None where the tensor has none; each is
+    redistributed to ``Shard`` of its dim on the axes of that role and
+    ``Replicate`` elsewhere, and its gradient comes back so, ``Partial``
+    where it has no dim of an axis's role (each rank's share of a sum over
+    that axis's shards), reduced to its placements by the
+    redistribution's backward.  ``outs``: (batch dim, channel dim) of each
+    output.  The computation runs on plain local tensors: DTensor's own
+    padding of a sharded tensor failed on torch 2.11 (a target placement
+    list shorter than the mesh)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    roles = ["b" if pl == Shard(0) else "c" if pl == Shard(2) else None
+             for pl in roles_of]
+    mesh = next(t for t, _, _ in args if _is_dtensor(t)).device_mesh
+
+    def place(bd, cd, grad=False):
+        out = []
+        for r in roles:
+            d = bd if r == "b" else cd if r == "c" else None
+            out.append(Shard(d) if d is not None
+                       else Partial() if grad and r else Replicate())
+        return tuple(out)
+    out = [place(bd, cd) for bd, cd in outs]
+    # one output's placements a list: local_map reads a tuple as several
+    return local_map(
+        fn, out_placements=list(out[0]) if len(out) == 1 else tuple(out),
+        in_placements=tuple(place(bd, cd) for _, bd, cd in args),
+        in_grad_placements=tuple(place(bd, cd, True) for _, bd, cd in args),
+        device_mesh=mesh)(*(t.redistribute(mesh, place(bd, cd))
+                            for t, bd, cd in args))
+
+
 def _causal_conv1d(x, w, b):
     """x: (B, S, C), depthwise causal conv with kernel (K, C): K shifted
-    adds, as the reference unrolls them."""
+    adds, as the reference unrolls them.  On DTensors it runs on each
+    rank's rows and channels (:func:`_on_shards`; the sequence whole)."""
+    if _is_dtensor(x):
+        return _on_shards(_causal_conv1d, x.placements,
+                          [(x, 0, 2), (w, None, 1), (b, None, 0)], [(0, 2)])
     K, S = w.shape[0], x.shape[1]
     xp = F.pad(x, (0, 0, K - 1, 0))
     out = torch.zeros_like(x)
@@ -155,6 +199,33 @@ def _linear_scan(a, dr, h0, sub=_SUB):
     return h.reshape(B, nb * sub, *rest)[:, :c]
 
 
+def _decay_and_drive(dt, A, Bm, xf, sl):
+    """The log decay ``dt * A`` and the drive ``dt * B * x`` (B, c, di, N)
+    of positions ``sl``."""
+    d = dt[:, sl, :, None]
+    return d * A, d * Bm[:, sl, None, :] * xf[:, sl, :, None]
+
+
+def _scan(dt, A, Bm, Cm, xf, chunk):
+    """The selective scan from a zero state, chunk by chunk (the
+    reference's one-chunk fallback where ``chunk`` does not divide S):
+    (y (B, S, di) before the skip, the last state (B, di, N)), float32."""
+    B, S = xf.shape[:2]
+    c = min(chunk, S)
+    if S % c:
+        c = S
+    h = torch.zeros((B,) + tuple(A.shape), dtype=torch.float32,
+                    device=xf.device)
+    ys = []
+    for s0 in range(0, S, c):
+        sl = slice(s0, s0 + c)
+        ld, dr = _decay_and_drive(dt, A, Bm, xf, sl)
+        hs = _linear_scan(torch.exp(ld), dr, h)
+        ys.append(torch.einsum("bscn,bsn->bsc", hs, Cm[:, sl]))
+        h = hs[:, -1]
+    return torch.cat(ys, 1), h
+
+
 def mamba_apply(p: Mamba, x, state=None, chunk=_CHUNK):
     """x: (B, S, d) -> (y, (h, conv_tail)).
 
@@ -164,7 +235,10 @@ def mamba_apply(p: Mamba, x, state=None, chunk=_CHUNK):
     """
     B, S, _ = x.shape
     K = p.conv_w.shape[0]
-    xi, z = torch.einsum("bsd,de->bse", x, p.w_in).chunk(2, -1)
+    # sharded, the sequence stays whole (the scan splits it into chunks
+    # by views) and TP takes the channels
+    xi, z = map(rows_ready, torch.einsum("bsd,de->bse", rows_ready(x),
+                                         p.w_in).chunk(2, -1))
     if state is None:
         conv_tail = xi[:, -(K - 1):]       # raw (pre-conv) tail for decode
         xi = _causal_conv1d(xi, p.conv_w, p.conv_b)
@@ -175,37 +249,35 @@ def mamba_apply(p: Mamba, x, state=None, chunk=_CHUNK):
         conv_tail = seq[:, -(K - 1):]
         xi = (seq[:, -K:] * p.conv_w).sum(1, keepdim=True) + p.conv_b
     xi = F.silu(xi)
-    Bm, Cm = torch.einsum("bsc,ce->bse", xi, p.w_bc).float().chunk(2, -1)
-    dt = F.softplus(torch.einsum("bsc,co->bso", xi, p.w_dt).float()
+    # sharded, Bm and Cm are whole on every rank of a batch row: TP on
+    # w_bc's 2N columns would leave them sharded on N, or (after the
+    # split) on the sequence
+    Bm, Cm = batch_only(torch.einsum("bsc,ce->bse", xi, p.w_bc)
+                        ).float().chunk(2, -1)
+    # sharded, the products over the channels are summed where they are
+    # made: a Partial meeting a Shard needs Shard -> Partial, which torch
+    # 2.11 cannot redistribute
+    dt = F.softplus(_reduced(torch.einsum("bsc,co->bso", xi, p.w_dt)).float()
                     + p.dt_bias.float())                        # (B,S,di)
     A = -torch.exp(p.A_log)          # in the weights' dtype, as the reference
     xf = xi.float()
-
-    def log_decay_and_drive(sl):
-        d = dt[:, sl, :, None]
-        return d * A, d * Bm[:, sl, None, :] * xf[:, sl, :, None]
-
     if state is None:
-        c = min(chunk, S)
-        if S % c:
-            c = S                     # the reference's one-chunk fallback
-        h = torch.zeros((B,) + tuple(A.shape), dtype=torch.float32,
-                        device=x.device)
-        ys = []
-        for s0 in range(0, S, c):
-            sl = slice(s0, s0 + c)
-            ld, dr = log_decay_and_drive(sl)
-            hs = _linear_scan(torch.exp(ld), dr, h)
-            ys.append(torch.einsum("bscn,bsn->bsc", hs, Cm[:, sl]))
-            h = hs[:, -1]
-        y = torch.cat(ys, 1)
+        if _is_dtensor(xf):
+            # on each rank's rows and channels, Bm and Cm whole
+            y, h = _on_shards(
+                lambda *a: _scan(*a, chunk), xi.placements,
+                [(dt, 0, 2), (A, None, 0), (Bm, 0, None), (Cm, 0, None),
+                 (xf, 0, 2)], [(0, 2), (0, 1)])
+        else:
+            y, h = _scan(dt, A, Bm, Cm, xf, chunk)
     else:
-        ld, dr = log_decay_and_drive(slice(0, 1))
+        ld, dr = _decay_and_drive(dt, A, Bm, xf, slice(0, 1))
         h = torch.exp(ld[:, 0]) * state[0] + dr[:, 0]
         y = torch.einsum("bcn,bn->bc", h, Cm[:, 0])[:, None]
     y = y + p.D_skip.float() * xf
     y = (y * F.silu(z.float())).to(x.dtype)
-    return torch.einsum("bsc,cd->bsd", y, p.w_out), (h, conv_tail)
+    return (rows_ready(_reduced(torch.einsum("bsc,cd->bsd", rows_ready(y),
+                                             p.w_out))), (h, conv_tail))
 
 
 def mamba_init_state(p: Mamba, batch: int, dtype=torch.float32):
@@ -262,12 +334,11 @@ def mlstm_apply(p: MLSTM, x, state=None, chunk=_CHUNK):
     token with a ``state``."""
     B, S, _ = x.shape
     H, dh = p.wq.shape[1], p.wq.shape[2]
-    xi, z = torch.einsum("bsd,de->bse", x, p.w_up).chunk(2, -1)
-    q = torch.einsum("bse,ehk->bshk", xi, flat_ready(p.wq, 1, 2)
-                     ) / math.sqrt(dh)
-    k = torch.einsum("bse,ehk->bshk", xi, flat_ready(p.wk, 1, 2)
-                     ) / math.sqrt(dh)
-    v = torch.einsum("bse,ehk->bshk", xi, flat_ready(p.wv, 1, 2))
+    xi, z = map(rows_ready, torch.einsum("bsd,de->bse", rows_ready(x),
+                                         p.w_up).chunk(2, -1))
+    q = to_heads(xi, p.wq) / math.sqrt(dh)
+    k = to_heads(xi, p.wk) / math.sqrt(dh)
+    v = to_heads(xi, p.wv)
     gates = (torch.einsum("bse,eg->bsg", xi.float(), p.w_if.float())
              + p.if_bias)
     ig, fg = gates.chunk(2, -1)                               # (B,S,H)
@@ -318,9 +389,11 @@ def mlstm_apply(p: MLSTM, x, state=None, chunk=_CHUNK):
             y, *new_state = chunks(q, k, v, log_f, ig, *st)
         new_state = tuple(new_state)
 
-    y = norm_apply(p.out_norm, y.to(x.dtype))
-    y = y.reshape(B, S, -1) * F.silu(z)
-    return torch.einsum("bse,ed->bsd", y, p.w_down), new_state
+    # sharded, the head dim's shard (the norm's scale takes TP on it)
+    # leaves it before the (heads, head dim) flatten
+    y = group_ready(norm_apply(p.out_norm, y.to(x.dtype)), 2, 3)
+    y = rows_ready(y.reshape(B, S, -1) * F.silu(z))
+    return rows_ready(torch.einsum("bse,ed->bsd", y, p.w_down)), new_state
 
 
 def mlstm_init_state_b(batch: int, H: int, dh: int, device=None):
@@ -337,17 +410,11 @@ def mlstm_init_state(p: MLSTM, batch: int):
                               p.wq.device)
 
 
-def slstm_apply(p: SLSTM, x, state=None):
-    """sLSTM with exponential gating, x: (B, S, d) -> (y, (c, n, h, m)):
-    the hidden-to-gate feedback makes it sequential, one step a token."""
-    B, S, D = x.shape
-    wx = torch.einsum("bsd,dg->bsg", x.float(), p.w_gates.float()) + p.g_bias
-    if state is None:
-        state = slstm_init_state(p, B)
-    c, n, h, m = state
-    R = p.r_gates.float()
+def _slstm_steps(wx, R, c, n, h, m):
+    """The sLSTM's recurrence over wx (B, S, 4d) from the state (c, n, h,
+    m): (the hidden states (B, S, d), the last state)."""
     hs = []
-    for t in range(S):
+    for t in range(wx.shape[1]):
         zt, it, ft, ot = (wx[:, t] + h @ R).chunk(4, -1)
         lf = -F.softplus(-ft)
         m_new = torch.maximum(lf + m, it)
@@ -358,8 +425,35 @@ def slstm_apply(p: SLSTM, x, state=None):
         h = torch.sigmoid(ot) * c / torch.clamp(n, min=1e-6)
         m = m_new
         hs.append(h)
-    y = norm_apply(p.out_norm, torch.stack(hs, 1).to(x.dtype))
-    return torch.einsum("bsd,de->bse", y, p.w_down), (c, n, h, m)
+    return torch.stack(hs, 1), c, n, h, m
+
+
+def slstm_apply(p: SLSTM, x, state=None):
+    """sLSTM with exponential gating, x: (B, S, d) -> (y, (c, n, h, m)):
+    the hidden-to-gate feedback makes it sequential, one step a token.
+    On DTensors the steps run on each rank's batch rows, every channel on
+    every rank (:func:`_on_shards`; ``h @ R`` mixes them all)."""
+    B, S, D = x.shape
+    wx = torch.einsum("bsd,dg->bsg", rows_ready(x).float(),
+                      p.w_gates.float())
+    R = p.r_gates.float()
+    if _is_dtensor(wx):
+        def steps(wx, bias, R, *st):
+            if not st:              # zeros of this rank's rows
+                st = (wx.new_zeros((wx.shape[0], R.shape[0])),) * 4
+            return _slstm_steps(wx + bias, R, *st)
+        rows = batch_only(wx)
+        hs, *state = _on_shards(
+            steps, rows.placements,
+            [(rows, 0, None), (p.g_bias, None, None), (R, None, None)]
+            + [(t, 0, None) for t in state or ()], [(0, None)] * 5)
+    else:
+        if state is None:
+            state = slstm_init_state(p, B)
+        hs, *state = _slstm_steps(wx + p.g_bias, R, *state)
+    y = rows_ready(norm_apply(p.out_norm, hs.to(x.dtype)))
+    return (rows_ready(torch.einsum("bsd,de->bse", y, p.w_down)),
+            tuple(state))
 
 
 def slstm_init_state(p: SLSTM, batch: int):

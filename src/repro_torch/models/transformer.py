@@ -60,7 +60,7 @@ from ..dist.sharding import (cache_zeros, fsdp_gather, keep_rules,
 from . import ssm
 from .layers import (MLP, Attention, AttnSpec, MoE, Norm, _is_dtensor,
                      attend, attention_apply, decode_attention, mlp_apply,
-                     moe_apply, norm_apply, project_qkv)
+                     moe_apply, norm_apply, project_qkv, rows_ready)
 
 _DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -255,7 +255,7 @@ def unembed(cfg: ModelConfig, params: LM, x: torch.Tensor):
     else:
         logits = torch.einsum("bsd,dv->bsv", x,
                               fsdp_gather(params.lm_head.to(x.dtype)))
-    logits = logits.float()
+    logits = rows_ready(logits).float()
     if cfg.final_softcap:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return shard_activation(mask_padded_vocab(cfg, logits), "logits")

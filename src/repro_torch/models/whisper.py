@@ -37,12 +37,14 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.pipeline import resolve_device
-from ..dist.sharding import cache_zeros, keep_rules, shard_activation
-from .layers import (MLP, Attention, AttnSpec, Norm, attend, attention_apply,
-                     decode_attention, dense_attention, flat_ready,
-                     mlp_apply, norm_apply, project_qkv)
-from .transformer import (_DT, cast_params, logsumexp, mask_padded_vocab,
-                          train_cast)
+from ..dist.sharding import (cache_zeros, fsdp_gather, keep_rules,
+                             shard_activation)
+from .layers import (MLP, Attention, AttnSpec, Norm, _is_dtensor, attend,
+                     attention_apply, decode_attention, dense_attention,
+                     mlp_apply, norm_apply, project_qkv, rows_ready,
+                     to_heads)
+from .transformer import (_DT, _lookup_on_shards, cast_params, logsumexp,
+                          mask_padded_vocab, train_cast)
 
 
 def _spec(cfg: ModelConfig, causal: bool) -> AttnSpec:
@@ -149,10 +151,7 @@ def _enc_block(cfg: ModelConfig, bp: EncBlock, x):
 def _cross_kv(bp, enc_out):
     """The cross-attention's k and v (B, enc_seq, KV, Dh) of the encoder's
     output."""
-    return (torch.einsum("bsd,dhk->bshk", enc_out,
-                         flat_ready(bp.xattn.wk, 1, 2)),
-            torch.einsum("bsd,dhk->bshk", enc_out,
-                         flat_ready(bp.xattn.wv, 1, 2)))
+    return to_heads(enc_out, bp.xattn.wk), to_heads(enc_out, bp.xattn.wv)
 
 
 def _dec_block(cfg: ModelConfig, bp: DecBlock, x, enc_out):
@@ -185,8 +184,9 @@ def encode(cfg: ModelConfig, params: Whisper, frames: torch.Tensor,
     """frames (B, enc_seq, d), precomputed embeddings (the frontend stub)
     -> the encoder's output (B, enc_seq, d) in ``cfg.dtype``."""
     dt = _DT[cfg.dtype]
-    x = torch.einsum("bsd,de->bse", frames.to(dt), params.frontend_proj.to(dt))
-    x = x + params.enc_pos[:x.shape[1]].to(dt)
+    x = rows_ready(torch.einsum("bsd,de->bse", rows_ready(frames.to(dt)),
+                                fsdp_gather(params.frontend_proj.to(dt))))
+    x = x + _positions(params.enc_pos, 0, x.shape[1], dt)
     x = _run(_enc_block, cfg, params.enc_blocks, x, remat=remat)
     return norm_apply(train_cast(params.ln_enc, dt), x, cfg.norm)
 
@@ -195,16 +195,27 @@ def _embed(cfg: ModelConfig, params: Whisper, tokens, start: int = 0):
     """tokens (B, S) -> (B, S, d): the rows cast to ``cfg.dtype``, then
     the positions ``start..`` added in it, as the reference adds them."""
     dt = _DT[cfg.dtype]
-    x = params.embed[tokens].to(dt)
-    return x + params.dec_pos[start:start + tokens.shape[1]].to(dt)
+    x = (_lookup_on_shards(params.embed, tokens) if _is_dtensor(params.embed)
+         else params.embed[tokens]).to(dt)
+    return x + _positions(params.dec_pos, start, tokens.shape[1], dt)
+
+
+def _positions(table, start: int, n: int, dt):
+    """Rows ``start..start+n`` of a learned position table in ``dt``; a
+    DTensor table (FSDP shards its rows) cast and gathered first, as a
+    layer's weights are (``train_cast``)."""
+    if _is_dtensor(table):
+        table = fsdp_gather(table.to(dt))
+    return table[start:start + n].to(dt)
 
 
 def _logits(cfg: ModelConfig, params: Whisper, x):
     """(B, S, d) -> float32 logits (B, S, vocab_padded), padded ids at
     -1e30, through the tied table."""
     x = norm_apply(train_cast(params.ln_f, x.dtype), x, cfg.norm)
-    logits = torch.einsum("bsd,vd->bsv", x, params.embed.to(x.dtype))
-    return mask_padded_vocab(cfg, logits.float())
+    logits = torch.einsum("bsd,vd->bsv", x,
+                          fsdp_gather(params.embed.to(x.dtype)))
+    return mask_padded_vocab(cfg, rows_ready(logits).float())
 
 
 def decode(cfg: ModelConfig, params: Whisper, enc_out: torch.Tensor,

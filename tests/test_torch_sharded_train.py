@@ -53,6 +53,8 @@ STEP_OPT = dict(lr=1e-2, warmup_steps=2, total_steps=50)
 #: test_trainer_matches_reference_step_for_step_per_family)
 REF_RUNS = (("h2o_danube_1_8b", 3), ("mixtral_8x7b", 3))
 OWN_RUNS = (("hymba_1_5b", 3), ("xlstm_350m", 1), ("whisper_small", 3))
+#: run again with the residual stream sequence-sharded (3 steps, as above)
+SEQ_RUN = "hymba_1_5b"
 #: Danube runs with an option, sharded against unsharded
 OPTION_RUNS = {"microbatches": dict(microbatches=2),
                "compress": dict(compress=True)}
@@ -244,10 +246,10 @@ def _rank_cases(rank, rules, work: Path) -> tuple:
             rec[name] = {"error": traceback.format_exc()}
         rec[name + "_s"] = time.perf_counter() - t0
 
-    def sharded(arch, steps, start=None, **kw):
+    def sharded(arch, steps, start=None, on=rules, **kw):
         cfg = _cfg(arch)
         tr = Trainer(cfg, _tcfg(work / f"ck_{arch}_{len(rec)}", **kw),
-                     _data(cfg), rules=rules)
+                     _data(cfg), rules=on)
         if start is not None:
             _set_params(tr, start)
         return tr, _history(tr.run(steps))
@@ -263,6 +265,25 @@ def _rank_cases(rank, rules, work: Path) -> tuple:
         case(arch, lambda: sharded(arch, steps)[1])
     for name, kw in OPTION_RUNS.items():
         case(name, lambda: sharded(ARCH, 3, **kw)[1])
+
+    def seq_case():
+        # Megatron-SP: the residual stream, and so the Mamba scan's input,
+        # sequence-sharded over model
+        from repro_torch.models import ssm
+
+        arrived, apply = [], ssm.mamba_apply
+
+        def seen(p, x, *a, **k):
+            arrived.append([repr(pl) for pl in x.placements])
+            return apply(p, x, *a, **k)
+        ssm.mamba_apply = seen
+        try:
+            hist = sharded(SEQ_RUN, 3, on=dataclasses.replace(
+                rules, seq_sharding=True))[1]
+        finally:
+            ssm.mamba_apply = apply
+        return {"history": hist, "scan_input": arrived[0]}
+    case("seq_sharded", seq_case)
 
     def step_case():
         cfg = _cfg(ARCH)
@@ -584,6 +605,16 @@ def test_sharded_trainer_matches_unsharded_per_family(port_runs, arch,
     learned-position decoder LM) sharded against the port's unsharded
     Trainer, at the same bar."""
     _step_for_step(_case(port_runs, arch), port_runs[2][arch], steps)
+
+
+def test_sharded_scan_input_sequence_sharded_matches_unsharded(port_runs):
+    """hymba under the train rules with Megatron-SP (``seq_sharding``):
+    the Mamba scan's input arrives with its sequence sharded over
+    ``model``, which the scan moves to the channels before its chunk
+    views; three steps against the port's unsharded Trainer at 1e-5."""
+    rec = _case(port_runs, "seq_sharded")
+    assert rec["scan_input"] == ["Shard(dim=0)", "Shard(dim=1)"]
+    _step_for_step(rec["history"], port_runs[2][SEQ_RUN], 3)
 
 
 @pytest.mark.parametrize("name", sorted(OPTION_RUNS))

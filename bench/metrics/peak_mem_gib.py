@@ -1,0 +1,8 @@
+"""The allocator's peak over the window (torch.cuda.max_memory_allocated
+after reset_peak_memory_stats at the window's start), in GiB."""
+
+
+def read(run):
+    if not run.window_peak_bytes:
+        return None
+    return run.window_peak_bytes / 2**30

@@ -10,6 +10,15 @@ consuming group's windows.  All groups
 of one compiled program share one translation unit, built by one ``nvcc``
 call on first launch.
 
+Every call opens the ``stencil.*`` spans of :func:`obs.call_tracer`
+(``stencil.call`` > ``stencil.prologue``, ``stencil.step`` >
+``stencil.pad`` / ``stencil.kernel`` / ``stencil.update`` /
+``stencil.write_back``) and adds to the ``stencil.*`` counters of
+:func:`obs.global_metrics` (:class:`Counts`).  With tracing off the spans
+are the no-op singleton's; while torch's profiler runs they are
+``record_function`` ranges too, so device operations can be put down to
+the step that launched them.
+
 Every executable these orchestrators return also runs a batch of requests
 (``run(..., batched=True)``; the serving engine's, through
 ``pipeline.batched_executable``): fields ``(B, *grid)``, coefficients ``(B,
@@ -24,6 +33,8 @@ from typing import Mapping
 import torch
 
 from ..kernels.stencil3d import bind, build_group_call
+from ..obs.metrics import global_metrics
+from ..obs.trace import call_tracer
 from . import boundary as bc
 from .ir import Program
 from .lower_torch import fresh_carry, write_back
@@ -33,7 +44,32 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float64": torch.float64}
 
 
-def _pad_coeffs(p: Program, calls, coeffs, dtype, device):
+class Counts:
+    """The orchestrator's counters in :func:`global_metrics`, bound once an
+    executable: ``stencil.calls`` and ``stencil.steps`` (steps advanced);
+    ``stencil.pad_bytes``, the bytes of every new buffer a pad makes (in
+    ``stencil.pad`` and ``stencil.prologue``; a pad that returns its input
+    makes none); ``stencil.carry_bytes``, the bytes each write-back writes
+    (a rebuilt buffer, or the interior copied in place);
+    ``stencil.carry_writes``, fields written back, and
+    ``stencil.carry_unchanged``, those of them the update left unchanged."""
+
+    __slots__ = ("calls", "steps", "pad_bytes", "carry_bytes",
+                 "carry_writes", "carry_unchanged")
+
+    def __init__(self):
+        m = global_metrics()
+        for name in self.__slots__:
+            setattr(self, name, m.counter("stencil." + name))
+
+    def padded(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """``y``, the pad of ``x``, counted in ``stencil.pad_bytes``."""
+        if y is not x:
+            self.pad_bytes.inc(y.nbytes)
+        return y
+
+
+def _pad_coeffs(p: Program, calls, coeffs, dtype, device, counts: Counts):
     """Per-call padded coefficient arrays ('small data', paper step 8),
     ``(n,)`` or, a row a batch element, ``(B, n)``."""
     cmode = bc.coeff_mode(p)
@@ -42,17 +78,17 @@ def _pad_coeffs(p: Program, calls, coeffs, dtype, device):
         pc = {}
         for c in call.group_coeffs:
             ax = call.coeff_axis[c]
-            pc[c] = bc.pad_coeff(
-                torch.as_tensor(coeffs[c], dtype=dtype, device=device),
-                call.pad_lo[ax], call.pad_hi[ax], cmode).contiguous()
+            x = torch.as_tensor(coeffs[c], dtype=dtype, device=device)
+            pc[c] = counts.padded(x, bc.pad_coeff(
+                x, call.pad_lo[ax], call.pad_hi[ax], cmode).contiguous())
         out.append(pc)
     return out
 
 
 def _run_groups(p: Program, calls, svec, pc_per_call, resolve_input,
-                device, origin=None):
+                device, tracer):
     """Run the fuse groups in order on ``device``, materialising
-    inter-group fields.
+    inter-group fields, each kernel in a ``stencil.kernel`` span.
 
     ``resolve_input(call, f, env) -> (tensor, actual_pad | None)`` supplies
     each group input: either freshly padded to the call's window geometry
@@ -67,13 +103,25 @@ def _run_groups(p: Program, calls, svec, pc_per_call, resolve_input,
             padded[f], actual = resolve_input(call, f, env)
             if actual is not None:
                 ipad[f] = actual
-        res = call(padded, svec, pc, input_pad=ipad or None, origin=origin,
-                   device=device)
+        with tracer.span("stencil.kernel") as sp:
+            if tracer.enabled:
+                sp.set(entry=call.entry)
+            res = call(padded, svec, pc, input_pad=ipad or None,
+                       device=device)
         env.update(res)
         for f, v in res.items():
             if p.fields[f].role.value == "output":
                 outputs[f] = v
     return outputs
+
+
+def _call_attrs(p: Program, calls, steps: int, batched: bool,
+                fields: Mapping) -> dict:
+    """``stencil.call``'s attributes (built only when a tracer records)."""
+    return {"program": p.name, "schedule": calls[0].schedule,
+            "steps": int(steps),
+            "batch": (next(iter(fields.values())).shape[0] if batched
+                      else 1)}
 
 
 def scalar_vector(p: Program, scalars, device, batched: bool = False,
@@ -129,24 +177,34 @@ def lower(p: Program, plan: DataflowPlan, grid_shape, device):
 
 def lower_from_calls(p: Program, dtype, calls, device):
     """Single-step orchestrator over prebuilt kernel calls."""
+    counts = Counts()
+    bnd = p.boundaries()
 
     def run(fields: Mapping, scalars: Mapping | None = None,
             coeffs: Mapping | None = None, *, batched: bool = False):
-        scalars = scalars or {}
-        coeffs = coeffs or {}
-        ext = {k: torch.as_tensor(v, dtype=dtype, device=device)
-               for k, v in fields.items()}
-        bnd = p.boundaries()
+        tracer = call_tracer()
+        with tracer.call("stencil.call") as sp:
+            if tracer.enabled:
+                sp.set(**_call_attrs(p, calls, 1, batched, fields))
+            counts.calls.inc()
+            counts.steps.inc()
+            with tracer.span("stencil.prologue"):
+                ext = {k: torch.as_tensor(v, dtype=dtype, device=device)
+                       for k, v in fields.items()}
+                svec = scalar_vector(p, scalars or {}, device, batched, ext)
+                pc = _pad_coeffs(p, calls, coeffs or {}, dtype, device,
+                                 counts)
 
-        def resolve(call, f, env):
-            x = env[f] if f in env else ext[f]
-            return bc.pad_field(x, call.halo_lo, call.halo_hi, bnd[f],
-                                align_hi=call.align_hi).contiguous(), None
+            def resolve(call, f, env):
+                x = env[f] if f in env else ext[f]
+                with tracer.span("stencil.pad"):
+                    return counts.padded(x, bc.pad_field(
+                        x, call.halo_lo, call.halo_hi, bnd[f],
+                        align_hi=call.align_hi).contiguous()), None
 
-        return _run_groups(p, calls,
-                           scalar_vector(p, scalars, device, batched, ext),
-                           _pad_coeffs(p, calls, coeffs, dtype, device),
-                           resolve, device)
+            with tracer.span("stencil.step"):
+                return _run_groups(p, calls, svec, pc, resolve, device,
+                                   tracer)
 
     run.calls = calls
     return run
@@ -212,52 +270,76 @@ def time_loop_from_calls(p: Program, dtype, grid_shape, spec: TimeLoopSpec,
                              for a in range(ndim)],
                             bnd[f], align_hi=align).contiguous()
 
+    counts = Counts()
+    steps = int(spec.steps)
+
     def run(fields: Mapping, scalars: Mapping | None = None,
             coeffs: Mapping | None = None, *, batched: bool = False):
-        scalars = scalars or {}
-        coeffs = coeffs or {}
-        svec = scalar_vector(p, scalars, device, batched, fields)
-        upd_scalars = update_scalars(p, scalars, batched, device)
-        pc_per_call = _pad_coeffs(p, calls, coeffs, dtype, device)
-        pc_epilogue = (_pad_coeffs(p, epilogue, coeffs, dtype, device)
-                       if epilogue else None)
-        carry = {f: fresh_carry(refill, f, torch.as_tensor(
-            fields[f], dtype=dtype, device=device)) for f in spec.persistent}
-        # a batch's carries keep their leading axis whole
-        inner = {f: (slice(None),) * batched + interior[f]
-                 for f in spec.persistent}
+        tracer = call_tracer()
+        with tracer.call("stencil.call") as sp:
+            if tracer.enabled:
+                sp.set(**_call_attrs(p, calls, steps, batched, fields))
+            counts.calls.inc()
+            counts.steps.inc(steps)
+            with tracer.span("stencil.prologue"):
+                scalars = scalars or {}
+                coeffs = coeffs or {}
+                svec = scalar_vector(p, scalars, device, batched, fields)
+                upd_scalars = update_scalars(p, scalars, batched, device)
+                pc_per_call = _pad_coeffs(p, calls, coeffs, dtype, device,
+                                          counts)
+                pc_epilogue = (_pad_coeffs(p, epilogue, coeffs, dtype,
+                                           device, counts)
+                               if epilogue else None)
+                carry = {}
+                for f in spec.persistent:
+                    x = torch.as_tensor(fields[f], dtype=dtype,
+                                        device=device)
+                    carry[f] = counts.padded(x, fresh_carry(refill, f, x))
+            # a batch's carries keep their leading axis whole
+            inner = {f: (slice(None),) * batched + interior[f]
+                     for f in spec.persistent}
 
-        def advance(carry, calls_, pc_):
-            cur = {f: carry[f][inner[f]] for f in spec.persistent}
-            if getattr(calls_[0], "returns_fields", False):
-                # a chained sweep: one call advances every field by its
-                # chain depth, updates included
-                call = calls_[0]
-                new = dict(cur)
-                new.update(call({f: carry[f] for f in call.group_inputs},
+            def resolve(call, f, env):
+                if f in carry:          # persistent: window from carry
+                    return carry[f], fpad[f]
+                with tracer.span("stencil.pad"):
+                    return counts.padded(env[f], bc.pad_field(
+                        env[f], call.halo_lo, call.halo_hi, bnd[f],
+                        align_hi=call.align_hi).contiguous()), None
+
+            def advance(calls_, pc_):
+                with tracer.span("stencil.step"):
+                    cur = {f: carry[f][inner[f]] for f in spec.persistent}
+                    new = dict(cur)
+                    if getattr(calls_[0], "returns_fields", False):
+                        # a chained sweep: one call advances every field by
+                        # its chain depth, updates included
+                        call = calls_[0]
+                        with tracer.span("stencil.kernel") as sk:
+                            if tracer.enabled:
+                                sk.set(entry=call.entry)
+                            new.update(call(
+                                {f: carry[f] for f in call.group_inputs},
                                 svec, pc_[0],
                                 input_pad={f: fpad[f]
                                            for f in call.group_inputs},
                                 device=device))
-            else:
-                def resolve(call, f, env):
-                    if f in carry:          # persistent: window from carry
-                        return carry[f], fpad[f]
-                    return bc.pad_field(env[f], call.halo_lo, call.halo_hi,
-                                        bnd[f], align_hi=call.align_hi
-                                        ).contiguous(), None
+                    else:
+                        outputs = _run_groups(p, calls_, svec, pc_, resolve,
+                                              device, tracer)
+                        with tracer.span("stencil.update"):
+                            new.update(update(cur, outputs, upd_scalars))
+                    with tracer.span("stencil.write_back"):
+                        return write_back(carry, cur, new, inner,
+                                          spec.carry_write, bnd, refill,
+                                          counts)
 
-                outputs = _run_groups(p, calls_, svec, pc_, resolve, device)
-                new = dict(cur)
-                new.update(update(cur, outputs, upd_scalars))
-            return write_back(carry, cur, new, inner, spec.carry_write,
-                              bnd, refill)
-
-        for _ in range(int(spec.steps) // chain):
-            carry = advance(carry, calls, pc_per_call)
-        if int(spec.steps) % chain:
-            carry = advance(carry, epilogue, pc_epilogue)
-        return {f: carry[f][inner[f]] for f in spec.persistent}
+            for _ in range(steps // chain):
+                carry = advance(calls, pc_per_call)
+            if steps % chain:
+                carry = advance(epilogue, pc_epilogue)
+            return {f: carry[f][inner[f]] for f in spec.persistent}
 
     run.calls = list(calls) + list(epilogue or [])
     return run

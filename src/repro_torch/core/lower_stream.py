@@ -23,7 +23,6 @@ from typing import Sequence
 
 from ..kernels.stencil3d import bind
 from ..kernels.stream3d import StreamCall
-from ..obs.trace import current_tracer
 from .dataflow import StreamGraph, lower_to_dataflow
 from .frontend import ExprHandle, _wrap
 from .ir import Access, Program, ScalarRef
@@ -74,11 +73,6 @@ def lower(p: Program, plan: DataflowPlan, grid_shape, device,
         graph = lower_to_dataflow(p, plan, grid_shape)
     dtype, calls = _calls(p, plan, grid_shape, graph)
     bind(calls)
-    tracer = current_tracer()
-    if tracer.enabled:
-        tracer.event("StreamLowered", program=p.name, mode="single",
-                     regions=len(calls), time_tile=1,
-                     plane_tile=int(graph.plane_tile))
     return lower_from_calls(p, dtype, calls, device)
 
 
@@ -98,10 +92,6 @@ def lower_time_loop(p: Program, plan: DataflowPlan, grid_shape,
     if graph is None:
         graph = lower_to_dataflow(p, plan, grid_shape)
     T, P = int(graph.time_tile), int(graph.plane_tile)
-    tracer = current_tracer()
-    if tracer.enabled:
-        tracer.event("StreamLowered", program=p.name, mode="loop",
-                     regions=len(graph.regions), time_tile=T, plane_tile=P)
     if T <= 1:
         dtype, calls = _calls(p, plan, grid_shape, graph)
         bind(calls)

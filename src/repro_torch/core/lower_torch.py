@@ -219,7 +219,7 @@ def fresh_carry(refill, f: str, x: torch.Tensor) -> torch.Tensor:
 
 
 def write_back(carry: dict, cur: dict, new: dict, interior: dict,
-               carry_write: str, bnd: dict, refill) -> dict:
+               carry_write: str, bnd: dict, refill, counts=None) -> dict:
     """Write one step's new field interiors into the loop carry.
 
     ``"inplace"`` on a zero-boundary field copies the new interior into the
@@ -228,7 +228,8 @@ def write_back(carry: dict, cur: dict, new: dict, interior: dict,
     else is rebuilt: interior plus constant zero or refreshed wraparound
     halo slabs, in a new buffer.  New values that alias a carry buffer are
     cloned first, so no in-place write can clobber a value still to be
-    read.
+    read.  ``counts`` (the orchestrator's ``lower_kernel.Counts``) adds the
+    bytes written, the fields written back and those left unchanged.
     """
     bases = {carry[f].untyped_storage().data_ptr() for f in carry}
     vals = {}
@@ -239,12 +240,20 @@ def write_back(carry: dict, cur: dict, new: dict, interior: dict,
             v = v.clone()
         vals[f] = v
     out = {}
+    wrote = 0
     for f in carry:
         v = vals[f]
         if carry_write == "inplace" and bnd[f] == "zero":
             if v is not cur[f]:
                 carry[f][interior[f]].copy_(v)
+                wrote += v.numel() * carry[f].element_size()
             out[f] = carry[f]
         else:
             out[f] = refill(f, v.to(carry[f].dtype))
+            if out[f] is not v:
+                wrote += out[f].nbytes
+    if counts is not None:
+        counts.carry_bytes.inc(wrote)
+        counts.carry_writes.inc(len(carry))
+        counts.carry_unchanged.inc(sum(new[f] is cur[f] for f in carry))
     return out

@@ -334,7 +334,6 @@ def _compile(p: Program, grid, o: CompileOptions, tracer,
             fn = _on_device(lower_torch.lower_time_loop(
                 p, backend.removeprefix("torch_"), time_spec, update),
                 p, plan.dtype, device)
-        metrics.counter("compile.fused_loops").inc()
     elif mesh is not None:
         fn = distribute.lower_sharded(p, plan, grid, shard, mesh,
                                       graph=graph)

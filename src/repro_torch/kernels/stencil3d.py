@@ -332,6 +332,9 @@ class GroupCall:
     out-of-domain mask for margin-extended recompute.
     """
 
+    #: the schedule whose kernels this class generates
+    schedule = "block"
+
     def __init__(self, p: Program, group: Sequence[int],
                  block: Sequence[int], grid_shape: Sequence[int],
                  dtype=torch.float32,

@@ -127,6 +127,9 @@ class StreamCall:
     ``tile``/``chunk`` override the planner's CTA (tests).
     """
 
+    #: the schedule whose kernels this class generates
+    schedule = "stream"
+
     def __init__(self, p: Program, region, grid_shape: Sequence[int],
                  dtype=torch.float32,
                  global_extent: Sequence[int] | None = None,

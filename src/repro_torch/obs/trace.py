@@ -7,10 +7,22 @@ A :class:`Tracer` records two record kinds:
   ``tracer.span("compile")`` (a context manager; attach attributes at open
   time or later via ``sp.set(...)``).  Nesting is per-thread: the compile
   pipeline, the tuner's candidate loop and the serving worker each build
-  their own stack.
+  their own stack.  Each span record carries its ``id``, the ``parent`` id
+  of the span open around it on its thread, and a ``call`` id: that of
+  the nearest enclosing span opened with ``tracer.call(...)`` (one
+  executable call), or of its outermost span.
 * **events** — instant, typed occurrences: ``tracer.event("name", k=v)``
   or ``tracer.emit(PlanChosen(...))`` for the typed payloads in
   :mod:`repro_torch.obs.events`.
+
+Timestamps are nanoseconds on the clock that ``torch.profiler`` stamps
+its host events with: ``CLOCK_REALTIME`` (``c10::getTime``, which kineto's
+approximate clock converts to; ``time.time_ns()`` here), and ``tid`` is
+the thread's native id, as kineto's.  While torch's profiler is running,
+every span also opens a ``record_function`` range of its name, so the
+program's spans sit in the profiler's trace beside the device operations
+they launched; an executable call with no tracer installed still marks
+them there (:func:`call_tracer`).
 
 Everything is **off by default and near-zero cost when off**: the ambient
 tracer (:func:`current_tracer`) is a process-wide no-op singleton
@@ -28,16 +40,21 @@ Exports:
 * :meth:`Tracer.export_jsonl` — one JSON record per line (machine grep).
 * :meth:`Tracer.export_chrome` — Chrome ``trace_event`` format, loadable
   in ``chrome://tracing`` / Perfetto: spans are ``ph="X"`` complete events
-  (``ts``/``dur`` in microseconds), instants are ``ph="i"``.
+  (``ts``/``dur`` in microseconds), instants are ``ph="i"``; with the
+  ``baseTimeNanoseconds`` of a ``torch.profiler`` export it lays over that
+  export with no offset.
 """
 
 from __future__ import annotations
 
 import atexit
+import itertools
 import json
 import os
 import threading
 import time
+
+from torch.autograd import profiler as _profiler
 
 #: Environment variable: set to a path to trace the whole process and
 #: export at exit (Chrome trace_event JSON; ``*.jsonl`` for JSONL).
@@ -47,13 +64,16 @@ TRACE_ENV = "REPRO_TRACE"
 class _Span:
     """One open interval; closes (and records itself) on ``__exit__``."""
 
-    __slots__ = ("_tracer", "name", "t0", "args", "depth")
+    __slots__ = ("_tracer", "name", "t0", "args", "depth", "id", "parent",
+                 "call", "_new_call", "_mark")
 
-    def __init__(self, tracer: "Tracer", name: str, args: dict):
+    def __init__(self, tracer: "Tracer", name: str, args: dict,
+                 new_call: bool = False):
         self._tracer = tracer
         self.name = name
         self.args = args
-        self.t0 = 0.0
+        self._new_call = new_call
+        self.t0 = 0
         self.depth = 0
 
     def set(self, **attrs) -> "_Span":
@@ -66,22 +86,66 @@ class _Span:
         self._tracer.event(name, **attrs)
 
     def __enter__(self) -> "_Span":
-        self.t0 = self._tracer._clock()
-        stack = self._tracer._stack()
+        tracer = self._tracer
+        stack = tracer._stack()
+        top = stack[-1] if stack else None
+        self.id = next(tracer._ids)
+        self.parent = top.id if top is not None else None
+        self.call = (self.id if top is None or self._new_call
+                     else top.call)
         self.depth = len(stack)
         stack.append(self)
+        self.t0 = time.time_ns()
+        self._mark = _mark_enter(self.name)
         return self
 
     def __exit__(self, *exc) -> bool:
-        t1 = self._tracer._clock()
+        if self._mark is not None:
+            self._mark.__exit__(None, None, None)
+        t1 = time.time_ns()
         stack = self._tracer._stack()
         if stack and stack[-1] is self:
             stack.pop()
         self._tracer._record({
             "kind": "span", "name": self.name, "ts": self.t0,
-            "dur": max(0.0, t1 - self.t0), "depth": self.depth,
-            "args": self.args,
+            "dur": t1 - self.t0, "id": self.id, "parent": self.parent,
+            "call": self.call, "depth": self.depth, "args": self.args,
         })
+        return False
+
+
+def _mark_enter(name: str):
+    """A ``record_function`` range named ``name``, entered, while torch's
+    profiler runs; None otherwise (the range costs ~10 us even with no
+    profiler, so it is never opened without one)."""
+    if not _profiler._is_profiler_enabled:
+        return None
+    mark = _profiler.record_function(name)
+    mark.__enter__()
+    return mark
+
+
+class _MarkSpan:
+    """A span that records nothing and only marks the profiler's trace."""
+
+    __slots__ = ("name", "_mark")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def set(self, **attrs) -> "_MarkSpan":
+        return self
+
+    def event(self, name: str, **attrs) -> None:
+        pass
+
+    def __enter__(self) -> "_MarkSpan":
+        self._mark = _mark_enter(self.name)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self._mark is not None:
+            self._mark.__exit__(None, None, None)
         return False
 
 
@@ -110,16 +174,13 @@ _NULL_SPAN = _NullSpan()
 class Tracer:
     """Process-wide span/event recorder.  Thread-safe: records append under
     a lock, span nesting uses a per-thread stack, and every record carries
-    ``pid`` plus a small per-thread ``tid`` so exports separate tracks."""
+    ``pid`` and the thread's native ``tid`` so exports separate tracks."""
 
-    def __init__(self, clock=time.perf_counter):
-        self._clock = clock
+    def __init__(self):
         self._lock = threading.Lock()
         self._records: list = []
         self._local = threading.local()
-        self._tids: dict = {}
-        self.epoch = clock()
-        self.epoch_unix = time.time()
+        self._ids = itertools.count(1)
 
     # -- recording -----------------------------------------------------
     @property
@@ -132,25 +193,24 @@ class Tracer:
             st = self._local.stack = []
         return st
 
-    def _tid(self) -> int:
-        ident = threading.get_ident()
-        with self._lock:
-            return self._tids.setdefault(ident, len(self._tids))
-
     def _record(self, rec: dict) -> None:
-        rec["ts"] = rec["ts"] - self.epoch
         rec["pid"] = os.getpid()
-        rec["tid"] = self._tid()
+        rec["tid"] = threading.get_native_id()
         with self._lock:
             self._records.append(rec)
 
     def span(self, name: str, **attrs) -> _Span:
         """Open a nested, timed span (use as a context manager)."""
-        return _Span(self, name, dict(attrs))
+        return _Span(self, name, attrs)
+
+    def call(self, name: str, **attrs) -> _Span:
+        """Open a span that starts a new call: its id is the ``call`` of
+        every span opened inside it."""
+        return _Span(self, name, attrs, new_call=True)
 
     def event(self, name: str, **attrs) -> None:
         """Record an instant event at the current time/thread/depth."""
-        self._record({"kind": "event", "name": name, "ts": self._clock(),
+        self._record({"kind": "event", "name": name, "ts": time.time_ns(),
                       "depth": len(self._stack()), "args": attrs})
 
     def emit(self, ev) -> None:
@@ -199,20 +259,25 @@ class Tracer:
                 f.write(json.dumps(r) + "\n")
         return len(recs)
 
-    def export_chrome(self, path: str) -> int:
+    def export_chrome(self, path: str, base_ns: int = 0) -> int:
         """Chrome ``trace_event`` JSON (``chrome://tracing`` / Perfetto).
 
-        Spans become ``ph="X"`` complete events with microsecond
-        ``ts``/``dur``; instant events become ``ph="i"``.  Returns the
-        event count written."""
+        Spans become ``ph="X"`` complete events, instant events ``ph="i"``,
+        with ``ts`` in microseconds after ``base_ns`` on the Unix clock
+        (``dur`` in microseconds).  Given the ``baseTimeNanoseconds`` of a
+        ``torch.profiler`` export, the two lay over with no offset: the
+        same clock, base, ``pid`` and ``tid``.  Returns the event count
+        written."""
         out = []
         for r in self.records():
             base = {"name": r["name"], "pid": r["pid"], "tid": r["tid"],
-                    "ts": r["ts"] * 1e6, "cat": r["kind"],
+                    "ts": (r["ts"] - base_ns) / 1e3, "cat": r["kind"],
                     "args": r.get("args", {})}
             if r["kind"] == "span":
                 base["ph"] = "X"
-                base["dur"] = r["dur"] * 1e6
+                base["dur"] = r["dur"] / 1e3
+                base["args"] = dict(base["args"], id=r["id"],
+                                    parent=r["parent"], call=r["call"])
             else:
                 base["ph"] = "i"
                 base["s"] = "t"
@@ -220,8 +285,8 @@ class Tracer:
         doc = {
             "traceEvents": out,
             "displayTimeUnit": "ms",
-            "otherData": {"source": "repro_torch.obs",
-                          "epoch_unix": self.epoch_unix},
+            "baseTimeNanoseconds": int(base_ns),
+            "otherData": {"source": "repro_torch.obs"},
         }
         with open(path, "w") as f:
             json.dump(doc, f, indent=1)
@@ -250,8 +315,7 @@ class NullTracer(Tracer):
     dispatch per emission point and allocates nothing."""
 
     def __init__(self):  # no lock, no buffers
-        self.epoch = 0.0
-        self.epoch_unix = 0.0
+        pass
 
     @property
     def enabled(self) -> bool:
@@ -259,6 +323,8 @@ class NullTracer(Tracer):
 
     def span(self, name: str, **attrs) -> _NullSpan:
         return _NULL_SPAN
+
+    call = span
 
     def event(self, name: str, **attrs) -> None:
         pass
@@ -283,9 +349,21 @@ class NullTracer(Tracer):
     export_chrome = export_jsonl
 
 
+class _ProfilerMarks(NullTracer):
+    """Records nothing; its spans only open ``record_function`` ranges
+    (while the profiler runs, which is when :func:`call_tracer` hands it
+    out)."""
+
+    def span(self, name: str, **attrs) -> _MarkSpan:
+        return _MarkSpan(name)
+
+    call = span
+
+
 #: The process-wide no-op singleton — what :func:`current_tracer` returns
 #: when tracing is off.
 NULL = NullTracer()
+_MARKS = _ProfilerMarks()
 
 _ambient = threading.local()
 _global: Tracer | None = None
@@ -336,6 +414,17 @@ def current_tracer() -> Tracer:
         return t
     g = _global if _env_checked else _tracer_from_env()
     return g if g is not None else NULL
+
+
+def call_tracer() -> Tracer:
+    """The tracer one executable call records into: :func:`current_tracer`,
+    except that while torch's profiler runs and no tracer is installed,
+    one whose spans only mark the profiler's trace.  Off, its whole cost
+    is :func:`current_tracer` and one flag read."""
+    t = current_tracer()
+    if t is NULL and _profiler._is_profiler_enabled:
+        return _MARKS
+    return t
 
 
 def resolve_tracer(trace) -> Tracer:

@@ -72,7 +72,7 @@ from .dataflow import STREAM_AXIS, lower_to_dataflow
 from .ir import Program
 from .lower_kernel import DTYPES, scalar_vector, update_scalars
 from .lower_stream import trace_update
-from .lower_torch import lower_steps, write_back
+from .lower_torch import fresh_carry, lower_steps, write_back
 from .schedule import DataflowPlan, ShardSpec, TimeLoopSpec, adapt_update
 
 #: bytes of halo slabs moved between shards along sharded axes (zero and
@@ -674,11 +674,13 @@ def lower_sharded_time_loop(p: Program, plan: DataflowPlan, global_grid,
                              "(pipeline.batched_executable)")
         lead = int(batched)
         inner = {f: (slice(None),) * lead + interior[f] for f in persistent}
-        # initial carry: zero-padded; the halos are refreshed before the
-        # first compute
-        carry = {f: {idx: zero_pad(f, b) for idx, b in shards.scatter(
-            torch.as_tensor(fields[f], dtype=dtype, device=shards.home),
-            lead).items()} for f in persistent}
+        # initial carry: zero-padded, never a view of the caller's block;
+        # the halos are refreshed before the first compute
+        carry = {f: {idx: fresh_carry(zero_pad, f, b)
+                     for idx, b in shards.scatter(
+                         torch.as_tensor(fields[f], dtype=dtype,
+                                         device=shards.home),
+                         lead).items()} for f in persistent}
         cdev = _host_coeffs(p, coeffs, dtype, reach, shards.devices)
         sdev = {d: (update_scalars(p, scalars, True, d) if batched
                     else _scalars_on(scalars, d)) for d in shards.devices}

@@ -51,11 +51,13 @@ class Counts:
     ``stencil.pad`` and ``stencil.prologue``; a pad that returns its input
     makes none); ``stencil.carry_bytes``, the bytes each write-back writes
     (a rebuilt buffer, or the interior copied in place);
-    ``stencil.carry_writes``, fields written back, and
-    ``stencil.carry_unchanged``, those of them the update left unchanged."""
+    ``stencil.carry_writes``, fields written back;
+    ``stencil.carry_unchanged``, those of them the update left unchanged;
+    and ``stencil.carry_inplace``, those whose carry buffer the write-back
+    kept (copied into, or left as it was)."""
 
     __slots__ = ("calls", "steps", "pad_bytes", "carry_bytes",
-                 "carry_writes", "carry_unchanged")
+                 "carry_writes", "carry_unchanged", "carry_inplace")
 
     def __init__(self):
         m = global_metrics()
@@ -221,10 +223,10 @@ def lower_time_loop(p: Program, plan: DataflowPlan, grid_shape,
     the buffer's strides, no copy).  The reference's ``lax.fori_loop``
     becomes a plain Python loop over these buffers.  Halo slabs follow each
     field's boundary: zero slabs never change, so ``carry_write="inplace"``
-    copies only the new interior into the buffer, in place (``copy_`` into
-    the interior view); ``"repad"`` (the default) rebuilds interior plus
-    halo slabs in a new buffer; periodic slabs are always rebuilt from the
-    new interior.  Coefficients are loop-invariant and padded once.
+    (the default) copies only the changed interiors into the buffer, in
+    place (``copy_`` into the interior view); ``"repad"`` rebuilds interior
+    plus halo slabs in a new buffer; periodic slabs are always rebuilt from
+    the new interior.  Coefficients are loop-invariant and padded once.
     """
     grid_shape = tuple(int(g) for g in grid_shape)
     dtype, calls = _make_calls(p, plan, grid_shape)

@@ -168,9 +168,10 @@ def lower_time_loop(p: Program, mode: str, spec, update):
     ``spec.field_pad``; every step reads windows out of the padded buffers
     (slice views, no fresh pad) and ``update(fields, outputs)`` produces the
     new interiors.  Halo slabs follow each field's boundary: zero slabs
-    stay zero throughout (``carry_write="inplace"`` copies only the new
-    interior into the buffer, in place); periodic slabs — and every slab
-    under ``"repad"`` — are rebuilt from the new interior each step.
+    stay zero throughout (``carry_write="inplace"``, the default, copies
+    only the changed interiors into the buffer, in place); periodic slabs —
+    and every slab under ``"repad"`` — are rebuilt from the new interior
+    each step.
     """
     from .schedule import adapt_update
 
@@ -229,7 +230,8 @@ def write_back(carry: dict, cur: dict, new: dict, interior: dict,
     halo slabs, in a new buffer.  New values that alias a carry buffer are
     cloned first, so no in-place write can clobber a value still to be
     read.  ``counts`` (the orchestrator's ``lower_kernel.Counts``) adds the
-    bytes written, the fields written back and those left unchanged.
+    bytes written, the fields written back, those left unchanged and those
+    whose buffer was kept.
     """
     bases = {carry[f].untyped_storage().data_ptr() for f in carry}
     vals = {}
@@ -240,7 +242,7 @@ def write_back(carry: dict, cur: dict, new: dict, interior: dict,
             v = v.clone()
         vals[f] = v
     out = {}
-    wrote = 0
+    wrote = kept = 0
     for f in carry:
         v = vals[f]
         if carry_write == "inplace" and bnd[f] == "zero":
@@ -248,6 +250,7 @@ def write_back(carry: dict, cur: dict, new: dict, interior: dict,
                 carry[f][interior[f]].copy_(v)
                 wrote += v.numel() * carry[f].element_size()
             out[f] = carry[f]
+            kept += 1
         else:
             out[f] = refill(f, v.to(carry[f].dtype))
             if out[f] is not v:
@@ -256,4 +259,5 @@ def write_back(carry: dict, cur: dict, new: dict, interior: dict,
         counts.carry_bytes.inc(wrote)
         counts.carry_writes.inc(len(carry))
         counts.carry_unchanged.inc(sum(new[f] is cur[f] for f in carry))
+        counts.carry_inplace.inc(kept)
     return out

@@ -70,7 +70,9 @@ class CompileOptions:
     first, and a miss measures the model-pruned candidates and stores the
     winner; ``tune_config`` (:class:`~repro_torch.core.tune.TuneConfig`)
     sets the search's knobs.  ``carry_write=None`` defers to the tuned
-    style (``"repad"`` under any other strategy).
+    style (``"inplace"`` under any other strategy: a zero-boundary field's
+    padded carry is built once a call and each step copies only the
+    interiors the update changed into it).
 
     ``mesh=`` (:func:`repro_torch.dist.make_auto_mesh`) runs the compile
     over a mesh of devices with ``mesh_axes`` (one mesh axis name or None
@@ -284,7 +286,7 @@ def _compile(p: Program, grid, o: CompileOptions, tracer,
     plan = dataclasses.replace(plan, groups=[list(g) for g in plan.groups],
                                **overrides)
     _check_schedule(backend, plan.schedule)
-    carry_write = carry_write or "repad"
+    carry_write = carry_write or "inplace"
 
     graph = None
     group_halos = None

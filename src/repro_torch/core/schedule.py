@@ -570,10 +570,11 @@ class TimeLoopSpec:
     # per fuse group: {field: (ndim,) start offsets of the group's window
     # inside the carry buffer} (0 for transient inputs)
     group_offsets: list
-    # how the loop writes the back buffer: "repad" rebuilds interior plus
-    # halo slabs in a new buffer; "inplace" copies the new interior into the
-    # existing buffer (zero-boundary fields; periodic ones always rebuild)
-    carry_write: str = "repad"
+    # how the loop writes the back buffer: "inplace" (the default) copies
+    # the changed interiors into the existing buffer (zero-boundary fields;
+    # periodic ones always rebuild); "repad" rebuilds interior plus halo
+    # slabs in a new buffer
+    carry_write: str = "inplace"
     # hi-side tile-alignment slab per axis, already folded into field_pad;
     # kept apart so a halo refresh (periodic wrap, exchange) treats it as a
     # plain zero slab
@@ -596,7 +597,7 @@ def clamp_block(block: Sequence[int], grid: Sequence[int]) -> tuple:
 
 
 def plan_time_loop(p: Program, plan: DataflowPlan, grid: Sequence[int],
-                   steps: int, carry_write: str = "repad",
+                   steps: int, carry_write: str = "inplace",
                    group_halos: list | None = None,
                    shard: ShardSpec | None = None) -> TimeLoopSpec:
     """Size the carry buffers for a fused time loop.

@@ -102,6 +102,49 @@ def test_fused_loop_on_the_card_matches_torch_fused(app, update,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("app,update,temps", [
+    (pw_advection, lambda: pw_advection_update(0.1), 1),
+    (tracer_advection, tracer_advection_update, 0),
+])
+def test_the_default_write_back_holds_no_rebuilt_carry_on_the_card(
+        app, update, temps):
+    """Under the default carry write (``"inplace"``) a block-schedule loop
+    on 256x128x256 float32 (33.5 MB a field) peaks below ``"repad"``'s by
+    at least the bytes of the carries ``"repad"`` rebuilds each step, less
+    the ``temps`` interiors the update rule holds for a moment (pw's
+    ``dt * out``, which then sets the peak), and its fields are
+    bit-equal."""
+    _needs_card()
+    p = app()
+    grid = (256, 128, 256)
+    f, s, c = _inputs(p, grid)
+    f = {k: torch.as_tensor(v, device="cuda") for k, v in f.items()}
+    peaks, outs = {}, {}
+    for cw in (None, "repad"):
+        ex = compile_program(p, grid, steps=3, update=update(),
+                             carry_write=cw, schedule="block")
+        ex(f, s, c)                     # the build and a warm-up call
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = ex(f, s, c)
+        torch.cuda.synchronize()
+        peaks[cw] = torch.cuda.max_memory_allocated() - base
+        outs[cw] = {k: v.clone() for k, v in got.items()}
+        del got
+    spec = ex.time_spec
+    assert spec.carry_write == "repad"
+    rebuilt = sum(int(np.prod([g + int(spec.field_pad[k][a].sum())
+                               for a, g in enumerate(grid)])) * 4
+                  for k in spec.persistent)
+    saved = peaks["repad"] - peaks[None]
+    assert saved >= rebuilt - temps * int(np.prod(grid)) * 4, (peaks,
+                                                               rebuilt)
+    for k in outs["repad"]:
+        assert torch.equal(outs[None][k], outs["repad"][k]), k
+
+
+@pytest.mark.cuda
 def test_multi_group_plan_on_the_card():
     """tracer_advection split per field (a kernel a group, inter-group
     fields re-padded between them) against the plain backend on the

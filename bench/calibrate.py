@@ -8,7 +8,9 @@ For each seed of ``--seeds``, one call of the cell's compiled executable
 the lower readings. For each seed of ``--control-seeds``, the reference
 computed in bfloat16, the next precision below the configuration's,
 against the float32 reference: the control's readings, the upper ones.
-Each reading is ``compare.rel_err`` of every field the update changes.
+Each reading is ``compare.rel_err`` of every field the update changes. A
+cell over a mesh is compared as its runs compare it: the reference in
+slabs on the cards after the first (``bench/slabs.py``).
 """
 
 import argparse
@@ -21,7 +23,7 @@ ROOT = Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
-from bench import compare, harness, inputs  # noqa: E402
+from bench import compare, harness, inputs, slabs  # noqa: E402
 
 
 def readings(cell, seeds, control_seeds, device="cuda", grid=None) -> dict:
@@ -30,32 +32,52 @@ def readings(cell, seeds, control_seeds, device="cuda", grid=None) -> dict:
     cfg, tr = cell.config, cell.traffic
     grid = tuple(int(g) for g in (grid or cfg["grid"]))
     steps = int(tr["steps"])
+    writes = cfg["writes"]
     ref = harness.reference(cell.root, cfg["reference"]["module"])
     rargs = cfg["reference"].get("args", {})
     on_card = torch.device(device).type == "cuda"
     ex = harness.compile_cell(cell, grid, None if on_card else device)
+    f32, low = torch.float32, torch.bfloat16
+    if "mesh" in cfg:
+        # as the benchmark's run compares: the reference in slabs on the
+        # cards after the first
+        n = harness.mesh_size(cfg)
+        cards = ([torch.device("cuda", i) for i in range(n)] if on_card
+                 else [torch.device(device)] * n)
+        plan = slabs.plan(cfg, grid, steps, cards[1:] or cards)
 
     def reference(fields, scalars, coeffs, dtype):
         return ref.run(cfg["reference"]["scheme"], fields, scalars, coeffs,
                        steps, dtype=dtype, **rargs)
 
+    def errors(f, s, c, got=None) -> dict:
+        """Each changed field's ``rel_err`` against the float32 reference:
+        of the program's ``got``, or of the bfloat16 reference where None."""
+        if "mesh" in cfg:
+            res = slabs.run(ref, cfg, f, s, c, steps, plan,
+                            (f32,) if got is not None else (f32, low))
+            parts = slabs.errors(res, writes,
+                                 (lambda a, b, _: got[(a, b)])
+                                 if got is not None
+                                 else (lambda a, b, r: r[low]))
+            return {k: compare.rel_err_of_parts(parts[k]) for k in writes}
+        want = reference(f, s, c, f32)
+        other = got if got is not None else reference(f, s, c, low)
+        return {k: compare.rel_err(other[k], want[k]) for k in writes}
+
     out = {"workload": cell.name, "grid": list(grid), "steps": steps,
            "program": {}, "control": {}}
     for seed in seeds:
         f, s, c = inputs.make(cfg, grid, seed, device)
-        got = {k: v.clone() for k, v in ex(f, s, c).items()
-               if k in cfg["writes"]}
-        want = reference(f, s, c, torch.float32)
-        out["program"][str(seed)] = {k: compare.rel_err(got[k], want[k])
-                                     for k in cfg["writes"]}
-        del got, want
+        res = ex(f, s, c)
+        got = (slabs.park(res, writes, plan) if "mesh" in cfg
+               else {k: res[k].clone() for k in writes})
+        del res
+        out["program"][str(seed)] = errors(f, s, c, got)
+        del got
     for seed in control_seeds:
         f, s, c = inputs.make(cfg, grid, seed, device)
-        want = reference(f, s, c, torch.float32)
-        low = reference(f, s, c, torch.bfloat16)
-        out["control"][str(seed)] = {k: compare.rel_err(low[k], want[k])
-                                     for k in cfg["writes"]}
-        del want, low
+        out["control"][str(seed)] = errors(f, s, c)
     worst = [max(v.values()) for v in out["program"].values()]
     ctrl = [max(v.values()) for v in out["control"].values()]
     out["lower"] = max(worst) if worst else None

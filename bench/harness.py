@@ -12,11 +12,20 @@ reference under ``bench/reference/``.
 
 Traffic: a closed loop with one caller. Each call is one compiled
 executable's call that advances the traffic's ``steps`` steps from the
-same seeded inputs, followed by a synchronise.
+same seeded inputs, followed by a synchronise of every card of the cell.
+
+A configuration with a ``mesh`` (``{"shape", "axis_names", "mesh_axes"}``)
+is compiled over ``cuda:0 .. n-1`` and asks for ``n`` chips. The program
+takes the global inputs on the mesh's first card and gathers its result
+there, so that card holds two grids besides its shard: the compared rows
+are parked on the other cards after the window, and the reference runs in
+slabs on them (``bench/slabs.py``). Energy, memory and the least time are
+taken over all the cell's cards.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib.util
 import json
@@ -26,7 +35,7 @@ import sys
 import time
 from pathlib import Path
 
-from . import compare, devtrace, inputs, roofline
+from . import compare, devtrace, inputs, roofline, slabs, spans as pspans
 
 ROOT = Path(__file__).resolve().parents[1]
 #: top-level module names the run's process may not hold
@@ -60,7 +69,8 @@ class Cell:
 
 
 def load_cell(root: Path, name: str) -> Cell:
-    """The cell ``name`` of ``root``'s ``BENCHMARK.json`` with its files."""
+    """The cell ``name`` of ``root``'s ``BENCHMARK.json`` with its files;
+    raises where its configuration's mesh is not of its chips' size."""
     bm = load_json(root / "BENCHMARK.json")
     cells = {w["name"]: w for w in bm["workloads"]}
     if name not in cells:
@@ -72,14 +82,22 @@ def load_cell(root: Path, name: str) -> Cell:
     def here(m):
         return "workloads" not in m or name in m["workloads"]
 
+    config = load_json(root / cfg["file"])
+    if mesh_size(config) != int(entry["chips"]):
+        raise ValueError(f"workload {name!r} asks for {entry['chips']} "
+                         f"chip(s); its mesh has {mesh_size(config)}")
     return Cell(
-        name=name, root=root, entry=entry,
-        config=load_json(root / cfg["file"]),
+        name=name, root=root, entry=entry, config=config,
         traffic=load_json(root / "bench" / "traffic"
                           / f"{entry['traffic']}.json"),
         limits=load_json(root / "bench" / "limits" / f"{name}.json"),
         end_to_end=[m for m in bm["end_to_end"] if here(m)],
         per_layer=[m for m in bm["per_layer"] if here(m)])
+
+
+def mesh_size(config: dict) -> int:
+    """The devices the configuration's mesh takes (1 without a mesh)."""
+    return math.prod(config["mesh"]["shape"]) if "mesh" in config else 1
 
 
 def reader(root: Path, metric: str):
@@ -141,23 +159,46 @@ class Run:
 
 
 def compile_cell(cell: Cell, grid, device):
-    """The cell's compiled executable, as a modeller would compile it."""
+    """The cell's compiled executable, as a modeller would compile it: on
+    ``device`` (None: the card), or over the configuration's mesh of
+    ``cuda:0 .. n-1`` (on the CPU, ``device`` repeated)."""
     rt = import_program(cell.root)
     from repro_torch import apps
     cfg, tr = cell.config, cell.traffic
     program = getattr(apps, cfg["program"])(cfg["boundary"])
     upd = cfg["update"]
     update = getattr(apps, upd["rule"])(*upd.get("args", ()))
+    layout = {}
+    if "mesh" in cfg:
+        from repro_torch.dist import make_auto_mesh
+        m = cfg["mesh"]
+        n = mesh_size(cfg)
+        layout = dict(mesh=make_auto_mesh(
+            m["shape"], m["axis_names"],
+            devices=None if device is None else [device] * n),
+            mesh_axes=tuple(m["mesh_axes"]))
+        device = None
     ex = rt.compile_program(program, grid, steps=int(tr["steps"]),
                             update=update, dtype=cfg["dtype"],
                             schedule=tr["schedule"],
                             time_tile=tr.get("time_tile"),
                             strategy=tr.get("strategy", "auto"),
-                            device=device)
+                            device=device, **layout)
     eff = ex.plan.stream.time_tile if ex.plan.stream is not None else 1
     if int(eff) != int(tr.get("time_tile") or 1):
         raise RuntimeError(f"time_tile {tr.get('time_tile')} ran as {eff}")
     return ex
+
+
+def program_spans(config: dict):
+    """What makes the program's spans ranges of the profiled stretch: the
+    one-card orchestrator marks them with no tracer installed; the mesh
+    orchestrator opens its ``distribute.exchange`` spans only for an
+    installed tracer, so a mesh cell's stretch installs one."""
+    if "mesh" not in config:
+        return contextlib.nullcontext()
+    from repro_torch.obs.trace import Tracer
+    return Tracer().active()
 
 
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *,
@@ -166,15 +207,28 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *,
     """One run of ``cell``; returns ``(result, checks)``.
 
     ``grid`` overrides the configuration's (tests run small), ``power``
-    is a started-on-demand :class:`power.PowerSampler` or None (no energy
+    is a started-on-demand :class:`power.Cards` or None (no energy
     reading), and ``wrap(ex)`` replaces the compiled executable (the tests
-    plant faults with it)."""
+    plant faults with it). On the card the run uses ``cuda:0 .. chips-1``;
+    on the CPU, ``device`` stands for each of them."""
     import torch
 
     dev = torch.device(device)
     on_card = dev.type == "cuda"
-    sync = torch.cuda.synchronize if on_card else (lambda: None)
     cfg, tr = cell.config, cell.traffic
+    chips = int(cell.entry["chips"])
+    cards = ([torch.device("cuda", i) for i in range(chips)] if on_card
+             else [dev] * chips)
+
+    def sync():
+        if on_card:
+            for d in cards:
+                torch.cuda.synchronize(d)
+
+    def peak_bytes():
+        return max(torch.cuda.max_memory_allocated(d) for d in cards) \
+            if on_card else 0
+
     if tr.get("loop") != "closed" or int(tr.get("callers", 0)) != 1:
         raise ValueError(f"traffic {cell.entry['traffic']!r}: the harness "
                          "drives a closed loop with one caller")
@@ -206,9 +260,10 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *,
         if power is not None:
             power.wait_for_samples()
         spans["warmup"] = time.perf_counter() - a
-        setup_peak = torch.cuda.max_memory_allocated() if on_card else 0
+        setup_peak = peak_bytes()
         if on_card:
-            torch.cuda.reset_peak_memory_stats()
+            for d in cards:
+                torch.cuda.reset_peak_memory_stats(d)
         call_s, digests = [], []
         t_open = time.perf_counter()
         setup_s = t_open - t0
@@ -231,25 +286,46 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *,
     finally:
         if power is not None:
             power.stop()
-    window_peak = torch.cuda.max_memory_allocated() if on_card else 0
+    window_peak = peak_bytes()
 
     run = Run(cell=cell, points=math.prod(grid), steps_per_call=steps,
-              least_time_s=roofline.least_time(cfg, grid, steps)[0],
+              least_time_s=roofline.least_time(cfg, grid, steps, chips)[0],
               setup_s=setup_s,
               spans=spans, call_s=call_s, window_s=t_close - t_open,
               energy_j=energy, window_peak_bytes=window_peak)
+    if "mesh" in cfg:
+        # the mesh's first card holds the inputs and the gathered result:
+        # the compared rows wait on the other cards
+        ref_cards = cards[1:] or cards
+        plan = slabs.plan(cfg, grid, steps, ref_cards)
+        got = slabs.park(out, writes, plan)
+        del out
     breakdown = None
     if trace:
-        raw = devtrace.profile_calls(torch, call, int(tr["trace_calls"]),
-                                     on_card)
+        moved = pspans.exchanged_bytes()
+        with program_spans(cfg):
+            raw = devtrace.profile_calls(torch, call, int(tr["trace_calls"]),
+                                         on_card, sync)
         run.trace = devtrace.summarise(
             raw, devtrace.generated_matcher(
                 [k.entry for k in getattr(ex, "kernels", [])]),
-            torch._C._demangle)
+            torch._C._demangle, chips)
+        if moved is not None:
+            run.trace["exchanged_bytes"] = pspans.exchanged_bytes() - moved
         breakdown = {"device_ops": run.trace["top"],
                      "idle_gaps": run.trace["idle_gaps"]}
-    peak = max(setup_peak, window_peak,
-               torch.cuda.max_memory_allocated() if on_card else 0)
+    peak = max(setup_peak, window_peak, peak_bytes())
+    if on_card:
+        print("memory peak by card " + " ".join(
+            f"{d}={torch.cuda.max_memory_allocated(d)}" for d in cards)
+            + f"; window {window_peak}, set-up {setup_peak}; reserved "
+            + " ".join(f"{d}={torch.cuda.max_memory_reserved(d)}"
+                       for d in cards), file=sys.stderr, flush=True)
+    if trace:
+        print("busy by card " + " ".join(
+            f"{c}={v!r}" for c, v in run.trace["busy_by_card"].items())
+            + f" of {run.trace['window_s']!r} s", file=sys.stderr,
+            flush=True)
 
     wanted = cell.per_layer if trace else cell.end_to_end
     metrics = {}
@@ -262,23 +338,34 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *,
     del ex, call
     last = digests[-1].cpu()
     calls_off = sum(int(not torch.equal(d.cpu(), last)) for d in digests)
-    got = {f: out[f] for f in writes}
-    del out
-    if on_card:
-        torch.cuda.empty_cache()
     ref = reference(cell.root, cfg["reference"]["module"])
-    want = ref.run(cfg["reference"]["scheme"], fields, scalars, coeffs,
-                   steps, dtype=torch.float32,
-                   **cfg["reference"].get("args", {}))
-    rows = compare.checks(got, want, writes, cell.limits, calls_off)
-    del got, want
+    if "mesh" in cfg:
+        if on_card:
+            for d in cards:
+                with torch.cuda.device(d):
+                    torch.cuda.empty_cache()
+        res = slabs.run(ref, cfg, fields, scalars, coeffs, steps, plan)
+        parts = slabs.errors(res, writes, lambda a, b, _: got[(a, b)])
+        del got, res
+    else:
+        got = {f: out[f] for f in writes}
+        del out
+        if on_card:
+            torch.cuda.empty_cache()
+        want = ref.run(cfg["reference"]["scheme"], fields, scalars, coeffs,
+                       steps, dtype=torch.float32,
+                       **cfg["reference"].get("args", {}))
+        parts = {f: [compare.error_parts(got[f], want[f])] for f in writes}
+        del got, want
+    rows = compare.checks(parts, writes, cell.limits, calls_off)
+    del parts
 
     result = {
         "correct": compare.passed(rows),
         "attempted": len(call_s),
         "failed": calls_off,
         "metrics": metrics,
-        "device": device_record(torch, on_card, peak,
+        "device": device_record(torch, on_card, chips, peak,
                                 run.trace if trace else None),
     }
     if breakdown is not None:
@@ -288,12 +375,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *,
     return result, rows
 
 
-def device_record(torch, on_card: bool, peak: int, tr) -> dict:
+def device_record(torch, on_card: bool, chips: int, peak: int, tr) -> dict:
     rec = {"platform": "gpu" if on_card else "cpu",
            "kind": torch.cuda.get_device_name() if on_card else "cpu",
-           "count": 1, "memory_peak_bytes": int(peak)}
+           "count": chips, "memory_peak_bytes": int(peak)}
     if tr is not None:
         rec["busy_s"] = tr["busy_s"]
         rec["window_s"] = tr["window_s"]
     return rec
-

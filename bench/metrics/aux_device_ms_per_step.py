@@ -1,5 +1,6 @@
 """Device milliseconds a step in operations that are not the program's
-generated kernels: pads, copies, sets, the update's arithmetic."""
+generated kernels: pads, copies, sets, the update's arithmetic, the halo
+exchange; on the mean card of the cell."""
 
 
 def read(run):

@@ -1,5 +1,5 @@
-"""The share of the profiled stretch in which no device operation runs, in
-percent."""
+"""The share of the profiled stretch in which no device operation runs on
+a card, for the mean card of the cell, in percent."""
 
 
 def read(run):

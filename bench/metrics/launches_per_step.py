@@ -1,5 +1,5 @@
 """Device operations (kernels, copies and sets) in the profiled calls over
-the steps they advanced."""
+the steps they advanced, on the mean card of the cell."""
 
 
 def read(run):

@@ -1,5 +1,6 @@
-"""Grid-point updates a joule: the window's points x steps over the card's
-energy in the window, its power as nvidia-smi samples it, integrated."""
+"""Grid-point updates a joule: the window's points x steps over the energy
+of the cell's cards in the window, each card's power as nvidia-smi samples
+it, integrated, and the cards summed."""
 
 
 def read(run):

@@ -1,5 +1,6 @@
-"""The allocator's peak over the window (torch.cuda.max_memory_allocated
-after reset_peak_memory_stats at the window's start), in GiB."""
+"""The allocator's peak over the window on the fullest card of the cell
+(torch.cuda.max_memory_allocated after reset_peak_memory_stats at the
+window's start, on each card), in GiB."""
 
 
 def read(run):

@@ -1,5 +1,6 @@
 """Device milliseconds a step in the program's generated stencil kernels,
-told from PyTorch's by their names (<entry>_kernel)."""
+told from PyTorch's by their names (<entry>_kernel), on the mean card of
+the cell."""
 
 
 def read(run):

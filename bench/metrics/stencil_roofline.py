@@ -1,5 +1,6 @@
-"""The call's least time (bench/roofline.py) over the device time of the
-generated kernels in one call, in percent."""
+"""The call's least time on the cell's cards (bench/roofline.py) over the
+device time of the generated kernels in one call on the mean card, in
+percent."""
 
 
 def read(run):

@@ -1,9 +1,10 @@
-"""The card's power draw, sampled by ``nvidia-smi`` beside the window.
+"""The cards' power draw, sampled by ``nvidia-smi`` beside the window.
 
-One ``nvidia-smi`` process reads the card that the run uses, selected by
+One ``nvidia-smi`` process reads each card that the run uses, selected by
 its UUID, every ``interval_ms``; a thread stamps each line with the host's
-clock. :meth:`PowerSampler.energy_j` integrates the samples over the
-window. Nothing stands in for a reading: with too few samples it raises.
+clock. :meth:`PowerSampler.energy_j` integrates one card's samples over
+the window, and :class:`Cards` sums the cards. Nothing stands in for a
+reading: with too few samples of any card it raises.
 """
 
 from __future__ import annotations
@@ -107,3 +108,26 @@ class PowerSampler:
         for (ta, wa), (tb, wb) in zip(pts, pts[1:]):
             e += 0.5 * (wa + wb) * (tb - ta)
         return e
+
+
+class Cards:
+    """One :class:`PowerSampler` a card of the run; the window's energy is
+    the sum of the cards' energies."""
+
+    def __init__(self, cards, interval_ms: int = 50):
+        self.each = [PowerSampler(c, interval_ms) for c in cards]
+
+    def start(self) -> None:
+        for s in self.each:
+            s.start()
+
+    def wait_for_samples(self, timeout_s: float = 15.0) -> None:
+        for s in self.each:
+            s.wait_for_samples(timeout_s)
+
+    def stop(self) -> None:
+        for s in self.each:
+            s.stop()
+
+    def energy_j(self, t0: float, t1: float) -> float:
+        return sum(s.energy_j(t0, t1) for s in self.each)

@@ -9,6 +9,11 @@ time is the larger of the bytes over the memory rate and the operations
 over the float32 rate outside the tensor cores (NVIDIA's H100 SXM data
 sheet, at the 700 W the rates assume). Temporal blocking, fused kernels or
 graphs cannot take a call below it, so a share of it cannot pass 100%.
+
+A cell over several cards divides the same bytes and operations over their
+summed rates. The halo slabs that the cards exchange are left out: they are
+work that the decomposition adds, not work that the configuration states,
+so the least time stays a floor.
 """
 
 from __future__ import annotations
@@ -35,10 +40,11 @@ def call_work(config: dict, grid, steps: int) -> tuple:
     return float(nbytes), ops
 
 
-def least_time(config: dict, grid, steps: int) -> tuple:
-    """``(seconds, "bytes" | "operations")``: the call's least time and
-    which of the two bounds it."""
+def least_time(config: dict, grid, steps: int, chips: int = 1) -> tuple:
+    """``(seconds, "bytes" | "operations")``: the call's least time on
+    ``chips`` cards and which of the two bounds it."""
     nbytes, ops = call_work(config, grid, steps)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_F32_FLOPS
+    t_bytes = nbytes / (chips * HBM_BYTES_PER_S)
+    t_ops = ops / (chips * PEAK_F32_FLOPS)
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")

@@ -2,10 +2,12 @@
 
     python3 bench/run.py --workload <name> --seed <n> --seconds <s> --trace <0|1>
 
-from the root of a checkout. Runs on the card it is started on and on no
-other device: without a card it exits with code 2 and prints no result.
-The last line of standard output is the run's JSON result; the numbers
-compared for ``correct`` are the last lines of standard error.
+from the root of a checkout. Runs on the cards it is started on
+(``cuda:0 .. chips-1``) and on no other device: with fewer cards than the
+workload's chips, or a mesh that is not of their size, it exits with code
+2 and prints no result. The last line of standard output is the run's JSON
+result; the numbers compared for ``correct`` are the last lines of
+standard error.
 """
 
 import time
@@ -33,7 +35,11 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     harness.fixed_caches(ROOT)
-    cell = harness.load_cell(ROOT, args.workload)
+    try:
+        cell = harness.load_cell(ROOT, args.workload)
+    except ValueError as e:
+        print(e, file=sys.stderr)
+        return 2
     import torch
     need = int(cell.entry["chips"])
     found = torch.cuda.device_count() if torch.cuda.is_available() else 0
@@ -41,13 +47,15 @@ def main(argv=None) -> int:
     if found < need:
         print(f"needs {need} CUDA card(s); {found} found", file=sys.stderr)
         return 2
-    card = power.probe(power.card_uuid(torch))
-    print(f"card {card['name']} ({card['card']}), power limit "
-          f"{card['power_limit_w']} W; torch at {t_torch:.3f} s, the card "
-          f"probed at {time.perf_counter() - T0:.3f} s", file=sys.stderr)
+    cards = [power.probe(power.card_uuid(torch, i)) for i in range(need)]
+    for card in cards:
+        print(f"card {card['name']} ({card['card']}), power limit "
+              f"{card['power_limit_w']} W", file=sys.stderr)
+    print(f"torch at {t_torch:.3f} s, the cards probed at "
+          f"{time.perf_counter() - T0:.3f} s", file=sys.stderr)
     result, rows = harness.run_cell(
         cell, args.seed, args.seconds, bool(args.trace), t0=T0,
-        power=power.PowerSampler(card["card"]))
+        power=power.Cards([c["card"] for c in cards]))
     held = harness.forbidden_modules()
     if held:
         print("the run's process holds " + ", ".join(held), file=sys.stderr)

@@ -4,18 +4,20 @@ While ``torch.profiler`` runs, the port's orchestrator opens a
 ``record_function`` range for each of its ``stencil.*`` spans
 (``stencil.call`` > ``stencil.prologue``, ``stencil.step`` >
 ``stencil.pad`` / ``stencil.kernel`` / ``stencil.update`` /
-``stencil.write_back``). They arrive among the profiled stretch's host
-events (``devtrace.profile_calls``'s ``raw["host"]``). Each device
-operation is put down to the runtime call that enqueued it (kernel
-launches, copies and sets, in issue order: the program runs on one
-stream, which runs them in that order; the raw events carry no
-correlation ids), and that call to the innermost ``stencil.*`` range
-open on its thread when it was made.
+``stencil.write_back``), and its mesh orchestrator one for each halo
+exchange (``distribute.exchange``). They arrive among the profiled
+stretch's host events (``devtrace.profile_calls``'s ``raw["host"]``).
+Each device operation is put down to the runtime call that enqueued it
+(kernel launches, copies and sets), the one that shares its correlation
+id, and that call to the innermost such range open on its thread when it
+was made. No operation's time is compared with its call's: the profiler
+maps the device's clock onto the host's only to within a millisecond.
 
 A program without these spans (an older one) gives no attribution, and the
 readers built on it report nothing. The counters are read from the
-program's ``global_metrics()`` in the run's process; a program without
-them gives None too.
+program's ``global_metrics()`` in the run's process, and the mesh's
+exchanged bytes from its ``distribute`` module; a program without them
+gives None too.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ import re
 import sys
 
 PREFIX = "stencil."
+#: the ranges operations are put down to: the orchestrators' spans
+RANGES = (PREFIX, "distribute.")
 #: the runtime and driver calls that enqueue one device operation each
 ENQUEUE = re.compile(r"^cu(da)?(LaunchKernel|LaunchCooperativeKernel"
                      r"|Memcpy|Memset)")
@@ -34,44 +38,36 @@ UNATTRIBUTED = "unattributed"
 
 def attribute(raw: dict) -> dict | None:
     """Device nanoseconds and operation counts by the innermost
-    ``stencil.*`` span that launched them: ``{"by_span": {name: {"ns",
-    "ops", "generated_ns", "generated_ops"}}, "device_ns", "device_ops"}``,
-    with the operations launched outside any such span under
-    ``"unattributed"``, and ``"lost"``, the enqueueing calls at the
-    stretch's start whose device records the profiler dropped. None where
-    the stretch holds no ``stencil.*`` range or no device operation, or
-    where the calls and the operations do not pair: more operations than
-    calls, an operation of another kind (copy, set, kernel) than its call,
-    or a generated kernel (``g<i>_kernel``) whose call is not in a
-    ``stencil.kernel`` span."""
+    ``stencil.*`` or ``distribute.*`` span that launched them: ``{"by_span":
+    {name: {"ns", "ops", "generated_ns", "generated_ops"}}, "device_ns",
+    "device_ops"}``, summed over the cards, with the operations launched
+    outside any such span under ``"unattributed"``, and ``"lost"``, the
+    enqueueing calls whose device records the profiler dropped. None where
+    the stretch holds no such range or no device operation, or where the
+    calls and the operations do not pair: an operation with no call, an
+    operation of another kind (copy, set, kernel) than its call, or, where
+    the program opens ``stencil.kernel`` spans, a generated kernel
+    (``g<i>_kernel``) whose call is not in one."""
     host, device = raw["host"], raw["device"]
-    calls = [tid for _, _, name, tid in host if name == "bench.call"]
+    calls = [tid for _, _, name, tid, _ in host if name == "bench.call"]
     if not calls or not device:
         return None
     main = calls[0]
-    ranges = sorted((a, b, name) for a, b, name, tid in host
-                    if tid == main and name.startswith(PREFIX))
+    ranges = sorted((a, b, name) for a, b, name, tid, _ in host
+                    if tid == main and name.startswith(RANGES))
     if not ranges:
         return None
-    launches = sorted((a, name) for a, _, name, tid in host
+    launches = sorted((a, name, corr) for a, _, name, tid, corr in host
                       if tid == main and ENQUEUE.match(name))
-    ops = sorted(device)
-    # the profiler loses the records of the stretch's first device
-    # operations now and then, never of its last: pair from the end
-    lost = len(launches) - len(ops)
-    if lost < 0:
+    pairs = _pair(launches, sorted(device))
+    if pairs is None:
         return None
-    launches = launches[lost:]
-    # the device's clock is mapped onto the host's to within a millisecond
-    # or so, so an operation may seem to start before its call: only the
-    # kinds are held to agree
-    if any(_kind(call) != _kind(name)
-           for (_, call), (_, _, name) in zip(launches, ops)):
-        return None
+    lost = len(launches) - len(pairs)
+    check_kernels = any(name == KERNEL for _, _, name in ranges)
     by_span: dict = {}
     stack: list = []
     i = 0
-    for (t, _), (a, b, name) in zip(launches, ops):
+    for (t, _, _), (a, b, name, *_) in pairs:
         while i < len(ranges) and ranges[i][0] <= t:
             while stack and stack[-1][1] < ranges[i][0]:
                 stack.pop()
@@ -80,7 +76,7 @@ def attribute(raw: dict) -> dict | None:
         while stack and stack[-1][1] < t:
             stack.pop()
         span = stack[-1][2] if stack else UNATTRIBUTED
-        if GENERATED.search(name) and span != KERNEL:
+        if check_kernels and GENERATED.search(name) and span != KERNEL:
             return None         # a generated kernel out of its span
         rec = by_span.setdefault(span, {"ns": 0, "ops": 0,
                                         "generated_ns": 0,
@@ -92,7 +88,22 @@ def attribute(raw: dict) -> dict | None:
             rec["generated_ops"] += 1
     return {"by_span": by_span,
             "device_ns": sum(r["ns"] for r in by_span.values()),
-            "device_ops": len(ops), "lost": lost}
+            "device_ops": len(pairs), "lost": lost}
+
+
+def _pair(launches, ops) -> list | None:
+    """``[(launch, op)]`` in the launches' order, each operation with the
+    call of its correlation id, or None where an operation has no such
+    call or one of another kind (copy, set, kernel). Calls whose
+    operations the profiler dropped (now and then the stretch's first)
+    pair with nothing."""
+    by_id = {la[2]: la for la in launches}
+    if len(by_id) != len(launches) or any(op[4] not in by_id for op in ops):
+        return None
+    pairs = sorted(((by_id[op[4]], op) for op in ops), key=lambda p: p[0][0])
+    if any(_kind(call) != _kind(op[2]) for (_, call, _), op in pairs):
+        return None
+    return pairs
 
 
 def _kind(name: str) -> str:
@@ -116,13 +127,14 @@ def of_run(run) -> dict | None:
 
 
 def device_ms_per_step(run, span: str) -> float | None:
-    """Device milliseconds a step launched inside ``span`` (0 where the
-    program opened no such span)."""
+    """Device milliseconds a step launched inside ``span`` on the mean
+    card (0 where the program opened no such span)."""
     att = of_run(run)
     if att is None:
         return None
     ns = att["by_span"].get(span, {}).get("ns", 0)
-    return ns / 1e6 / (run.trace["calls"] * run.steps_per_call)
+    return ns / 1e6 / (run.trace["calls"] * run.steps_per_call) \
+        / run.trace["cards"]
 
 
 def counters() -> dict | None:
@@ -136,3 +148,10 @@ def counters() -> dict | None:
         return None
     return {k[len(PREFIX):]: v for k, v in snap.items()
             if k.startswith(PREFIX)}
+
+
+def exchanged_bytes() -> int | None:
+    """The bytes of halo slabs the program's mesh orchestrator has moved
+    between shards in the run's process; None before it is loaded."""
+    mod = sys.modules.get("repro_torch.core.distribute")
+    return getattr(mod, "exchanged_bytes", None)

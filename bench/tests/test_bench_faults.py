@@ -1,7 +1,7 @@
 """A run on the CPU with the chip's look skipped and the timed path broken
 underneath: ``correct`` has to come out false for each fault a stencil
-cell can have. (A one-chip cell has no exchange between chips to leave
-out.)"""
+cell can have. A one-chip cell has no exchange between chips to leave
+out; the mesh cell runs here over four CPU devices, and has."""
 
 import time
 
@@ -11,7 +11,8 @@ import torch
 from bench import harness
 
 SMALL = (16, 12, 8)
-CELLS = ["pw134m.fused10.block", "tracer134m.fused4.block"]
+CELLS = ["pw134m.fused10.block", "tracer134m.fused4.block",
+         "pw2g.mesh2x2.fused10.block"]
 
 
 def _wrapped(fault):
@@ -87,3 +88,16 @@ def test_nan_is_not_correct(root):
         return res
     res, _ = _run(root, CELLS[0], _wrapped(nan))
     assert res["correct"] is False
+
+
+def test_exchange_left_out_is_not_correct(root, monkeypatch):
+    """The mesh cell with every halo slab between shards left zero, as if
+    no shard heard from its neighbours."""
+    from repro_torch.core import boundary
+
+    def wrap(ex):
+        monkeypatch.setattr(boundary, "ring_perms", lambda *a, **k: [])
+        return ex
+    res, rows = _run(root, CELLS[2], wrap)
+    assert res["correct"] is False, rows
+    assert res["failed"] == 0 and rows["rel_err.u"] > 1e-2

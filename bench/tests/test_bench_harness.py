@@ -205,12 +205,12 @@ def test_trace_summary_splits_busy_idle_and_kernels():
 
     ms = 1_000_000
     raw = {"calls": 2, "host": [
-        (0, 10 * ms, "bench.call", 1), (10 * ms, 20 * ms, "bench.call", 1),
-        (4 * ms, 6 * ms, "aten::constant_pad_nd", 1)],
-        "device": [(1 * ms, 4 * ms, "void g0_kernel<false>(float*)"),
-                   (6 * ms, 9 * ms, "void at::native::fill_kernel"),
-                   (8 * ms, 10 * ms, "void g12_kernel<true>(float*)"),
-                   (12 * ms, 20 * ms, "Memcpy DtoD (Device -> Device)")]}
+        (0, 10 * ms, "bench.call", 1, 0), (10 * ms, 20 * ms, "bench.call", 1, 0),
+        (4 * ms, 6 * ms, "aten::constant_pad_nd", 1, 0)],
+        "device": [(1 * ms, 4 * ms, "void g0_kernel<false>(float*)", 0, 1),
+                   (6 * ms, 9 * ms, "void at::native::fill_kernel", 0, 2),
+                   (8 * ms, 10 * ms, "void g12_kernel<true>(float*)", 0, 3),
+                   (12 * ms, 20 * ms, "Memcpy DtoD (Device -> Device)", 0, 4)]}
     s = devtrace.summarise(raw, devtrace.generated_matcher(["g0", "g12"]))
     assert s["window_s"] == 0.02 and s["busy_s"] == 0.015
     assert s["generated_ops"] == 2 and s["device_ops"] == 4

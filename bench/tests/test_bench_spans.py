@@ -19,34 +19,42 @@ NEW = ["pad_device_ms_per_step", "update_device_ms_per_step",
        "orchestrator_gb_per_step", "carry_useful_share"]
 
 
-def _raw(lost=0):
+def _raw(lost=0, cards=1):
     """Two calls: a prologue copy, a pad, a generated kernel, an update
-    and a write-back each, and one kernel launched outside any span."""
+    and a write-back each, and one kernel launched outside any span; each
+    runtime call and its operation share a correlation id, and call ``c``
+    runs on card ``c % cards``."""
     host, device = [], []
     for c in range(2):
-        o = c * 100 * MS
-        host += [(o, o + 90 * MS, "bench.call", 1),
-                 (o + 1 * MS, o + 80 * MS, "stencil.call", 1),
-                 (o + 2 * MS, o + 10 * MS, "stencil.prologue", 1),
-                 (o + 11 * MS, o + 79 * MS, "stencil.step", 1),
-                 (o + 12 * MS, o + 20 * MS, "stencil.pad", 1),
-                 (o + 21 * MS, o + 30 * MS, "stencil.kernel", 1),
-                 (o + 31 * MS, o + 40 * MS, "stencil.update", 1),
-                 (o + 41 * MS, o + 50 * MS, "stencil.write_back", 1),
-                 (o + 3 * MS, o + 4 * MS, "cudaMemcpyAsync", 1),
-                 (o + 13 * MS, o + 14 * MS, "cudaLaunchKernel", 1),
-                 (o + 22 * MS, o + 23 * MS, "cudaLaunchKernel", 1),
-                 (o + 32 * MS, o + 33 * MS, "cudaLaunchKernel", 1),
-                 (o + 42 * MS, o + 43 * MS, "cudaLaunchKernel", 1),
-                 (o + 42 * MS, o + 43 * MS, "cudaStreamIsCapturing", 1),
-                 (o + 85 * MS, o + 86 * MS, "cudaLaunchKernel", 1),
-                 (o + 87 * MS, o + 89 * MS, "cudaDeviceSynchronize", 1)]
-        device += [(o + 5 * MS, o + 6 * MS, "Memcpy HtoD (Pageable -> Device)"),
-                   (o + 15 * MS, o + 18 * MS, "void at::native::fill_kernel"),
-                   (o + 24 * MS, o + 34 * MS, "void g0_kernel<false>(float*)"),
-                   (o + 35 * MS, o + 37 * MS, "void elementwise_kernel add"),
-                   (o + 44 * MS, o + 48 * MS, "void direct_copy_kernel"),
-                   (o + 86 * MS, o + 87 * MS, "void at::native::fill_kernel")]
+        o, k, card = c * 100 * MS, 100 * c, c % cards
+        host += [(o, o + 90 * MS, "bench.call", 1, 0),
+                 (o + 1 * MS, o + 80 * MS, "stencil.call", 1, 0),
+                 (o + 2 * MS, o + 10 * MS, "stencil.prologue", 1, 0),
+                 (o + 11 * MS, o + 79 * MS, "stencil.step", 1, 0),
+                 (o + 12 * MS, o + 20 * MS, "stencil.pad", 1, 0),
+                 (o + 21 * MS, o + 30 * MS, "stencil.kernel", 1, 0),
+                 (o + 31 * MS, o + 40 * MS, "stencil.update", 1, 0),
+                 (o + 41 * MS, o + 50 * MS, "stencil.write_back", 1, 0),
+                 (o + 3 * MS, o + 4 * MS, "cudaMemcpyAsync", 1, k + 1),
+                 (o + 13 * MS, o + 14 * MS, "cudaLaunchKernel", 1, k + 2),
+                 (o + 22 * MS, o + 23 * MS, "cudaLaunchKernel", 1, k + 3),
+                 (o + 32 * MS, o + 33 * MS, "cudaLaunchKernel", 1, k + 4),
+                 (o + 42 * MS, o + 43 * MS, "cudaLaunchKernel", 1, k + 5),
+                 (o + 42 * MS, o + 43 * MS, "cudaStreamIsCapturing", 1, k + 9),
+                 (o + 85 * MS, o + 86 * MS, "cudaLaunchKernel", 1, k + 6),
+                 (o + 87 * MS, o + 89 * MS, "cudaDeviceSynchronize", 1, k + 7)]
+        device += [(o + 5 * MS, o + 6 * MS, "Memcpy HtoD (Pageable -> Device)",
+                    card, k + 1),
+                   (o + 15 * MS, o + 18 * MS, "void at::native::fill_kernel",
+                    card, k + 2),
+                   (o + 24 * MS, o + 34 * MS, "void g0_kernel<false>(float*)",
+                    card, k + 3),
+                   (o + 35 * MS, o + 37 * MS, "void elementwise_kernel add",
+                    card, k + 4),
+                   (o + 44 * MS, o + 48 * MS, "void direct_copy_kernel",
+                    card, k + 5),
+                   (o + 86 * MS, o + 87 * MS, "void at::native::fill_kernel",
+                    card, k + 6)]
     return {"calls": 2, "host": host, "device": sorted(device)[lost:]}
 
 
@@ -65,7 +73,7 @@ def test_device_ops_go_to_the_innermost_span():
     # launched after stencil.call closed: reported, not dropped
     assert by[spans.UNATTRIBUTED] == {"ns": 2 * MS, "ops": 2,
                                       "generated_ns": 0, "generated_ops": 0}
-    assert att["device_ns"] == sum(b - a for a, b, _ in _raw()["device"])
+    assert att["device_ns"] == sum(b - a for a, b, *_ in _raw()["device"])
     assert "stencil.call" not in by and "stencil.step" not in by
 
 
@@ -80,7 +88,7 @@ def test_the_devices_clock_may_run_ahead_of_the_hosts():
     """Every operation seems to start 2 ms before its call (the device's
     timestamps mapped onto the host's clock): the pairing stands."""
     raw = _raw()
-    skewed = [(a - 2 * MS, b - 2 * MS, n) for a, b, n in raw["device"]]
+    skewed = [(a - 2 * MS, b - 2 * MS, *rest) for a, b, *rest in raw["device"]]
     assert spans.attribute(dict(raw, device=skewed))["by_span"] == \
         spans.attribute(raw)["by_span"]
 
@@ -88,15 +96,15 @@ def test_the_devices_clock_may_run_ahead_of_the_hosts():
 def test_a_stretch_that_does_not_pair_gives_nothing():
     raw = _raw()
     assert spans.attribute(dict(raw, device=raw["device"] + [
-        (300 * MS, 301 * MS, "void extra")])) is None
+        (300 * MS, 301 * MS, "void extra", 0, 999)])) is None
     # a copy paired with a kernel launch
-    swapped = [(a, b, "Memcpy DtoD" if "fill" in n else n)
-               for a, b, n in raw["device"]]
+    swapped = [(a, b, "Memcpy DtoD" if "fill" in n else n, *rest)
+               for a, b, n, *rest in raw["device"]]
     assert spans.attribute(dict(raw, device=swapped)) is None
-    # operations out of their calls' order: a generated kernel would pair
-    # with a call outside stencil.kernel
-    early = [(a - 12 * MS, b, n) if "g0_kernel" in n else (a, b, n)
-             for a, b, n in raw["device"]]
+    # a generated kernel whose id is a call's outside stencil.kernel
+    early = [(a, b, n, card, corr + 1 if "g0_kernel" in n else
+              corr - 1 if "elementwise_kernel add" in n else corr)
+             for a, b, n, card, corr in raw["device"]]
     assert spans.attribute(dict(raw, device=early)) is None
     # a program without spans
     bare = dict(raw, host=[h for h in raw["host"]
@@ -148,8 +156,10 @@ def _run(root, cell):
 
 
 def _gb_per_step(cell_name):
-    """What the plan's padded shapes give a step at the test's grid, every
-    pad and write-back a new float32 buffer ("repad")."""
+    """What the plan's padded shapes give a step at the test's grid, the
+    carry written back in place: the padded carries and coefficients made
+    once a call, then each pass (a step under the block schedule) copies
+    the interior of every field the update changes."""
     from repro_torch import apps
     from repro_torch.core.pipeline import compile_program
 
@@ -172,7 +182,9 @@ def _gb_per_step(cell_name):
                 for k in ex.kernels for c in k.group_coeffs
                 if k.pad_lo[k.coeff_axis[c]] or k.pad_hi[k.coeff_axis[c]])
     assert tr["schedule"] == "block" and len(ex.kernels) == 1
-    return (carry + coeff + steps * carry) / steps / 1e9
+    interior = math.prod(grid) * 4
+    return (carry + coeff + steps * len(cfg["writes"]) * interior) \
+        / steps / 1e9
 
 
 @pytest.mark.parametrize("cell,useful", [("tracer134m.fused4.block", 100 / 6),

@@ -24,9 +24,11 @@ from ..core.frontend import ProgramBuilder, absolute, maximum, minimum, sign, wh
 from ..core.ir import Program
 
 
-def pw_advection(boundary: str = "zero") -> Program:
+def pw_advection(boundary="zero") -> Program:
     """``boundary="periodic"`` builds the torus-domain variant (every field
-    wraps; same IR, same plans, different halo fill on every backend)."""
+    wraps; same IR, same plans, different halo fill on every backend);
+    ``("periodic", "periodic", "zero")`` builds MONC's doubly periodic
+    domain (x and y wrap, z bounded)."""
     b = ProgramBuilder("pw_advection", ndim=3, boundary=boundary)
     u, v, w = b.inputs("u", "v", "w")
     tcx, tcy = b.scalars("tcx", "tcy")
@@ -82,10 +84,11 @@ def tracer_advection_update():
     return update
 
 
-def tracer_advection(boundary: str = "zero") -> Program:
+def tracer_advection(boundary="zero") -> Program:
     """24 stencil ops / 6 input fields, MUSCL-style, with dependency chains.
 
-    ``boundary="periodic"`` builds the torus-domain variant."""
+    ``boundary="periodic"`` builds the torus-domain variant; a sequence of
+    kinds, one per axis, wraps only the periodic axes."""
     b = ProgramBuilder("tracer_advection", ndim=3, boundary=boundary)
     # 6 fields: tracer, 3 velocity components, 2 metric/mask fields
     t, un, vn, wn, e3t, msk = b.inputs("t", "un", "vn", "wn", "e3t", "msk")

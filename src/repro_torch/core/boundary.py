@@ -6,10 +6,17 @@ are filled (the port of ``repro.core.boundary``).
                   (``torch.roll`` / wrap-slices concatenated with
                   ``torch.cat``).
 
-:func:`validate_boundaries` holds the one mixing rule: an op producing a
-*periodic* field may only read periodic fields (and may only use
-per-level coefficients on a full torus), so fused-group recompute can
-always reproduce a periodic temp's wraparound values.
+A field's boundary is one kind for every axis, or a tuple of kinds, one
+per axis: ``("periodic", "periodic", "zero")`` is a doubly periodic domain,
+wrapping along x and y, with a bounded z (a large-eddy model's surface and
+lid).  :func:`normalize` turns a uniform tuple into its one kind, so the
+same domain always reaches the same IR.
+
+:func:`validate_boundaries` holds the one mixing rule, axis by axis: an op
+producing a field periodic on axis ``a`` may only read fields periodic on
+``a`` (and may only read a per-level coefficient along ``a`` when every
+field is periodic on ``a``), so fused-group recompute can always reproduce
+a periodic temp's wraparound values.
 """
 
 from __future__ import annotations
@@ -22,36 +29,90 @@ import torch.nn.functional as F
 BOUNDARIES = ("zero", "periodic")
 
 
+def normalize(spec):
+    """``spec`` in its canonical form: a kind, or a tuple of per-axis kinds
+    where they differ (a uniform sequence, such as a JSON list, becomes
+    its one kind).  Anything else is returned as is, for
+    :func:`validate_boundaries` to refuse."""
+    if isinstance(spec, str) or not isinstance(spec, (list, tuple)):
+        return spec
+    kinds = tuple(spec)
+    if kinds and all(k == kinds[0] for k in kinds) \
+            and isinstance(kinds[0], str):
+        return kinds[0]
+    return kinds
+
+
+def axis_kinds(spec, ndim: int) -> tuple:
+    """The kind of each of ``ndim`` axes."""
+    return (spec,) * ndim if isinstance(spec, str) else tuple(spec)
+
+
+def is_periodic(spec, axis: int) -> bool:
+    """Whether ``spec`` wraps along ``axis``."""
+    return spec == "periodic" if isinstance(spec, str) \
+        else spec[axis] == "periodic"
+
+
+def any_periodic(spec) -> bool:
+    """Whether ``spec`` wraps along some axis (its halo slabs then hold
+    values of the field, which go stale when the field changes)."""
+    return spec == "periodic" if isinstance(spec, str) \
+        else "periodic" in spec
+
+
+def spec_text(spec) -> str:
+    """``spec`` as text: the kind, or the per-axis kinds joined by ``,``."""
+    return spec if isinstance(spec, str) else ",".join(map(str, spec))
+
+
 def validate_boundaries(p) -> None:
     """IR-level boundary checks (called from ``Program.validate``)."""
     for n, f in p.fields.items():
-        if f.boundary not in BOUNDARIES:
+        kinds = f.boundary if isinstance(f.boundary, tuple) \
+            else (f.boundary,)
+        if isinstance(f.boundary, tuple) and len(kinds) != p.ndim:
             raise ValueError(
-                f"field {n!r} has unknown boundary {f.boundary!r}; valid: "
-                + ", ".join(repr(b) for b in BOUNDARIES))
-    torus = all(f.boundary == "periodic" for f in p.fields.values())
-    for op in p.ops:
-        if p.fields[op.out].boundary != "periodic":
-            continue
-        for a in op.accesses():
-            if p.fields[a.field].boundary != "periodic":
+                f"field {n!r} has {len(kinds)} per-axis boundaries "
+                f"{f.boundary!r}; the program is {p.ndim}-D")
+        for k in kinds:
+            if k not in BOUNDARIES:
                 raise ValueError(
-                    f"op {op.name or op.out!r} produces periodic field "
-                    f"{op.out!r} but reads zero-boundary field {a.field!r}; "
-                    "a periodic field's wraparound values cannot be "
-                    "recomputed from zero-extended inputs")
-        if op.coeff_refs() and not torus:
-            raise ValueError(
-                f"op {op.name or op.out!r} produces periodic field "
-                f"{op.out!r} and reads per-level coefficients, but the "
-                "program is not a full torus (coefficient wraparound is "
-                "axis-global)")
+                    f"field {n!r} has unknown boundary {f.boundary!r}; "
+                    "valid: " + ", ".join(repr(b) for b in BOUNDARIES)
+                    + ", or a sequence of them, one per axis")
+    for op in p.ops:
+        out = p.fields[op.out].boundary
+        for ax in range(p.ndim):
+            if not is_periodic(out, ax):
+                continue
+            for a in op.accesses():
+                if not is_periodic(p.fields[a.field].boundary, ax):
+                    raise ValueError(
+                        f"op {op.name or op.out!r} produces field "
+                        f"{op.out!r}, periodic on axis {ax}, but reads "
+                        f"{a.field!r}, which is not periodic on axis {ax}; "
+                        "a periodic field's wraparound values cannot be "
+                        "recomputed from zero-extended inputs")
+            for c in op.coeff_refs():
+                if p.coeffs[c.coeff] == ax and coeff_mode(p, ax) != "periodic":
+                    raise ValueError(
+                        f"op {op.name or op.out!r} produces field "
+                        f"{op.out!r}, periodic on axis {ax}, and reads the "
+                        f"per-level coefficient {c.coeff!r} along axis "
+                        f"{ax}, but not every field is periodic on axis "
+                        f"{ax} (a coefficient's wraparound is axis-global)")
 
 
-def coeff_mode(p) -> str:
-    """How 1-D coefficient arrays extend beyond the domain: they wrap only
-    on a full torus (every field periodic), zero-extend otherwise."""
-    return "periodic" if p.is_torus() else "zero"
+def coeff_mode(p, axis: int | None = None) -> str:
+    """How 1-D coefficient arrays along ``axis`` extend beyond the domain:
+    they wrap only when every field is periodic on that axis, and
+    zero-extend otherwise.  Without ``axis``: on every axis, so they wrap
+    only on a full torus."""
+    if axis is None:
+        return "periodic" if p.is_torus() else "zero"
+    return ("periodic" if all(is_periodic(f.boundary, axis)
+                              for f in p.fields.values()) else "zero")
 
 
 def _zero_pad(x: torch.Tensor, pads: Sequence[tuple]) -> torch.Tensor:
@@ -65,7 +126,7 @@ def _zero_pad(x: torch.Tensor, pads: Sequence[tuple]) -> torch.Tensor:
 
 
 def pad_field(x: torch.Tensor, lo: Sequence[int], hi: Sequence[int],
-              boundary: str, align_hi: Sequence[int] | None = None
+              boundary, align_hi: Sequence[int] | None = None
               ) -> torch.Tensor:
     """Pad ``x`` with halo slabs per ``boundary`` plus a zero alignment slab.
 
@@ -74,7 +135,9 @@ def pad_field(x: torch.Tensor, lo: Sequence[int], hi: Sequence[int],
     ``align_hi`` (optional) is extra hi-side tile-alignment padding, always
     zero-filled — alignment positions are never read by in-domain
     consumers, only cropped or masked, so they need no wraparound values.
-    A periodic halo wraps each batch element on its own.
+    A periodic halo wraps each batch element on its own.  A per-axis
+    ``boundary`` wraps its periodic axes and zero-fills the others, axis
+    by axis, so a corner slab is zero wherever one of its axes is.
     """
     ndim = len(lo)
     lead = x.ndim - ndim
@@ -82,11 +145,17 @@ def pad_field(x: torch.Tensor, lo: Sequence[int], hi: Sequence[int],
     if boundary == "zero":
         return _zero_pad(x, [(int(lo[a]), int(hi[a]) + int(align_hi[a]))
                              for a in range(ndim)])
-    if boundary != "periodic":
-        raise ValueError(f"unknown boundary {boundary!r}")
+    kinds = axis_kinds(boundary, ndim)
+    for k in kinds:
+        if k not in BOUNDARIES:
+            raise ValueError(f"unknown boundary {boundary!r}")
     for ax in range(ndim):
         l, h, al = int(lo[ax]), int(hi[ax]), int(align_hi[ax])
         if l == 0 and h == 0 and al == 0:
+            continue
+        if kinds[ax] == "zero":
+            x = _zero_pad(x, [(l, h + al) if a == ax else (0, 0)
+                              for a in range(ndim)])
             continue
         dim = lead + ax
         n = x.shape[dim]
@@ -107,18 +176,26 @@ def pad_field(x: torch.Tensor, lo: Sequence[int], hi: Sequence[int],
     return x
 
 
-def shift_field(x: torch.Tensor, offset: Sequence[int], boundary: str
+def shift_field(x: torch.Tensor, offset: Sequence[int], boundary
                 ) -> torch.Tensor:
-    """``out[i] = x[i + offset]`` with out-of-domain reads per ``boundary``."""
+    """``out[i] = x[i + offset]`` with out-of-domain reads per ``boundary``
+    (per axis: wrapped on its periodic axes, zero on the others)."""
     offset = tuple(int(o) for o in offset)
     if all(o == 0 for o in offset):
         return x
-    if boundary == "periodic":
-        axes = tuple(ax for ax, o in enumerate(offset) if o != 0)
-        return torch.roll(x, shifts=tuple(-offset[ax] for ax in axes),
-                          dims=axes)
-    if boundary != "zero":
-        raise ValueError(f"unknown boundary {boundary!r}")
+    kinds = axis_kinds(boundary, len(offset))
+    for k in kinds:
+        if k not in BOUNDARIES:
+            raise ValueError(f"unknown boundary {boundary!r}")
+    axes = tuple(ax for ax, o in enumerate(offset)
+                 if o != 0 and kinds[ax] == "periodic")
+    if axes:
+        x = torch.roll(x, shifts=tuple(-offset[ax] for ax in axes),
+                       dims=axes)
+    offset = tuple(0 if kinds[ax] == "periodic" else o
+                   for ax, o in enumerate(offset))
+    if all(o == 0 for o in offset):
+        return x
     h = max(abs(o) for o in offset)
     xp = _zero_pad(x, [(h, h)] * x.ndim)
     idx = tuple(slice(h + offset[ax], h + offset[ax] + x.shape[ax])

@@ -34,8 +34,9 @@ streaming cannot honour a dependency in one sweep:
 
 * a temp read at a **positive** stream offset would need a plane the
   pipeline has not produced yet (would require skewing) — split;
-* a **periodic** temp read at a negative stream offset would need the end
-  of the sweep at its beginning (wraparound is not yet resident) — split.
+* a temp **periodic on the stream axis** read at a negative stream offset
+  would need the end of the sweep at its beginning (wraparound is not yet
+  resident) — split.  A temp that wraps only along plane axes streams.
 
 Split intermediates are materialised in device memory between regions, exactly like
 the paper's inter-stage streams; external inputs never force a split (the
@@ -52,9 +53,9 @@ fetched from device memory once per T steps.  The chain legalises like regions d
 :func:`chain_split_reason` demotes the *effective* tile (carried on
 ``StreamSpec.time_tile``) to 1 wherever one sweep cannot honour the chain:
 multi-region programs (step intermediates materialise in device memory
-between sweeps), periodic persistent fields (the updated field's wraparound planes
-are not resident mid-sweep — the same rule that splits periodic temp
-back-references), or regions that do not see every persistent field (the
+between sweeps), persistent fields periodic on the stream axis (the updated
+field's wraparound planes are not resident mid-sweep — the same rule that
+splits periodic temp back-references), or regions that do not see every persistent field (the
 update rule consumes them all).
 
 **Spatial unrolling** (``plan.plane_tile = P > 1``, the paper's parallel
@@ -79,6 +80,7 @@ import numpy as np
 
 from ..obs.events import ChainDemoted, PlaneDemoted
 from ..obs.trace import current_tracer
+from . import boundary as bc
 from .ir import FieldRole, Program
 from .passes import GroupHalo, _zeros
 from .schedule import StreamSpec
@@ -237,10 +239,12 @@ def stream_split_reason(p: Program, produced: set, op_index: int
         if o0 > 0:
             return (f"op {op.name or op.out!r} reads {a.field!r} at stream "
                     f"offset +{o0} (future plane)")
-        if o0 < 0 and p.fields[a.field].boundary == "periodic":
-            return (f"op {op.name or op.out!r} reads periodic temp "
-                    f"{a.field!r} at stream offset {o0} (wraparound not "
-                    "resident)")
+        b = p.fields[a.field].boundary
+        if o0 < 0 and bc.is_periodic(b, STREAM_AXIS):
+            what = ("periodic temp" if b == "periodic" else
+                    f"temp periodic on the stream axis {STREAM_AXIS},")
+            return (f"op {op.name or op.out!r} reads {what} {a.field!r} "
+                    f"at stream offset {o0} (wraparound not resident)")
     return None
 
 
@@ -277,9 +281,11 @@ def chain_split_reason(p: Program, regions: Sequence) -> str | None:
 
     * **multiple regions** — step intermediates materialise in device
       memory between region sweeps, so the chain would break mid-step;
-    * **periodic persistent field** — stage ``s+1`` reads the *updated*
-      field, whose wraparound planes are produced in-sweep and are not
-      resident (the periodic-temp back-reference rule, one level up);
+    * **persistent field periodic on the stream axis** — stage ``s+1``
+      reads the *updated* field, whose wraparound planes are produced
+      in-sweep and are not resident (the periodic-temp back-reference
+      rule, one level up); a wrap along a plane axis is recomputed in
+      the stage's margins like any other value;
     * **region inputs != persistent fields** — the update rule consumes
       every persistent field, so each chained stage must have all of them
       resident as planes.
@@ -289,9 +295,13 @@ def chain_split_reason(p: Program, regions: Sequence) -> str | None:
                 "would need inter-region intermediates resident mid-sweep")
     persistent = p.input_fields()
     for f in persistent:
-        if p.fields[f].boundary == "periodic":
-            return (f"persistent field {f!r} is periodic: the updated "
-                    "field's wraparound planes are not resident mid-sweep")
+        b = p.fields[f].boundary
+        if bc.is_periodic(b, STREAM_AXIS):
+            where = ("" if b == "periodic"
+                     else f" on the stream axis {STREAM_AXIS}")
+            return (f"persistent field {f!r} is periodic{where}: the "
+                    "updated field's wraparound planes are not resident "
+                    "mid-sweep")
     region = regions[0]
     inputs = {a.field for i in region for a in p.ops[i].accesses()
               if a.field not in {p.ops[j].out for j in region}}

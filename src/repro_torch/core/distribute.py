@@ -31,10 +31,12 @@ against both devices' current streams.
   exchange per field per step serves every consuming group, because the
   carry is padded to the worst group's halo (``TimeLoopSpec.field_pad``).
 
-Boundaries follow each field's declaration (:mod:`repro_torch.core.boundary`):
-``"zero"`` rings leave the edge shard's halo zero-filled
-(:func:`~repro_torch.core.boundary.ring_perms`), ``"periodic"`` closes the
-ring (and wraps locally on unsharded axes).
+Boundaries follow each field's declaration (:mod:`repro_torch.core.boundary`),
+axis by axis: along a ``"zero"`` axis the ring leaves the edge shard's halo
+zero-filled (:func:`~repro_torch.core.boundary.ring_perms`), along a
+``"periodic"`` one it closes (and wraps locally where the axis is not
+sharded) — so a doubly periodic domain wraps laterally and stays bounded
+vertically.
 
 Every backend lowers here: ``cuda`` runs the generated kernels (block or
 stream schedule) on local blocks; the torch backends route temp accesses
@@ -206,10 +208,10 @@ def _exchange_axis(blocks: Mapping, ax: int, lo: int, hi: int, align: int,
 def halo_exchange_pad(blocks: Mapping, lo: Sequence[int], hi: Sequence[int],
                       align_hi: Sequence[int], mesh_axes: Sequence,
                       axis_sizes: Mapping | None = None,
-                      periodic: bool = False) -> dict:
+                      periodic=False) -> dict:
     """Pad every shard's local block with neighbour halos (sharded axes),
     wraparound (periodic unsharded axes) or zeros, and a zero alignment
-    slab.
+    slab.  ``periodic`` is one flag for every axis or a flag an axis.
 
     ``blocks`` maps each shard's block index (one entry per grid axis, 0
     on unsharded ones) to its tensor; leading axes before the grid axes
@@ -217,13 +219,15 @@ def halo_exchange_pad(blocks: Mapping, lo: Sequence[int], hi: Sequence[int],
     name -> size.  The axes go in order over *all* shards, so the slab
     sent along axis k carries the halos of axes < k: corners are exact."""
     axis_sizes = axis_sizes or {}
+    if isinstance(periodic, bool):
+        periodic = (periodic,) * len(lo)
     out = dict(blocks)
     for ax in range(len(lo)):
         a = mesh_axes[ax] if ax < len(mesh_axes) else None
         n = 1 if a is None else int(axis_sizes[a])
         al = int(align_hi[ax]) if ax < len(align_hi) else 0
         out = _exchange_axis(out, ax, int(lo[ax]), int(hi[ax]), al, n,
-                             periodic)
+                             bool(periodic[ax]))
     return out
 
 
@@ -288,10 +292,10 @@ def _host_coeffs(p: Program, coeffs: Mapping, dtype, reach: dict,
     """Replicated coefficient arrays, pre-extended by ``reach`` so any shard
     can slice its piece ('small data' lives on every device, paper step 8):
     device -> {coeff: tensor}."""
-    cmode = bc.coeff_mode(p)
     ext = {c: bc.pad_coeff(torch.as_tensor(coeffs[c], dtype=dtype,
                                            device=devices[0]),
-                           reach[c][0], reach[c][1], cmode)
+                           reach[c][0], reach[c][1],
+                           bc.coeff_mode(p, p.coeffs[c]))
            for c in p.coeffs}
     return {d: {c: _to(v, d) for c, v in ext.items()} for d in devices}
 
@@ -369,9 +373,11 @@ def _announce(p: Program, mode: str, backend: str, mesh, shard: ShardSpec,
 
 
 def _exchange(blocks: Mapping, lo, hi, align_hi, shard: ShardSpec,
-              periodic: bool, field: str) -> dict:
-    """One field's halo exchange inside a ``distribute.exchange`` span;
-    the results are contiguous, as the kernels read them."""
+              boundary, field: str) -> dict:
+    """One field's halo exchange inside a ``distribute.exchange`` span,
+    the ring closed on the axes along which ``boundary`` wraps; the
+    results are contiguous, as the kernels read them."""
+    periodic = [bc.is_periodic(boundary, a) for a in range(len(lo))]
     with current_tracer().span("distribute.exchange", field=field):
         out = halo_exchange_pad(blocks, lo, hi, align_hi, shard.mesh_axes,
                                 shard.axis_sizes, periodic=periodic)
@@ -413,7 +419,7 @@ def _torch_shards(p: Program, mode: str, shards: _Shards, prepad, coeff_dev,
                 with current_tracer().span("distribute.exchange", field=f):
                     xp = _exchange_axis(cur, ax, lo, hi, 0,
                                         shard.axis_size(ax),
-                                        kind == "periodic")
+                                        bc.is_periodic(kind, ax))
                 cur = {idx: x.narrow(x.ndim - ndim + ax, lo + o, n_loc)
                        for idx, x in xp.items()}
             return cur
@@ -514,8 +520,7 @@ def lower_sharded(p: Program, plan: DataflowPlan, global_grid,
                     src = {idx: env[idx][f] if f in env[idx]
                            else blocks[f][idx] for idx in shards.index}
                     padded[f] = _exchange(src, call.halo_lo, call.halo_hi,
-                                          call.align_hi, shard,
-                                          bnd[f] == "periodic", f)
+                                          call.align_hi, shard, bnd[f], f)
                 for idx in shards.index:
                     with shards.on(idx):
                         res = call({f: padded[f][idx]
@@ -610,14 +615,14 @@ def lower_sharded_time_loop(p: Program, plan: DataflowPlan, global_grid,
 
     def needs_refresh(f) -> bool:
         # a field's carry halos go stale each step only if they hold
-        # wraparound values (periodic) or neighbour data (sharded axis);
-        # zero halos on unsharded axes never change
+        # wraparound values (periodic axis) or neighbour data (sharded
+        # axis); zero halos on unsharded axes never change
         for a in range(ndim):
             lo = int(fpad[f][a, 0])
             hi = int(fpad[f][a, 1]) - int(align[a])
             if lo == 0 and hi == 0:
                 continue
-            if bnd[f] == "periodic" or shard.axis_size(a) > 1:
+            if bc.is_periodic(bnd[f], a) or shard.axis_size(a) > 1:
                 return True
         return False
 
@@ -635,7 +640,7 @@ def lower_sharded_time_loop(p: Program, plan: DataflowPlan, global_grid,
                 {idx: c[inner] for idx, c in carry[f].items()},
                 fpad[f][:, 0],
                 [int(fpad[f][a, 1]) - int(align[a]) for a in range(ndim)],
-                align, shard, bnd[f] == "periodic", f)
+                align, shard, bnd[f], f)
         return fresh
 
     def zero_pad(f, x):
@@ -721,7 +726,7 @@ def lower_sharded_time_loop(p: Program, plan: DataflowPlan, global_grid,
                         padded[f] = _exchange(
                             {idx: env[idx][f] for idx in shards.index},
                             call.halo_lo, call.halo_hi, call.align_hi,
-                            shard, bnd[f] == "periodic", f)
+                            shard, bnd[f], f)
                 for idx in shards.index:
                     with shards.on(idx):
                         res = call({f: padded[f][idx]

@@ -137,7 +137,16 @@ def where(p, t, f):
 
 
 class ProgramBuilder:
-    def __init__(self, name: str, ndim: int, boundary: str = "zero"):
+    """Declares fields, scalars and coefficients and defines ops.
+
+    ``boundary`` is every declared field's default: ``"zero"``,
+    ``"periodic"``, or a sequence of those, one per axis (such as
+    ``("periodic", "periodic", "zero")``, a domain that wraps along x and
+    y and is bounded along z); ``input``/``output``/``temp`` take one to
+    override it for a field.
+    """
+
+    def __init__(self, name: str, ndim: int, boundary="zero"):
         if ndim not in (1, 2, 3):
             raise ValueError("ndim must be 1..3")
         self.name = name
@@ -149,21 +158,21 @@ class ProgramBuilder:
         self._ops: list = []
 
     # -- declarations ---------------------------------------------------
-    def input(self, name: str, boundary: str | None = None) -> FieldHandle:
+    def input(self, name: str, boundary=None) -> FieldHandle:
         self._declare(name, FieldRole.INPUT, boundary)
         return FieldHandle(name, self.ndim, self)
 
     def inputs(self, *names: str):
         return tuple(self.input(n) for n in names)
 
-    def output(self, name: str, boundary: str | None = None) -> FieldHandle:
+    def output(self, name: str, boundary=None) -> FieldHandle:
         self._declare(name, FieldRole.OUTPUT, boundary)
         return FieldHandle(name, self.ndim, self)
 
     def outputs(self, *names: str):
         return tuple(self.output(n) for n in names)
 
-    def temp(self, name: str, boundary: str | None = None) -> FieldHandle:
+    def temp(self, name: str, boundary=None) -> FieldHandle:
         """Field produced and consumed inside the program, never stored."""
         self._declare(name, FieldRole.TEMP, boundary)
         return FieldHandle(name, self.ndim, self)
@@ -186,11 +195,12 @@ class ProgramBuilder:
         self._coeffs[name] = axis
         return CoeffHandle(name, axis)
 
-    def _declare(self, name: str, role: FieldRole, boundary: str | None = None):
+    def _declare(self, name: str, role: FieldRole, boundary=None):
         if name in self._fields:
             raise ValueError(f"duplicate field {name!r}")
-        self._fields[name] = FieldDecl(name=name, role=role,
-                                       boundary=boundary or self.boundary)
+        self._fields[name] = FieldDecl(
+            name=name, role=role,
+            boundary=self.boundary if boundary is None else boundary)
 
     # -- op definition ----------------------------------------------------
     def define(self, out: FieldHandle, expr, name: str = "") -> None:

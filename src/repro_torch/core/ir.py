@@ -155,8 +155,14 @@ class FieldDecl:
     role: FieldRole
     dtype: str = "float32"
     # how reads outside the domain resolve: "zero" (historical convention)
-    # or "periodic" (torus wraparound) — see repro_torch.core.boundary
-    boundary: str = "zero"
+    # or "periodic" (torus wraparound), or a tuple of those, one per axis
+    # — see repro_torch.core.boundary; a uniform sequence is stored as its
+    # one kind
+    boundary: object = "zero"
+
+    def __post_init__(self):
+        from .boundary import normalize
+        self.boundary = normalize(self.boundary)
 
 
 @dataclasses.dataclass
@@ -235,21 +241,24 @@ class Program:
         validate_boundaries(self)
 
     def boundaries(self) -> dict:
-        """field name -> boundary kind ("zero" | "periodic")."""
+        """field name -> boundary: a kind ("zero" | "periodic") or a tuple
+        of kinds, one per axis."""
         return {n: f.boundary for n, f in self.fields.items()}
 
     def is_torus(self) -> bool:
-        """True when every field is periodic (the whole domain wraps)."""
+        """True when every field is periodic on every axis (the whole
+        domain wraps)."""
         return all(f.boundary == "periodic" for f in self.fields.values())
 
     def with_boundary(self, spec) -> "Program":
         """A copy of this program with boundaries replaced.
 
-        ``spec`` is either a single kind applied to every field (the usual
-        torus/zero toggle) or a mapping ``{field: kind}`` overriding only
-        the named fields.  The copy is re-validated.
+        ``spec`` is either one boundary applied to every field (a kind,
+        the usual torus/zero toggle, or a sequence of kinds, one per axis)
+        or a mapping ``{field: boundary}`` overriding only the named
+        fields.  The copy is re-validated.
         """
-        if isinstance(spec, str):
+        if isinstance(spec, (str, list, tuple)):
             spec = {n: spec for n in self.fields}
         unknown = set(spec) - set(self.fields)
         if unknown:

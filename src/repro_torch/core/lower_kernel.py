@@ -13,8 +13,10 @@ call on first launch.
 Every call opens the ``stencil.*`` spans of :func:`obs.call_tracer`
 (``stencil.call`` > ``stencil.prologue``, ``stencil.step`` >
 ``stencil.pad`` / ``stencil.kernel`` / ``stencil.update`` /
-``stencil.write_back``) and adds to the ``stencil.*`` counters of
-:func:`obs.global_metrics` (:class:`Counts`).  With tracing off the spans
+``stencil.write_back``; inside the prologue, a pad or a write-back, a
+``stencil.wrap`` around each pad of a field periodic on some axis) and
+adds to the ``stencil.*`` counters of :func:`obs.global_metrics`
+(:class:`Counts`).  With tracing off the spans
 are the no-op singleton's; while torch's profiler runs they are
 ``record_function`` ranges too, so device operations can be put down to
 the step that launched them.
@@ -53,11 +55,14 @@ class Counts:
     (a rebuilt buffer, or the interior copied in place);
     ``stencil.carry_writes``, fields written back;
     ``stencil.carry_unchanged``, those of them the update left unchanged;
-    and ``stencil.carry_inplace``, those whose carry buffer the write-back
-    kept (copied into, or left as it was)."""
+    ``stencil.carry_inplace``, those whose carry buffer the write-back
+    kept (copied into, or left as it was); and ``stencil.wrap_bytes``, the
+    bytes of the buffers that pads filling wraparound slabs make (in
+    ``stencil.wrap``; part of ``pad_bytes`` or ``carry_bytes``)."""
 
     __slots__ = ("calls", "steps", "pad_bytes", "carry_bytes",
-                 "carry_writes", "carry_unchanged", "carry_inplace")
+                 "carry_writes", "carry_unchanged", "carry_inplace",
+                 "wrap_bytes")
 
     def __init__(self):
         m = global_metrics()
@@ -70,11 +75,23 @@ class Counts:
             self.pad_bytes.inc(y.nbytes)
         return y
 
+    def wrapped(self, tracer, boundary, x: torch.Tensor, pad
+                ) -> torch.Tensor:
+        """``pad(x)``, a pad of a field of ``boundary``: where that wraps
+        on some axis, inside a ``stencil.wrap`` span, its new buffer
+        counted in ``stencil.wrap_bytes``."""
+        if not bc.any_periodic(boundary):
+            return pad(x)
+        with tracer.span("stencil.wrap"):
+            y = pad(x)
+        if y is not x:
+            self.wrap_bytes.inc(y.nbytes)
+        return y
+
 
 def _pad_coeffs(p: Program, calls, coeffs, dtype, device, counts: Counts):
     """Per-call padded coefficient arrays ('small data', paper step 8),
     ``(n,)`` or, a row a batch element, ``(B, n)``."""
-    cmode = bc.coeff_mode(p)
     out = []
     for call in calls:
         pc = {}
@@ -82,7 +99,8 @@ def _pad_coeffs(p: Program, calls, coeffs, dtype, device, counts: Counts):
             ax = call.coeff_axis[c]
             x = torch.as_tensor(coeffs[c], dtype=dtype, device=device)
             pc[c] = counts.padded(x, bc.pad_coeff(
-                x, call.pad_lo[ax], call.pad_hi[ax], cmode).contiguous())
+                x, call.pad_lo[ax], call.pad_hi[ax],
+                bc.coeff_mode(p, ax)).contiguous())
         out.append(pc)
     return out
 
@@ -200,9 +218,10 @@ def lower_from_calls(p: Program, dtype, calls, device):
             def resolve(call, f, env):
                 x = env[f] if f in env else ext[f]
                 with tracer.span("stencil.pad"):
-                    return counts.padded(x, bc.pad_field(
-                        x, call.halo_lo, call.halo_hi, bnd[f],
-                        align_hi=call.align_hi).contiguous()), None
+                    return counts.padded(x, counts.wrapped(
+                        tracer, bnd[f], x, lambda x: bc.pad_field(
+                            x, call.halo_lo, call.halo_hi, bnd[f],
+                            align_hi=call.align_hi).contiguous())), None
 
             with tracer.span("stencil.step"):
                 return _run_groups(p, calls, svec, pc, resolve, device,
@@ -225,8 +244,10 @@ def lower_time_loop(p: Program, plan: DataflowPlan, grid_shape,
     field's boundary: zero slabs never change, so ``carry_write="inplace"``
     (the default) copies only the changed interiors into the buffer, in
     place (``copy_`` into the interior view); ``"repad"`` rebuilds interior
-    plus halo slabs in a new buffer; periodic slabs are always rebuilt from
-    the new interior.  Coefficients are loop-invariant and padded once.
+    plus halo slabs in a new buffer; a field periodic on some axis is
+    always rebuilt from the new interior (its wraparound slabs in
+    ``stencil.wrap`` spans).  Coefficients are loop-invariant and padded
+    once.
     """
     grid_shape = tuple(int(g) for g in grid_shape)
     dtype, calls = _make_calls(p, plan, grid_shape)
@@ -278,6 +299,10 @@ def time_loop_from_calls(p: Program, dtype, grid_shape, spec: TimeLoopSpec,
     def run(fields: Mapping, scalars: Mapping | None = None,
             coeffs: Mapping | None = None, *, batched: bool = False):
         tracer = call_tracer()
+
+        def pad_carry(f, x):
+            return counts.wrapped(tracer, bnd[f], x, lambda x: refill(f, x))
+
         with tracer.call("stencil.call") as sp:
             if tracer.enabled:
                 sp.set(**_call_attrs(p, calls, steps, batched, fields))
@@ -297,7 +322,8 @@ def time_loop_from_calls(p: Program, dtype, grid_shape, spec: TimeLoopSpec,
                 for f in spec.persistent:
                     x = torch.as_tensor(fields[f], dtype=dtype,
                                         device=device)
-                    carry[f] = counts.padded(x, fresh_carry(refill, f, x))
+                    carry[f] = counts.padded(x, fresh_carry(pad_carry, f,
+                                                            x))
             # a batch's carries keep their leading axis whole
             inner = {f: (slice(None),) * batched + interior[f]
                      for f in spec.persistent}
@@ -306,9 +332,10 @@ def time_loop_from_calls(p: Program, dtype, grid_shape, spec: TimeLoopSpec,
                 if f in carry:          # persistent: window from carry
                     return carry[f], fpad[f]
                 with tracer.span("stencil.pad"):
-                    return counts.padded(env[f], bc.pad_field(
-                        env[f], call.halo_lo, call.halo_hi, bnd[f],
-                        align_hi=call.align_hi).contiguous()), None
+                    return counts.padded(env[f], counts.wrapped(
+                        tracer, bnd[f], env[f], lambda x: bc.pad_field(
+                            x, call.halo_lo, call.halo_hi, bnd[f],
+                            align_hi=call.align_hi).contiguous())), None
 
             def advance(calls_, pc_):
                 with tracer.span("stencil.step"):
@@ -334,7 +361,7 @@ def time_loop_from_calls(p: Program, dtype, grid_shape, spec: TimeLoopSpec,
                             new.update(update(cur, outputs, upd_scalars))
                     with tracer.span("stencil.write_back"):
                         return write_back(carry, cur, new, inner,
-                                          spec.carry_write, bnd, refill,
+                                          spec.carry_write, bnd, pad_carry,
                                           counts)
 
             for _ in range(steps // chain):

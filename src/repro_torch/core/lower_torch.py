@@ -81,7 +81,7 @@ def lower_steps(p: Program, mode: str = "fused",
         raise ValueError(mode)
     prepadded = set(prepad or {})
     bnd = p.boundaries()
-    cmode = bc.coeff_mode(p)
+    cmode = {ax: bc.coeff_mode(p, ax) for ax in range(p.ndim)}
     dom = serving_domain(p)
     shift = shift_fn or bc.shift_field
 
@@ -105,11 +105,10 @@ def lower_steps(p: Program, mode: str = "fused",
                              for ax in range(p.ndim))
 
         # a serving program's zero-boundary ops read as 0 outside its real
-        # domain (``schedule.serving_domain``), in global coordinates
-        inside = None
+        # domain (``schedule.serving_domain``), in global coordinates, on
+        # each axis along which they do not wrap
+        inside_ax = []
         if dom is not None:
-            inside = torch.ones((), dtype=torch.bool,
-                                device=any_field.device)
             for ax in range(p.ndim):
                 lo = dom[0][ax]
                 n = int(svals[p.scalars[dom[1][ax]]])
@@ -118,13 +117,22 @@ def lower_steps(p: Program, mode: str = "fused",
                     i = i + int(origin[ax])
                 shape = [1] * p.ndim
                 shape[ax] = interior[ax]
-                inside = inside & ((i >= lo) & (i < lo + n)).reshape(shape)
+                inside_ax.append(((i >= lo) & (i < lo + n)).reshape(shape))
+
+        def inside_of(spec):
+            """The domain mask of a field of boundary ``spec`` (None where
+            it wraps on every axis or the program is not served)."""
+            m = None
+            for ax, ok in enumerate(inside_ax):
+                if not bc.is_periodic(spec, ax):
+                    m = ok if m is None else m & ok
+            return m
 
         def coeff(c):
             if coeff_fn is not None:
                 return coeff_fn(c, coeffs)
             ax = p.coeffs[c.coeff]
-            v = bc.shift_field(coeffs[c.coeff], (c.offset,), cmode)
+            v = bc.shift_field(coeffs[c.coeff], (c.offset,), cmode[ax])
             shape = [1] * p.ndim
             shape[ax] = v.shape[0]
             return v.reshape(shape)
@@ -149,9 +157,10 @@ def lower_steps(p: Program, mode: str = "fused",
                 res = torch.tensor(res, dtype=any_field.dtype,
                                    device=any_field.device)
             res = res.expand(interior)
-            if inside is not None and bnd[op.out] != "periodic":
-                res = torch.where(inside, res, torch.zeros((), dtype=res.dtype,
-                                                           device=res.device))
+            mask = inside_of(bnd[op.out])
+            if mask is not None:
+                res = torch.where(mask, res, torch.zeros((), dtype=res.dtype,
+                                                         device=res.device))
             env[op.out] = res
             if p.fields[op.out].role == FieldRole.OUTPUT:
                 outputs[op.out] = res
@@ -169,9 +178,9 @@ def lower_time_loop(p: Program, mode: str, spec, update):
     (slice views, no fresh pad) and ``update(fields, outputs)`` produces the
     new interiors.  Halo slabs follow each field's boundary: zero slabs
     stay zero throughout (``carry_write="inplace"``, the default, copies
-    only the changed interiors into the buffer, in place); periodic slabs —
-    and every slab under ``"repad"`` — are rebuilt from the new interior
-    each step.
+    only the changed interiors into the buffer, in place); the slabs of a
+    field periodic on some axis — and every slab under ``"repad"`` — are
+    rebuilt from the new interior each step.
     """
     from .schedule import adapt_update
 
@@ -226,8 +235,9 @@ def write_back(carry: dict, cur: dict, new: dict, interior: dict,
     ``"inplace"`` on a zero-boundary field copies the new interior into the
     existing buffer (``copy_`` into the interior view; the zero halo slabs
     never change), skipping fields the update left unchanged.  Everything
-    else is rebuilt: interior plus constant zero or refreshed wraparound
-    halo slabs, in a new buffer.  New values that alias a carry buffer are
+    else — a field periodic on any axis included — is rebuilt by
+    ``refill``: interior plus constant zero or refreshed wraparound halo
+    slabs, in a new buffer.  New values that alias a carry buffer are
     cloned first, so no in-place write can clobber a value still to be
     read.  ``counts`` (the orchestrator's ``lower_kernel.Counts``) adds the
     bytes written, the fields written back, those left unchanged and those

@@ -193,7 +193,8 @@ def compile_program(p: Program, grid, *,
     each step's kernels read their windows straight out of those buffers.
 
     ``boundary=`` overrides the program's per-field boundary declarations
-    (``"zero"`` / ``"periodic"`` or a ``{field: kind}`` mapping).
+    (``"zero"`` / ``"periodic"``, a sequence of those, one per axis, or a
+    ``{field: boundary}`` mapping).
 
     ``schedule="stream"`` sweeps each legalised region along axis 0 with a
     shift-register kernel.  ``time_tile=T`` (needs ``steps``/``update``)

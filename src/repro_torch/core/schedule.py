@@ -31,6 +31,7 @@ import numpy as np
 
 from .. import hw
 from ..kernels.build import toolchain
+from . import boundary as bc
 from .ir import Access, CoeffRef, Const, Program, ScalarRef
 from .passes import _zeros, infer_halo, stage_split
 
@@ -210,7 +211,8 @@ def program_fingerprint(p: Program) -> str:
     coefficient axes, field dtypes and boundaries) — equal to the
     reference's fingerprint of the same program."""
     parts = [p.to_text()]
-    parts += [f"field:{n}:{f.role.value}:{f.dtype}:{f.boundary}"
+    parts += [f"field:{n}:{f.role.value}:{f.dtype}:"
+              f"{bc.spec_text(f.boundary)}"
               for n, f in sorted(p.fields.items())]
     parts += [f"coeff:{c}:{ax}" for c, ax in sorted(p.coeffs.items())]
     parts.append(f"scalars:{','.join(p.scalars)}")
@@ -572,7 +574,8 @@ class TimeLoopSpec:
     group_offsets: list
     # how the loop writes the back buffer: "inplace" (the default) copies
     # the changed interiors into the existing buffer (zero-boundary fields;
-    # periodic ones always rebuild); "repad" rebuilds interior plus halo
+    # those periodic on some axis always rebuild); "repad" rebuilds
+    # interior plus halo
     # slabs in a new buffer
     carry_write: str = "inplace"
     # hi-side tile-alignment slab per axis, already folded into field_pad;

@@ -71,6 +71,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..core import boundary as bc
 from ..core.expr_eval import evaluate
 from ..core.ir import (Access, BinOp, BinOpKind, Cmp, CmpKind, CoeffRef,
                        Const, ScalarRef, Select, UnOp, UnOpKind, Program)
@@ -373,12 +374,17 @@ class GroupCall:
         # a periodic op's recomputed margins are exact (wraparound windows);
         # a zero-boundary op's out-of-domain values must read as 0 — on a
         # serving program's bucket at every point, since the real domain is
-        # a runtime extent inside it (``schedule.serving_domain``)
+        # a runtime extent inside it (``schedule.serving_domain``).  Per
+        # axis: an op is masked on the axes along which it does not wrap
         self.domain = serving_domain(p)
-        self.masked = {op.out: bool((self.margins[op.out].any()
-                                     or self.domain is not None)
-                                    and p.fields[op.out].boundary != "periodic")
-                       for op in ops}
+        self.zero_axes = {op.out: tuple(
+            ax for ax in range(ndim)
+            if not bc.is_periodic(p.fields[op.out].boundary, ax))
+            for op in ops}
+        self.masked = {op.out: bool(
+            (self.margins[op.out][list(self.zero_axes[op.out])].any()
+             or self.domain is not None) and self.zero_axes[op.out])
+            for op in ops}
         self.n_scalars = len(p.scalars)
         self.dtype_name = _DTYPE_NAMES[dtype]
         self.itemsize = torch.empty((), dtype=dtype).element_size()
@@ -759,7 +765,7 @@ def _group_reference(call: GroupCall, padded_inputs: dict, scalars_vec,
         res = res.to(dtype).expand(ext)
         if call.masked[op.out]:
             mask = torch.ones((), dtype=torch.bool, device=device)
-            for ax in range(ndim):
+            for ax in call.zero_axes[op.out]:
                 coord = (org[ax] - int(m[ax, 0])
                          + torch.arange(ext[ax], device=device))
                 lo, n = 0, call.global_extent[ax]
@@ -907,17 +913,21 @@ class _Emitter:
         """``code`` as a zero-boundary op's value at ``off`` from the loop's
         point: 0 outside the global domain, checked on the axes along
         which the loop's plane reaches past its tile (a serving program's:
-        0 outside its element's real domain, on every axis)."""
+        0 outside its element's real domain, on every axis), of those
+        along which the op does not wrap."""
         if not self.call.masked[field]:
             return code
+        zero = {a + self.lift for a in self.call.zero_axes[field]}
         dom = self.call.domain
         if dom is not None:         # every axis, against the real extents
             lo3 = (0,) * self.lift + dom[0]
             cond = " && ".join(
                 f"(unsigned)(G{a} + ({off[a] - lo3[a]})) < "
-                f"(unsigned)dn{a - self.lift}" for a in range(self.lift, 3))
+                f"(unsigned)dn{a - self.lift}" for a in range(self.lift, 3)
+                if a in zero)
             return f"(({cond}) ? {code} : 0.0f)"
-        axes = [a for a in range(3) if any(self.loop.margins[a])]
+        axes = [a for a in range(3)
+                if any(self.loop.margins[a]) and a in zero]
         if not axes:
             return code
         cond = " && ".join(f"(unsigned)(G{a} + ({off[a]})) < "

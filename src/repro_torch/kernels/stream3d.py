@@ -91,6 +91,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..core import boundary as bc
 from ..core.expr_eval import evaluate
 from ..core.ir import Access, CoeffRef, Program
 from ..core.schedule import (COPY_BYTES, StreamCTA, plan_stream_cta,
@@ -192,6 +193,12 @@ class StreamCall:
 
         self.ops = [p.ops[i] for i in region.ops]
         self.margins = {p.ops[i].out: gh.margins[i] for i in region.ops}
+        # the axes along which each op's value and each input are zero
+        # outside the domain (masked), the others wrap
+        self.zero_axes = {
+            f: tuple(ax for ax in range(ndim)
+                     if not bc.is_periodic(p.fields[f].boundary, ax))
+            for f in [op.out for op in self.ops] + list(gh.group_inputs)}
         self.produced = {op.out for op in self.ops}
         self.out_names = [op.out for op in self.ops
                           if op.out in set(gh.group_outputs)]
@@ -494,8 +501,8 @@ def _stream_reference(call: StreamCall, padded_inputs: dict, scalars_vec,
                     if not isinstance(res, torch.Tensor):
                         res = torch.tensor(res, device=device)
                     res = res.to(dtype).to(cdt).expand(ext)
-                    zero_bnd = p.fields[op.out].boundary != "periodic"
-                    if zero_bnd and dom is not None:
+                    zero = call.zero_axes[op.out]
+                    if zero and dom is not None:
                         cg = org[0] + c_plane
                         mask = in_domain(ext, [None] + [
                             int(m[a, 0]) for a in range(1, ndim)])
@@ -506,10 +513,10 @@ def _stream_reference(call: StreamCall, padded_inputs: dict, scalars_vec,
                             mask = torch.zeros((), dtype=torch.bool,
                                                device=device)
                         res = torch.where(mask, res, zeros(()))
-                    elif m[1:].any() and zero_bnd:
+                    elif any(m[a].any() for a in zero if a > 0):
                         mask = in_domain(ext, [None] + [
-                            int(m[a, 0]) if m[a].any() else None
-                            for a in range(1, ndim)])
+                            int(m[a, 0]) if m[a].any() and a in zero
+                            else None for a in range(1, ndim)])
                         res = torch.where(mask, res, zeros(()))
                     results[op.out] = res
                     if op.out in ring_depth:
@@ -549,14 +556,17 @@ def _stream_reference(call: StreamCall, padded_inputs: dict, scalars_vec,
                         completed[f].append(new[f])
                     break
                 cg = org[0] + c_plane
-                if 0 <= cg < ge[0]:
-                    mask = in_domain(ext_s, [None] + [
-                        acc * hl[a] if (acc * (hl[a] + hh[a])
-                                        or grid[a] != ge[a]) else None
-                        for a in range(1, ndim)])
-                else:
-                    mask = torch.zeros((), dtype=torch.bool, device=device)
+                masks = {}          # by the axes a field is zero along
                 for f in call.group_inputs:
+                    zero = call.zero_axes[f]
+                    if zero not in masks:
+                        masks[zero] = in_domain(ext_s, [None] + [
+                            acc * hl[a] if a in zero and (
+                                acc * (hl[a] + hh[a]) or grid[a] != ge[a])
+                            else None for a in range(1, ndim)]) \
+                            if 0 <= cg < ge[0] else torch.zeros(
+                                (), dtype=torch.bool, device=device)
+                    mask = masks[zero]
                     v = new[f] if mask is None else torch.where(
                         mask, new[f], zeros(()))
                     field_vals[s + 1][f] = torch.cat(
@@ -971,12 +981,13 @@ class _SweepEmitter:
             if self.bf16:
                 code = f"rnd_bf16({code})"
             m = c.stage_margins[s][op.out]
-            zero_bnd = self.p.fields[op.out].boundary != "periodic"
-            if zero_bnd and c.domain is not None:
+            zero = c.zero_axes[op.out]
+            if zero and c.domain is not None:
                 code = f"(({self._domain_mask()}) ? {code} : 0.0f)"
-            elif m[1:].any() and zero_bnd:
+            elif any(m[a].any() for a in zero if a > 0):
                 axes = [ax for a, ax in zip(range(1, c.ndim),
-                                            "AB"[3 - c.ndim:]) if m[a].any()]
+                                            "AB"[3 - c.ndim:])
+                        if m[a].any() and a in zero]
                 code = f"(({self._mask(axes)}) ? {code} : 0.0f)"
             r = f"r{self.op_index[op.out]}"
             stores.append(f"const float {r} = {code};")
@@ -1061,10 +1072,12 @@ class _SweepEmitter:
                              f"n{self.inputs[f]});")
             lines.append("}")
         else:
-            axes = [ax for i, ax in enumerate("AB")
-                    if acc * self.span2[i] or self.N[i] != self.NG[i]]
-            ok = self._mask(axes) if axes else "true"
             for f in c.group_inputs:
+                zero2 = self.two([a in c.zero_axes[f]
+                                  for a in range(1, c.ndim)], True)
+                axes = [ax for i, ax in enumerate("AB") if zero2[i] and (
+                    acc * self.span2[i] or self.N[i] != self.NG[i])]
+                ok = self._mask(axes) if axes else "true"
                 key = ("field", s + 1, f)
                 off, D, (FA, FB) = self.buffer(key)
                 lines.append(f"{self.bname(key)}[pmod(qs, {D}) * {FA * FB}"

@@ -56,8 +56,19 @@ def serving_program(p: Program) -> Program:
 
     Appending (never inserting) keeps existing scalar indices stable for
     the kernels' scalar rows.  Idempotent: a program that already carries
-    the size scalars is returned unchanged.
+    the size scalars is returned unchanged.  A program with a per-axis
+    boundary (a field that wraps on some axes only) is refused: the
+    embedding and the refresh fill each field's bucket cells by one kind.
     """
+    mixed = sorted(n for n, f in p.fields.items()
+                   if isinstance(f.boundary, tuple))
+    if mixed:
+        raise ValueError(
+            f"serving fields with a per-axis boundary {mixed} "
+            f"({bc.spec_text(p.fields[mixed[0]].boundary)}) is not "
+            "supported: the bucket embedding and refresh fill a field's "
+            "cells by one kind on every axis; compile it with "
+            "compile_program instead")
     names = size_scalar_names(p.ndim)
     if all(n in p.scalars for n in names):
         return p

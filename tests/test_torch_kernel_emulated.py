@@ -226,6 +226,11 @@ CASES = [
     (tracer_advection, "zero", torch.float32, (1, 4, 32), 1e-5),
     (tracer_advection, "periodic", torch.float32, (1, 4, 32), 1e-5),
     (tracer_advection, "zero", torch.bfloat16, (2, 4, 32), 2e-2),
+    # MONC's doubly periodic domain: margins masked along z alone
+    (pw_advection, ("periodic", "periodic", "zero"), torch.float32,
+     (1, 4, 32), 0.0),
+    (tracer_advection, ("periodic", "periodic", "zero"), torch.float32,
+     (1, 4, 32), 1e-5),
 ]
 
 
@@ -483,6 +488,14 @@ STREAM_CASES = [
     # eight regions; a four-stage chain cut into chunks
     (tracer_advection, "periodic", torch.float32, 1, 1, None, None),
     (pw_advection, "zero", torch.float32, 4, 1, (4, 32), 4),
+    # a boundary per axis: the doubly periodic domain, and a two-step
+    # chain that wraps along a plane axis (axis 1) only
+    (pw_advection, ("periodic", "periodic", "zero"), torch.float32, 1, 1,
+     None, None),
+    (tracer_advection, ("periodic", "periodic", "zero"), torch.float32, 1,
+     1, None, None),
+    (pw_advection, ("zero", "periodic", "zero"), torch.float32, 2, 1, None,
+     None),
 ]
 
 
